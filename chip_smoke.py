@@ -16,15 +16,28 @@ Phases, each fatal on failure (non-zero exit, no final line):
    989 TFLOP/s);
 4. reference: a small Llama with head_dim 128 served on the card and on
    the CPU (where the wrappers run their twins), logits compared;
-5. serve (the main path): ``Llama(llama3_8b(2048), w4_group=128)`` with
+5. serve (slice 1's main path): ``Llama(llama3_8b(2048), w4_group=128)`` with
    random weights from a seeded generator, 12 greedy requests through
    ``ServeLoop(max_slots=8)``, then one request again through
    ``Llama.generate`` alone, which must give the same tokens; the
    kernels' launch counts, reset just before and read just after, must
    show every kernel ran as often as the path calls it;
 6. with ``--profile``, a traced run of 5 decode steps at 8 busy slots
-   (``torch.profiler``): device busy share and kernel time by name;
-7. the kernels line (JSON), then the final line
+   (``torch.profiler``): device busy share and kernel time by name (and
+   the same for 3 forwards of each engine in phase 9);
+7. K1 (``int8_matmul_dequant``) against its twin, bit for bit, at the
+   engine's call, a large call and a ragged A4 call with zp != 0, timed
+   beside ``torch._int_mm`` on codes and its int8 bound (1,979 TOP/s);
+8. conv routes: every IntConv2d route at ResNet-18's and NIN-GC's layer
+   shapes; the int32 accumulators equal an f64 conv of the same codes;
+9. engine (slice 2's main path): ``resnet18()`` with seeded random
+   weights, ``prepare`` W8A8 with fused BN, 4 calibration forwards at
+   batch 64, ``fuse_bn_iao``, ``freeze_int``, engine forwards at batch
+   512; K1 must launch once per forward (counts zeroed just before, read
+   just after); the same engine on the CPU must agree on 8 images;
+   img/s of the engine and of the port's fp32 eval. Then the same for
+   NIN-GC W4A4 at batch 1024 (no kernel on that path);
+10. the kernels line (JSON), then the final line
    ``{"ok": true, "device": {...}}``.
 
 Details of every measurement go to ``<out>/chip_smoke.json`` (``--out``,
@@ -47,6 +60,7 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 BF16_OPS_PER_S = 989e12  # dense bf16 tensor-core peak
+INT8_OPS_PER_S = 1979e12  # dense int8 tensor-core peak
 L2_BYTES = 50 * 2**20
 GROUP = 128
 # (K, N) of each W4 projection of one Llama-3-8B block, and the lm_head,
@@ -64,6 +78,40 @@ ATT_ABS_TOL = 1e-3
 # boundary before a W4 matmul (2^-8 relative on that term)
 MODEL_REL_TOL = 1e-2
 N_REQUESTS, SLOTS, NEW_TOKENS = 12, 8, 32
+# K1 calls: (label, M, K, N, s_x, zp, qmin, qmax, timed launches). "path" is
+# ResNet-18's fc at the engine batch of 512
+K1_CASES = [
+    ("path", 512, 512, 10, 0.05, 0.0, -128.0, 127.0, 200),
+    ("large", 8192, 4096, 4096, 0.05, 0.0, -128.0, 127.0, 10),
+    ("ragged A4 zp", 333, 200, 19, 0.5, 3.0, -8.0, 7.0, 100),
+]
+# IntConv2d layer shapes (cin, size, cout, kernel, stride, padding, groups):
+# every distinct conv of ResNet-18 and of NIN-GC's default widths
+RESNET_CONVS = [(3, 32, 64, 3, 1, 1, 1), (64, 32, 64, 3, 1, 1, 1), (64, 32, 128, 3, 2, 1, 1),
+                (128, 16, 128, 3, 1, 1, 1), (64, 32, 128, 1, 2, 0, 1),
+                (128, 16, 256, 3, 2, 1, 1), (256, 8, 256, 3, 1, 1, 1),
+                (128, 16, 256, 1, 2, 0, 1), (256, 8, 512, 3, 2, 1, 1),
+                (512, 4, 512, 3, 1, 1, 1), (256, 8, 512, 1, 2, 0, 1)]
+NIN_CONVS = [(3, 32, 256, 5, 1, 2, 1), (256, 32, 256, 1, 1, 0, 2), (256, 16, 512, 3, 1, 1, 16),
+             (512, 16, 512, 1, 1, 0, 4), (512, 8, 1024, 3, 1, 1, 32),
+             (1024, 8, 1024, 1, 1, 0, 8), (1024, 8, 10, 1, 1, 0, 1)]
+ROUTE_BATCH = 16
+# the first layer's f32 sums of at most 75 products: ~1e-6 relative; TF32
+# operands (10-bit mantissas) would miss by ~1e-3
+F32_ROUTE_RTOL = 1e-5
+# engine paths: bench.py's configurations, ResNet-18 W8A8 at batch 512 and
+# NIN-GC W4A4 at batch 1024; calibration of 4 forwards at batch 64
+RESNET_BATCH, NIN_BATCH = 512, 1024
+CALIB_STEPS, CALIB_BATCH, ENGINE_ITERS, CPU_BATCH = 4, 64, 10, 8
+# Card vs CPU engine logits, relative to max(1, max|logit|): the integer
+# convolutions are exact on both; the first layer's f32 sums run in
+# another order, so a chained code there may move one step at a .5
+# boundary, and the change reaches the logits damped by later layers.
+CARD_CPU_TOL = 2e-2
+# engine vs the fake-quant model it was frozen from: the JAX package's own
+# bound (tests/test_resnet_quant.py, atol 0.1): the fake-quant model sums
+# dequantized values in f32, so codes at .5 boundaries move in many layers
+FQ_TOL = 0.1
 
 
 def log(*a):
@@ -286,13 +334,7 @@ class _Timed:
 
 
 def profile_decode(model, dev, reqs, report, out_dir: Path):
-    """A traced run (``torch.profiler``) of 5 decode steps with all 8
-    slots busy: the device's busy share of the wall time and the kernel
-    time by name. Tracing adds host time, so the untraced step time above
-    is the end-to-end figure."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    """A traced run of 5 decode steps with all 8 slots busy."""
     from micronet_tpu_torch.serve import Request, ServeLoop
 
     loop = ServeLoop(model, SLOTS, device=dev)
@@ -300,12 +342,23 @@ def profile_decode(model, dev, reqs, report, out_dir: Path):
         loop.submit(Request(1000 + r.rid, r.prompt, NEW_TOKENS))
     loop.step()  # admits every slot
     loop.step()
+    report["profile"] = trace(loop.step, 5, f"decode steps at {SLOTS} busy slots",
+                              out_dir / "chip_smoke_profile.txt")
+
+
+def trace(step, steps: int, what: str, table: Path) -> dict:
+    """``steps`` calls of ``step`` under ``torch.profiler``: the device's
+    busy share of the wall time and the kernel time by name (the full
+    table goes to ``table``). Tracing adds host time, so untraced times
+    are the end-to-end figures."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     torch.cuda.synchronize()
-    steps = 5
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            loop.step()
+            step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     events = prof.key_averages()
@@ -313,19 +366,15 @@ def profile_decode(model, dev, reqs, report, out_dir: Path):
     kernels = [e for e in events if e.device_type == DeviceType.CUDA]
     device_s = sum(e.self_device_time_total for e in kernels) / 1e6
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
-    (out_dir / "chip_smoke_profile.txt").write_text(
-        events.table(sort_by="self_device_time_total", row_limit=40))
-    res = dict(steps=steps, wall_s=wall, device_busy_s=device_s,
-               busy_share=device_s / wall,
-               by_kernel=[dict(name=e.key, calls=e.count,
-                               device_ms=e.self_device_time_total / 1e3) for e in top])
-    report["profile"] = res
-    log(f"profile: {steps} decode steps at {SLOTS} busy slots, traced wall "
-        f"{1e3 * wall / steps:.2f} ms/step, device busy {1e3 * device_s / steps:.2f} ms/step "
-        f"({100 * device_s / wall:.1f}% busy)")
+    table.write_text(events.table(sort_by="self_device_time_total", row_limit=40))
+    log(f"profile: {steps} {what}, traced wall {1e3 * wall / steps:.2f} ms each, device busy "
+        f"{1e3 * device_s / steps:.2f} ms each ({100 * device_s / wall:.1f}% busy)")
     for e in top:
-        log(f"  {e.self_device_time_total / 1e3 / steps:9.3f} ms/step  {e.count // steps:6d} "
-            f"calls/step  {e.key[:90]}")
+        log(f"  {e.self_device_time_total / 1e3 / steps:9.3f} ms  {e.count // steps:6d} "
+            f"calls  {e.key[:90]}")
+    return dict(steps=steps, wall_s=wall, device_busy_s=device_s, busy_share=device_s / wall,
+                by_kernel=[dict(name=e.key, calls=e.count,
+                                device_ms=e.self_device_time_total / 1e3) for e in top])
 
 
 def serve(dev, seed, report, profile_dir=None):
@@ -414,11 +463,256 @@ def serve(dev, seed, report, profile_dir=None):
     return launches
 
 
+# ---------------------------------------------------------------- phase 3b
+
+
+def check_k1(dev, gen, report):
+    """K1 against its twin, bit for bit, at the engine's call, a large call
+    and a ragged A4 call with zp != 0. The library yardstick is
+    ``torch._int_mm`` over codes quantized beforehand: the integer product
+    only, without the quantize and the dequantize that K1 fuses (N padded
+    to 16, which ``_int_mm`` needs)."""
+    from micronet_tpu_torch.ops import int_matmul as i8
+
+    out_cases = {}
+    for label, m, k, n, s_x, zp, qmin, qmax, iters in K1_CASES:
+        x = torch.randn((m, k), device=dev, generator=gen) * (40 * s_x)
+        ties = (torch.randint(-20, 20, (m, k), device=dev, generator=gen) + 0.5) * s_x
+        x = torch.where(torch.rand((m, k), device=dev, generator=gen) < 0.25, ties, x)
+        w_q = torch.randint(-127, 128, (k, n), dtype=torch.int8, device=dev, generator=gen)
+        ws = torch.rand((n,), device=dev, generator=gen) * 0.02 + 1e-3
+        args = (x, w_q, ws, torch.tensor(s_x, device=dev), torch.tensor(zp, device=dev),
+                qmin, qmax)
+        got = i8.int8_matmul_dequant(*args)
+        ref = i8.int8_matmul_dequant_ref(*args)
+        torch.cuda.synchronize()
+        err = (got - ref).abs().max().item()
+        if not torch.equal(got, ref):
+            fail(f"K1 {label} M={m} K={k} N={n}: kernel differs from its twin "
+                 f"(max|err| {err:.3e}, {int((got != ref).sum())} elements)")
+        ms = time_ms(i8.int8_matmul_dequant, [args], iters)
+        plain = time_ms(i8.int8_matmul_dequant_ref, [args], max(3, iters // 20), 1)
+        codes = i8.quantize_int8(x, s_x, zp, qmin, qmax)
+        w_nk = torch.zeros((max(16, -(-n // 8) * 8), k), dtype=torch.int8, device=dev)
+        w_nk[:n] = w_q.t()
+        lib = time_ms(torch._int_mm, [(codes, w_nk.t())], iters)
+        nbytes = m * k * 4 + k * n + n * 4 + m * n * 4 + 8
+        ops = 2 * m * k * n
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S
+        out_cases[label] = dict(m=m, k=k, n=n, zp=zp, qmin=qmin, qmax=qmax, ms=ms,
+                                plain_ms=plain, library_ms=lib,
+                                bound_ms=max(t_bytes, t_ops) * 1e3,
+                                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                                max_abs_err=err)
+        log(f"K1 {label:12s} M={m:5d} K={k:5d} N={n:5d}: equal to its twin; kernel {ms:.4f} ms, "
+            f"plain {plain:.4f} ms, torch._int_mm on codes {lib:.4f} ms, bound "
+            f"{out_cases[label]['bound_ms']:.4f} ms ({out_cases[label]['bound_by']})")
+    report["k1_cases"] = out_cases
+    return out_cases
+
+
+# ---------------------------------------------------------------- phase 3c
+
+
+def _route_layer(dev, gen, cin, size, cout, k, stride, pad, groups, w4):
+    from micronet_tpu_torch.infer.engine import IntConv2d, _maybe_pack_w4
+
+    lim = 8 if w4 else 128
+    w = torch.randint(1 - lim, lim, (cout, cin // groups, k, k), dtype=torch.int8,
+                      device=dev, generator=gen)
+    conv = IntConv2d(w, torch.rand(cout, device=dev, generator=gen) * 0.01 + 1e-3,
+                     torch.tensor(0.03), None, (stride, stride), (pad, pad), (1, 1), groups,
+                     -float(lim), lim - 1.0)
+    if w4:
+        _maybe_pack_w4(conv, conv._weights_hwio().reshape(-1, cout))
+    x = torch.randint(-lim, lim, (ROUTE_BATCH, cin, size, size), dtype=torch.int8, device=dev,
+                      generator=gen)
+    return conv, w, x
+
+
+def check_conv_routes(dev, gen, report):
+    """Every IntConv2d route at ResNet-18's and NIN-GC's layer shapes.
+    Integer layers: the int32 accumulator of im2col + ``torch._int_mm``
+    against an f64 convolution of the same codes, bit for bit. The first
+    layer: its f32 convolution of dequantized values (TF32 on outside, off
+    inside the call) against the same convolution in f64."""
+    import torch.nn.functional as TF
+
+    rows = []
+    for model, shapes, w4 in (("resnet18", RESNET_CONVS, False), ("nin_gc", NIN_CONVS, True)):
+        for cin, size, cout, k, stride, pad, groups in shapes:
+            conv, w, x = _route_layer(dev, gen, cin, size, cout, k, stride, pad, groups, w4)
+            shape = f"{model} {cin}->{cout} k{k} s{stride} g{groups} at {size}x{size}"
+            if conv.f32_dequant:
+                torch.backends.cudnn.allow_tf32 = True
+                try:
+                    got = conv.dequant_conv(x)
+                finally:
+                    torch.backends.cudnn.allow_tf32 = False
+                xd = x.double() * conv.act_scale.double()
+                wd = w.double() * conv.w_scale.double()[:, None, None, None]
+                ref = TF.conv2d(xd, wd, None, stride, pad, 1, groups)
+                err = (got.double() - ref).abs().max().item()
+                tol = F32_ROUTE_RTOL * ref.abs().max().item()
+                ok = err <= tol
+                rows.append(dict(layer=shape, route="f32 dequant", max_abs_err=err, tol=tol))
+            else:
+                got = conv.int_acc(x)
+                ref = TF.conv2d(x.double(), w.double(), None, stride, pad, 1, groups)
+                if not torch.equal(ref, ref.round()):  # an inexact f64 algorithm: use the CPU
+                    ref = TF.conv2d(x.cpu().double(), w.cpu().double(), None, stride, pad, 1,
+                                    groups).to(dev)
+                ok = got.dtype == torch.int32 and torch.equal(got.double(), ref)
+                err = (got.double() - ref).abs().max().item()
+                rows.append(dict(layer=shape, route="im2col + _int_mm", max_abs_err=err))
+            torch.cuda.synchronize()
+            if not ok:
+                fail(f"conv route {rows[-1]['route']} at {shape}: max|err| {err:.3e}")
+    log(f"conv routes: {len(rows)} layer shapes at batch {ROUTE_BATCH}: every im2col + "
+        f"_int_mm accumulator equals the f64 conv; the f32 first layers within "
+        f"{F32_ROUTE_RTOL:g} x max|ref| (worst "
+        f"{max(r['max_abs_err'] for r in rows if 'tol' in r):.3e})")
+    report["conv_routes"] = rows
+
+
+# ---------------------------------------------------------------- phases 6, 7
+
+
+def _forward_ms(model, x, iters):
+    """Mean ms of ``model(x)`` over ``iters`` forwards (CUDA events)."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        model(x)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+@torch.no_grad()
+def engine_path(name, build, cfg, batch, dev, seed, report, profile_dir=None):
+    """One IAO engine flow at full width on the card: random weights from a
+    seeded generator, ``prepare``, calibration forwards in train mode,
+    ``fuse_bn_iao``, ``freeze_int`` with an example input, then the engine
+    at ``batch``. The kernel counts are zeroed just before the engine
+    forwards and read just after. The same engine on the CPU (the
+    wrappers' twins, f64 convs) must agree on a few images."""
+    import copy
+
+    from micronet_tpu_torch.infer import freeze_int, fuse_bn_iao
+    from micronet_tpu_torch.nn import eval_mode, prepare, train_mode
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    t0 = time.perf_counter()
+    model = build(device=dev, generator=gen)
+    fp32 = eval_mode(copy.deepcopy(model))
+    q = train_mode(prepare(model, cfg, device=dev))
+    for _ in range(CALIB_STEPS):
+        q(torch.randn((CALIB_BATCH, 32, 32, 3), device=dev, generator=gen))
+    fused = eval_mode(fuse_bn_iao(eval_mode(q), cfg, device=dev))
+    x = torch.randn((batch, 32, 32, 3), device=dev, generator=gen)
+    engine = eval_mode(freeze_int(fused, example_input=x[:1], device=dev))
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    chained = [n for n, m in engine.named_modules() if getattr(m, "chained", False)]
+
+    kernels = _all_kernels()
+    for kern in kernels:
+        kern.launches = 0
+    # -- the main path: engine forwards --------------------------------
+    out = engine(x)
+    engine_ms = _forward_ms(engine, x, ENGINE_ITERS)
+    launches = {kern.__name__: kern.launches for kern in kernels}
+    # ------------------------------------------------------------------
+    forwards = 1 + ENGINE_ITERS
+    if tuple(out.shape) != (batch, 10) or not torch.isfinite(out).all():
+        fail(f"{name}: engine output {tuple(out.shape)}, finite={bool(torch.isfinite(out).all())}")
+    fp32(x)
+    fp32_ms = _forward_ms(fp32, x, ENGINE_ITERS)
+    if profile_dir is not None:
+        report[f"{name}_profile"] = trace(lambda: engine(x), 3, f"{name} engine forwards",
+                                          profile_dir / f"chip_smoke_{name}_profile.txt")
+    fq = fused(x)
+    fq_agree = (out.argmax(-1) == fq.argmax(-1)).float().mean().item()
+    fq_diff = _agree(f"{name}: engine vs its fake-quant model", out[:CPU_BATCH],
+                     fq[:CPU_BATCH], FQ_TOL)
+    cpu_engine = copy.deepcopy(engine).to("cpu")
+    t1 = time.perf_counter()
+    ref = cpu_engine(x[:CPU_BATCH].cpu())
+    cpu_s = time.perf_counter() - t1
+    diff = _agree(f"{name}: engine on the card vs on the CPU", out[:CPU_BATCH].cpu(), ref,
+                  CARD_CPU_TOL)
+    res = dict(batch=batch, setup_s=setup_s, chained_layers=len(chained), launches=launches,
+               forwards=forwards, engine_ms=engine_ms, engine_img_s=batch / engine_ms * 1e3,
+               fp32_ms=fp32_ms, fp32_img_s=batch / fp32_ms * 1e3,
+               engine_vs_fake_quant_max_abs=fq_diff, engine_vs_fake_quant_argmax_agree=fq_agree,
+               card_vs_cpu_max_abs=diff, cpu_rows=CPU_BATCH, cpu_engine_s=cpu_s,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    report[name] = res
+    log(f"{name}: setup {setup_s:.1f} s, {len(chained)} chained layers; engine at batch "
+        f"{batch}: {engine_ms:.2f} ms = {res['engine_img_s']:.0f} img/s, port fp32 eval "
+        f"(TF32 off) {fp32_ms:.2f} ms = {res['fp32_img_s']:.0f} img/s; launches {launches} "
+        f"over {forwards} forwards")
+    log(f"{name}: on {CPU_BATCH} images, engine vs its fake-quant model max|diff| "
+        f"{fq_diff:.3e}, engine on the card vs on the CPU max|diff| {diff:.3e}; argmax "
+        f"agreement with the fake-quant model over the batch {fq_agree:.4f}")
+    return launches, forwards
+
+
+def _agree(what, got, ref, rtol):
+    """Fail unless ``got`` is within ``rtol * max(1, max|ref|)`` of ``ref``
+    and has its argmax in every row whose top-2 margin in ``ref`` exceeds
+    twice that tolerance (closer logits may swap within it). Returns the
+    max |difference|."""
+    diff = (got - ref).abs().max().item()
+    tol = rtol * max(1.0, ref.abs().max().item())
+    top2 = ref.topk(2, dim=-1).values
+    decided = (top2[:, 0] - top2[:, 1]) > 2 * tol
+    same = got.argmax(-1) == ref.argmax(-1)
+    if diff > tol or not bool(same[decided].all()):
+        fail(f"{what}: max|diff| {diff:.3e} (tol {tol:.3e}), argmax equal {same.tolist()} "
+             f"(rows decided by the tolerance {decided.tolist()})")
+    return diff
+
+
+def _all_kernels():
+    from micronet_tpu_torch.ops import decode_attention as da
+    from micronet_tpu_torch.ops import int4_matmul as im
+    from micronet_tpu_torch.ops import int_matmul as i8
+
+    return (im.int4_matmul_grouped_hl8, da.decode_attend_q8kv_cur, da.decode_attend_q8kv,
+            i8.int8_matmul_dequant)
+
+
+def resnet_engine(dev, seed, report, profile_dir=None):
+    from micronet_tpu_torch.models.resnet import resnet18
+    from micronet_tpu_torch.quant.config import QuantConfig
+
+    launches, forwards = engine_path("resnet18_w8a8", resnet18,
+                                     QuantConfig(a_bits=8, w_bits=8, bn_fuse=True),
+                                     RESNET_BATCH, dev, seed, report, profile_dir)
+    want = {k.__name__: 0 for k in _all_kernels()}
+    want["int8_matmul_dequant"] = forwards  # the fc, once per forward
+    if launches != want:
+        fail(f"resnet18_w8a8: launch counts {launches}, expected {want}")
+    return launches
+
+
+def nin_engine(dev, seed, report, profile_dir=None):
+    from micronet_tpu_torch.models.nin_gc import Net
+    from micronet_tpu_torch.quant.config import QuantConfig
+
+    # NIN-GC's classifier is a 1x1 conv: this path runs no hand-written kernel
+    engine_path("nin_gc_w4a4", Net, QuantConfig(a_bits=4, w_bits=4, bn_fuse=True),
+                NIN_BATCH, dev, seed, report, profile_dir)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
-                    help="also trace 5 decode steps with torch.profiler")
+                    help="also trace 5 decode steps and 3 forwards of each engine "
+                         "with torch.profiler")
     ap.add_argument("--out", type=Path, default=Path("build/chip_smoke"),
                     help="directory for the JSON report and the profile table")
     args = ap.parse_args()
@@ -454,7 +748,14 @@ def main() -> int:
     report["reference_max_abs"] = check_reference(dev)
     out_dir = args.out
     out_dir.mkdir(parents=True, exist_ok=True)
-    launches = serve(dev, args.seed, report, out_dir if args.profile else None)
+    profile_dir = out_dir if args.profile else None
+    launches = serve(dev, args.seed, report, profile_dir)
+    k1 = check_k1(dev, gen, report)
+    check_conv_routes(dev, gen, report)
+    # each kernel's count from its own slice's main path
+    launches["int8_matmul_dequant"] = resnet_engine(dev, args.seed, report,
+                                                    profile_dir)["int8_matmul_dequant"]
+    nin_engine(dev, args.seed, report, profile_dir)
 
     src = "micronet_tpu_torch/ops/csrc/"
     rows = [
@@ -472,6 +773,13 @@ def main() -> int:
              launches=launches["decode_attend_q8kv"],
              per=f"one call, G={ATT_G} R={ATT_R} D={ATT_D} S={ATT_S}",
              **att["decode_attend_q8kv"]),
+        dict(name="int8_matmul_dequant", route="cuda", source=src + "int_matmul.cu",
+             replaces="micronet_tpu/ops/int_matmul.py:114",
+             launches=launches["int8_matmul_dequant"],
+             per="one call at M=512 K=512 N=10 (ResNet-18's fc at batch 512); library_ms is "
+                 "torch._int_mm on codes quantized beforehand: the integer product only",
+             **{k: v for k, v in k1["path"].items()
+                if k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err")}),
     ]
     report["kernels"] = rows
     report["seconds"] = time.perf_counter() - t_start

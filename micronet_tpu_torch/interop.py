@@ -1,15 +1,19 @@
-"""Weights from the JAX package into the port.
+"""Weights and state from the JAX package into the port.
 
-The JAX model's parameters arrive as a flat ``{path-tuple: np.ndarray}``
+The JAX model's variables arrive as a flat ``{path-tuple: np.ndarray}``
 dict, the shape ``nnx.state(model).flat_state()`` yields once each
-variable is turned into an array, e.g. ``('blocks', 0, 'wqkv', 'packed')``,
-``('blocks', 0, 'attn_norm', 'weight')``, ``('embed',)`` or
-``('lm_head', 'packed')``. This module takes numpy only; it never
-imports the JAX package.
+variable is turned into an array, e.g. ``('blocks', 0, 'wqkv', 'packed')``
+or ``('conv1', 'layers', 0, 'activation_quantizer', 'min_val')``. This
+module takes numpy only; it never imports the JAX package.
 
-Both packages keep a Linear weight as (in, out) and the W4 weights as
-hl8-packed (K/2, N) int8 with (K/g, N) f32 scales, so every tensor moves
-as it is; only the key changes (``blocks.0.wqkv.packed``).
+The port names its parameters and buffers as the JAX package names its
+variables, so a path joined with dots is the port's ``state_dict`` key.
+Linear weights are (in, out) in both packages and the W4 weights are the
+same hl8 bytes, so those move as they are. Convolutions are the one
+layout change (``docs/design.md``, Layouts): the JAX package keeps conv
+kernels HWIO and per-out-channel conv statistics (1, 1, 1, O); the port
+keeps them OIHW and (O, 1, 1, 1). Every 4-D array therefore moves
+through the same transpose (3, 2, 0, 1).
 """
 
 from __future__ import annotations
@@ -19,7 +23,7 @@ from typing import Dict, Mapping, Tuple
 import numpy as np
 import torch
 
-__all__ = ["llama_state_from_numpy"]
+__all__ = ["llama_state_from_numpy", "cnn_state_from_numpy"]
 
 
 def llama_state_from_numpy(
@@ -40,4 +44,21 @@ def llama_state_from_numpy(
     if embed is None or tuple(embed.shape) != (cfg.vocab, cfg.dim):
         raise ValueError(f"embed must be ({cfg.vocab}, {cfg.dim}), got "
                          f"{None if embed is None else tuple(embed.shape)}")
+    return state
+
+
+def cnn_state_from_numpy(flat: Mapping[Tuple, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """The port's ``state_dict`` (CPU tensors) for a JAX CNN's variables in
+    ``flat``: the float weights and BN statistics of a plain model, or a
+    prepared model's quantizer state (``min_val``, ``max_val``, ``scale``,
+    ``zero_point``, ``initialized``) and fused-BN state (``gamma``,
+    ``beta``, ``running_*``, ``bn_initialized``). Load it with
+    ``load_state_dict`` (strict) into the port model of the same
+    architecture and stage."""
+    state: Dict[str, torch.Tensor] = {}
+    for path, value in flat.items():
+        arr = np.asarray(value)
+        if arr.ndim == 4:  # HWIO kernel or (1, 1, 1, O) statistics -> OIHW
+            arr = arr.transpose(3, 2, 0, 1)
+        state[".".join(str(p) for p in path)] = torch.from_numpy(np.array(arr, order="C"))
     return state

@@ -1,5 +1,6 @@
-"""Base modules of the port."""
+"""Modules, QAT layers and the ``prepare`` transform of the port."""
 
-from .modules import Linear
+from .modules import Linear, eval_mode, train_mode
+from .transform import prepare
 
-__all__ = ["Linear"]
+__all__ = ["Linear", "eval_mode", "prepare", "train_mode"]

@@ -29,7 +29,7 @@ __all__ = ["SOURCES", "CSRC", "BUILD_DIR", "load", "build_all", "check", "check_
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("int4_matmul", "decode_attention")
+SOURCES = ("int4_matmul", "decode_attention", "int_matmul")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

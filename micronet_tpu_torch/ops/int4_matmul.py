@@ -28,6 +28,7 @@ from typing import Tuple
 import torch
 
 from .._device import on_cuda
+from ..quant.rounding import round_half_away
 from . import _build
 
 __all__ = [
@@ -44,11 +45,6 @@ __all__ = [
     "int4_matmul_grouped_hl8_ref",
     "wo_linear_grouped_hl8",
 ]
-
-
-def round_half_away(x: torch.Tensor) -> torch.Tensor:
-    """``sign(x) * floor(|x| + 0.5)``: the JAX package's rounding."""
-    return torch.sign(x) * torch.floor(torch.abs(x) + 0.5)
 
 
 def symmetric_rtn(

@@ -24,7 +24,7 @@ import torch
 
 from .._device import resolve_device
 from ..ops.decode_attention import decode_attend_q8kv
-from ..ops.int4_matmul import round_half_away
+from .rounding import round_half_away
 
 __all__ = [
     "QuantKVCache",

@@ -13,6 +13,7 @@ import torch
 
 from micronet_tpu_torch.ops import decode_attention as tda
 from micronet_tpu_torch.ops import int4_matmul as tim
+from micronet_tpu_torch.ops import int_matmul as ti8
 
 pytestmark = pytest.mark.cuda
 
@@ -102,3 +103,127 @@ def test_cur_kernel_equals_append_then_attend_bit_for_bit(cuda):
     a = tda.decode_attend_q8kv_cur(kc, ks, vc, vs, q, bound, *cur)
     b = tda.decode_attend_q8kv(kc2, ks2, vc2, vs2, q, bound + 1)
     assert torch.equal(a, b)
+
+
+# (M, K, N, s_x, zp, qmin, qmax): ResNet-18's fc call, ragged edges with
+# zp != 0, the A4 range, and a shape of many blocks
+_K1_CASES = [
+    (512, 512, 10, 0.05, 0.0, -128.0, 127.0),
+    (33, 200, 19, 0.0625, 3.0, -128.0, 127.0),
+    (17, 64, 130, 0.5, -2.0, -8.0, 7.0),
+    (1000, 1024, 300, 0.02, 0.0, -128.0, 127.0),
+]
+
+
+@pytest.mark.parametrize("m,k,n,s_x,zp,qmin,qmax", _K1_CASES)
+def test_int8_matmul_dequant_kernel_equals_twin_bit_for_bit(cuda, m, k, n, s_x, zp, qmin, qmax):
+    gen = _gen(m + k)
+    x = torch.randn((m, k), device=cuda, generator=gen) * (40 * s_x)
+    # a quarter of x on .5 code boundaries
+    ties = (torch.randint(-20, 20, (m, k), device=cuda, generator=gen) + 0.5) * s_x
+    x = torch.where(torch.rand((m, k), device=cuda, generator=gen) < 0.25, ties, x)
+    w_q = torch.randint(-127, 128, (k, n), dtype=torch.int8, device=cuda, generator=gen)
+    w_scale = torch.rand((n,), device=cuda, generator=gen) * 0.02 + 1e-3
+    s, z = torch.tensor(s_x, device=cuda), torch.tensor(zp, device=cuda)
+    before = ti8.int8_matmul_dequant.launches
+    out = ti8.int8_matmul_dequant(x, w_q, w_scale, s, z, qmin, qmax)
+    torch.cuda.synchronize()
+    assert ti8.int8_matmul_dequant.launches == before + 1
+    assert torch.equal(out, ti8.int8_matmul_dequant_ref(x, w_q, w_scale, s, z, qmin, qmax))
+
+
+def test_int8_matmul_dequant_kernel_rejects_what_it_cannot_take(cuda):
+    x = torch.randn((4, 16), device=cuda)
+    with pytest.raises(ValueError):  # int8 weights on the CPU
+        ti8.int8_matmul_dequant(x, torch.zeros((16, 8), dtype=torch.int8), torch.ones(8, device=cuda),
+                                1.0, 0.0)
+
+
+# ResNet-18 and NIN-GC layer shapes at batch 4 (see tests/test_torch_engine.py)
+_CONV_CASES = [
+    (4, 64, 32, 64, 3, 1, 1, 1, False),
+    (4, 64, 32, 128, 3, 2, 1, 1, False),
+    (4, 64, 32, 128, 1, 2, 0, 1, False),
+    (4, 512, 4, 512, 3, 1, 1, 1, False),
+    (1, 512, 4, 512, 3, 1, 1, 1, False),
+    (4, 256, 16, 512, 3, 1, 1, 16, True),
+    (4, 512, 8, 1024, 3, 1, 1, 32, True),
+    (4, 1024, 8, 10, 1, 1, 0, 1, True),
+]
+
+
+@pytest.mark.parametrize("n,cin,size,co,k,s,p,groups,w4", _CONV_CASES)
+def test_int_conv_card_route_exact(cuda, n, cin, size, co, k, s, p, groups, w4):
+    """im2col + ``torch._int_mm`` on the card: the int32 accumulator
+    equals an f64 convolution of the same codes."""
+    from micronet_tpu_torch.infer.engine import IntConv2d, _maybe_pack_w4
+
+    gen = _gen(cin + co)
+    lim = 8 if w4 else 128
+    w = torch.randint(1 - lim, lim, (co, cin // groups, k, k), dtype=torch.int8, device=cuda,
+                      generator=gen)
+    x = torch.randint(-lim, lim, (n, cin, size, size), dtype=torch.int8, device=cuda,
+                      generator=gen)
+    conv = IntConv2d(w, torch.ones(co, device=cuda), torch.tensor(1.0), None, (s, s), (p, p),
+                     (1, 1), groups, -lim, lim - 1)
+    if w4:
+        _maybe_pack_w4(conv, conv._weights_hwio().reshape(-1, co))
+    acc = conv.int_acc(x)
+    ref = torch.nn.functional.conv2d(x.cpu().double(), w.cpu().double(), None, s, p, 1, groups)
+    assert acc.dtype == torch.int32 and torch.equal(acc.cpu().double(), ref)
+
+
+def test_first_layer_route_is_full_f32(cuda):
+    """The image-input layer convolves dequantized values with TF32 off
+    inside the call, even when the caller left TF32 on."""
+    from micronet_tpu_torch.infer.engine import IntConv2d
+
+    gen = _gen(3)
+    w = torch.randint(-127, 128, (64, 3, 3, 3), dtype=torch.int8, device=cuda, generator=gen)
+    conv = IntConv2d(w, torch.rand(64, device=cuda, generator=gen) * 0.01, torch.tensor(0.03),
+                     None, (1, 1), (1, 1), (1, 1), 1, -128.0, 127.0).to(cuda)
+    assert conv.f32_dequant
+    x = torch.randint(-128, 128, (8, 3, 32, 32), dtype=torch.int8, device=cuda, generator=gen)
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        out = conv.dequant_conv(x)
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    xd = x.double() * conv.act_scale.double()
+    wd = w.double() * conv.w_scale.double()[:, None, None, None]
+    ref = torch.nn.functional.conv2d(xd, wd, None, 1, 1)
+    # f32 sums of 27 terms: ~1e-6 relative; TF32 operands would miss by ~1e-3
+    torch.testing.assert_close(out.double(), ref, rtol=0, atol=1e-5 * ref.abs().max().item())
+
+
+def test_small_resnet_engine_on_card_matches_cpu(cuda):
+    """A small W8A8 ResNet through the whole flow on the card, then the same
+    engine on the CPU (the wrappers' twins, f64 convs): K1 launches once
+    per forward and the logits agree."""
+    import copy
+
+    from micronet_tpu_torch.infer import freeze_int, fuse_bn_iao
+    from micronet_tpu_torch.models.resnet import BasicBlock, ResNet
+    from micronet_tpu_torch.nn import eval_mode, prepare, train_mode
+    from micronet_tpu_torch.quant.config import QuantConfig
+
+    gen = _gen(11)
+    cfg = QuantConfig(a_bits=8, w_bits=8, bn_fuse=True)
+    q = prepare(ResNet(BasicBlock, [1, 1, 1, 1], device=cuda, generator=gen), cfg, device=cuda)
+    train_mode(q)
+    with torch.no_grad():
+        for _ in range(3):
+            q(torch.randn((16, 32, 32, 3), device=cuda, generator=gen))
+    fused = fuse_bn_iao(eval_mode(q), cfg, device=cuda)
+    x = torch.randn((8, 32, 32, 3), device=cuda, generator=gen)
+    eng = eval_mode(freeze_int(eval_mode(fused), example_input=x[:1], device=cuda))
+    assert any(getattr(m, "chained", False) for m in eng.modules())
+    before = ti8.int8_matmul_dequant.launches
+    with torch.no_grad():
+        out = eng(x)
+        torch.cuda.synchronize()
+        assert ti8.int8_matmul_dequant.launches == before + 1
+        ref = copy.deepcopy(eng).to("cpu")(x.cpu())
+    # the first layer's f32 sums run in another order on the card: a code
+    # there can move one step, damped by the layers after it
+    torch.testing.assert_close(out.cpu(), ref, rtol=0, atol=2e-2 * max(1.0, ref.abs().max().item()))

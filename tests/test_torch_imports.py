@@ -11,7 +11,9 @@ import pytest
 import torch
 
 import micronet_tpu_torch
+from micronet_tpu_torch.models import nin_gc
 from micronet_tpu_torch.models.llama import Llama, llama_tiny
+from micronet_tpu_torch.models.resnet import resnet18
 from micronet_tpu_torch.quant.kv_cache import init_kv_cache
 from micronet_tpu_torch.serve import ServeLoop
 
@@ -21,7 +23,10 @@ ROOT = Path(__file__).resolve().parents[1]
 def test_port_and_chip_smoke_import_no_jax():
     mods = sorted(m.name for m in pkgutil.walk_packages(
         micronet_tpu_torch.__path__, "micronet_tpu_torch."))
-    assert "micronet_tpu_torch.serve.scheduler" in mods and len(mods) >= 15
+    assert "micronet_tpu_torch.serve.scheduler" in mods and len(mods) >= 27
+    for m in ("infer.engine", "infer.dataflow", "infer.bn_fuse", "nn.qat_iao", "nn.transform",
+              "ops.int_matmul", "models.resnet", "models.nin_gc", "quant.observers"):
+        assert f"micronet_tpu_torch.{m}" in mods
     code = "\n".join(
         ["import sys", "preloaded = set(sys.modules)"]
         + [f"import {m}" for m in mods]
@@ -40,7 +45,7 @@ def test_port_and_chip_smoke_import_no_jax():
     assert res.returncode == 0, res.stdout + res.stderr
 
 
-@pytest.mark.parametrize("entry", ["llama", "serve_loop", "kv_cache"])
+@pytest.mark.parametrize("entry", ["llama", "serve_loop", "kv_cache", "resnet18", "nin_gc"])
 def test_entry_points_default_to_cuda_and_raise_without_card(monkeypatch, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cpu_model = Llama(llama_tiny(8), device="cpu")
@@ -48,6 +53,8 @@ def test_entry_points_default_to_cuda_and_raise_without_card(monkeypatch, entry)
         "llama": lambda: Llama(llama_tiny(8)),
         "serve_loop": lambda: ServeLoop(cpu_model, 2),
         "kv_cache": lambda: init_kv_cache(2, 8, 4),
+        "resnet18": lambda: resnet18(),
+        "nin_gc": lambda: nin_gc.Net(cfg=[16] * 8),
     }
     with pytest.raises(RuntimeError, match="CUDA"):
         calls[entry]()

@@ -255,3 +255,87 @@ def test_kv_cache_bytes_matches_jax():
     cj = jkv.init_kv_cache(2, 16, 8)
     ct = tkv.init_kv_cache(2, 16, 8, device="cpu")
     assert tkv.kv_cache_bytes(ct) == jkv.kv_cache_bytes(cj)
+
+
+# --------------------------------------------------------------------------
+# K1: int8_matmul_dequant
+# --------------------------------------------------------------------------
+
+
+def _k1_case(m, k, n, scale, zp, seed):
+    """x with a share of its values placed on .5 code boundaries
+    (x / s = j + 0.5 exactly), int8 weights, per-column scales."""
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal((m, k)) * 40 * scale).astype(np.float32)
+    ties = (rng.integers(-20, 20, (m, k)) + 0.5).astype(np.float32) * np.float32(scale)
+    x = np.where(rng.random((m, k)) < 0.25, ties, x).astype(np.float32)
+    w_q = rng.integers(-127, 128, (k, n)).astype(np.int8)
+    w_scale = rng.uniform(1e-3, 2e-2, (n,)).astype(np.float32)
+    return x, w_q, w_scale, np.float32(scale), np.float32(zp)
+
+
+# A8 and A4 ranges; ragged M, K, N (none a multiple of a tile); zp != 0
+_K1_CASES = [
+    (5, 37, 10, 0.25, 0.0, -128.0, 127.0),
+    (33, 200, 19, 0.0625, 3.0, -128.0, 127.0),
+    (17, 64, 130, 0.5, 0.0, -8.0, 7.0),
+    (9, 130, 7, 0.125, -2.0, -8.0, 7.0),
+]
+
+
+@pytest.mark.parametrize("m,k,n,scale,zp,qmin,qmax", _K1_CASES)
+def test_int8_matmul_dequant_twin_bit_exact_vs_jax(m, k, n, scale, zp, qmin, qmax):
+    """The K1 twin equals the JAX Pallas kernel (interpret mode) and the
+    XLA oracle bit for bit: exact int32 products, the same f32 quantize
+    and epilogue operations."""
+    from micronet_tpu.ops import int_matmul as jim8
+    from micronet_tpu_torch.ops import int_matmul as tim8
+
+    x, w_q, w_scale, s, z = _k1_case(m, k, n, scale, zp, seed=m * 1000 + k)
+    kern = np.asarray(jim8.int8_matmul_dequant(x, w_q, w_scale, s, z, qmin=qmin, qmax=qmax))
+    orc = np.asarray(jim8.int8_matmul_dequant_xla(x, w_q, w_scale, s, z, qmin=qmin, qmax=qmax))
+    before = tim8.int8_matmul_dequant.launches
+    out = tim8.int8_matmul_dequant(torch.from_numpy(x), torch.from_numpy(w_q),
+                                   torch.from_numpy(w_scale), float(s), float(z),
+                                   qmin, qmax).numpy()
+    assert tim8.int8_matmul_dequant.launches == before  # CPU: the twin ran
+    np.testing.assert_array_equal(out, orc)
+    np.testing.assert_array_equal(out, kern)
+    # the activation codes clip at the activation range, not int8's
+    codes = tim8.quantize_int8(torch.from_numpy(x), float(s), float(z), qmin, qmax)
+    np.testing.assert_array_equal(
+        codes.numpy(), np.asarray(jim8.quantize_int8(x, s, z, qmin, qmax)))
+    assert codes.min().item() >= qmin and codes.max().item() <= qmax
+
+
+def test_int8_linear_matches_jax_with_bias_and_leading_dims():
+    from micronet_tpu.ops import int_matmul as jim8
+    from micronet_tpu_torch.ops import int_matmul as tim8
+
+    x, w_q, w_scale, s, z = _k1_case(6, 48, 12, 0.125, 0.0, seed=7)
+    bias = _np(8, (12,))
+    x3 = x.reshape(2, 3, 48)
+    ref = np.asarray(jim8.int8_linear(jnp.asarray(x3), w_q, w_scale, s, z, jnp.asarray(bias)))
+    out = tim8.int8_linear(torch.from_numpy(x3), torch.from_numpy(w_q),
+                           torch.from_numpy(w_scale), torch.tensor(s), torch.tensor(z),
+                           torch.from_numpy(bias)).numpy()
+    assert out.shape == (2, 3, 12)
+    np.testing.assert_array_equal(out, ref)
+
+
+def test_int8_linear_on_a_card_tensor_launches_or_raises(monkeypatch):
+    """A tensor on the card takes the kernel path, never the twin: without
+    a built kernel the call raises instead of falling back."""
+    from micronet_tpu_torch.ops import _build
+    from micronet_tpu_torch.ops import int_matmul as tim8
+
+    monkeypatch.setattr(tim8, "on_cuda", lambda t: True)
+    monkeypatch.setattr(_build, "_nvcc", lambda: (_ for _ in ()).throw(
+        RuntimeError("nvcc not found")))
+    _build._cdll.cache_clear()
+    x, w_q, w_scale, s, z = _k1_case(4, 16, 8, 0.125, 0.0, seed=9)
+    before = tim8.int8_matmul_dequant.launches
+    with pytest.raises(RuntimeError, match="nvcc"):
+        tim8.int8_linear(torch.from_numpy(x), torch.from_numpy(w_q),
+                         torch.from_numpy(w_scale), float(s), float(z))
+    assert tim8.int8_matmul_dequant.launches == before  # nothing launched
