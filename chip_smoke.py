@@ -24,7 +24,8 @@ Phases, each fatal on failure (non-zero exit, no final line):
    show every kernel ran as often as the path calls it;
 6. with ``--profile``, a traced run of 5 decode steps at 8 busy slots
    (``torch.profiler``): device busy share and kernel time by name (and
-   the same for 3 forwards of each engine in phase 9);
+   the same for 3 forwards of each engine in phase 9, and for both loops
+   of phase 11);
 7. K1 (``int8_matmul_dequant``) against its twin, bit for bit, at the
    engine's call, a large call and a ragged A4 call with zp != 0, timed
    beside ``torch._int_mm`` on codes and its int8 bound (1,979 TOP/s);
@@ -37,7 +38,21 @@ Phases, each fatal on failure (non-zero exit, no final line):
    just after); the same engine on the CPU must agree on 8 images;
    img/s of the engine and of the port's fp32 eval. Then the same for
    NIN-GC W4A4 at batch 1024 (no kernel on that path);
-10. the kernels line (JSON), then the final line
+10. long-context kernels: K4b and K5b (split S) against their twins at
+   G = 64, R = 4, D = 128, S = 8192 with bounds 0..8192; K4b at bound b
+   equal to K5b at b + 1 bit for bit; K6 and K7 over shuffled pools of
+   pages of 16 and 512 against their twins and, bit for bit, against the
+   dense kernel over the gathered view; times beside the twins', SDPA's
+   and the bound;
+11. paged and long-context serving (slice 3's main path):
+   ``Llama(llama3_8b(8192), w4_group=128)``, 12 greedy requests (two of
+   4,500 and 6,000 prompt tokens) through the dense ``ServeLoop(8)`` (K4b
+   every decode step) and the paged ``ServeLoop(8, paged=True,
+   page_size=16)`` (K6) with a pool smaller than the first eight requests
+   reserve (admission must defer), then the 6,000-token request alone
+   through ``Llama.generate`` (K5b): equal tokens everywhere, every page
+   back, exact launch counts;
+12. the kernels line (JSON), then the final line
    ``{"ok": true, "device": {...}}``.
 
 Details of every measurement go to ``<out>/chip_smoke.json`` (``--out``,
@@ -50,6 +65,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -74,10 +90,20 @@ K3_REL_TOL = 2e-5
 # sums in another order; a term p * v_scale within an ulp of a bf16
 # rounding boundary may round to the neighbouring bf16 value
 ATT_ABS_TOL = 1e-3
+# the long-context phase (S = 8192, outputs of about 1e-2): the same cause,
+# measured at 9e-6 to 1.4e-5 on the card; about 7x that
+LONG_ATT_TOL = 1e-4
 # logits of a whole model: an activation may cross a bf16 rounding
 # boundary before a W4 matmul (2^-8 relative on that term)
 MODEL_REL_TOL = 1e-2
 N_REQUESTS, SLOTS, NEW_TOKENS = 12, 8, 32
+# slice 3: Llama-3-8B at its published context (max_position_embeddings)
+LONG_CTX = 8192
+LONG_PROMPTS = (6000, 4500)  # requests 0 and 7
+SHORT_PROMPTS = (16, 512)  # the other ten, drawn from this range
+PAGE, PAGES_E2E = 16, 512  # the loop's page size; benchmarks/llm_paged_e2e.py's
+LONG_KERNELS = ("decode_attend_q8kv_blocked_cur", "decode_attend_q8kv_blocked",
+                "paged_decode_attend_cur", "paged_decode_attend")
 # K1 calls: (label, M, K, N, s_x, zp, qmin, qmax, timed launches). "path" is
 # ResNet-18's fc at the engine batch of 512
 K1_CASES = [
@@ -228,37 +254,45 @@ def check_attention(dev, gen, report):
             fail(f"{name}: max|err| {err:.3e} > {ATT_ABS_TOL}")
         ms = time_ms(fn, args, 50)
         plain = time_ms(twin, args, 5, 1)
-        # library yardstick: SDPA over the dequantized bf16 cache (with the
-        # current row appended for the _cur form), bounds as a mask
-        n_vis = bound.to(torch.int64) + (1 if extra else 0)
-        kc, ks, vc, vs = caches[0]
-        kf = (kc.float() * ks[..., None]).to(torch.bfloat16)
-        vf = (vc.float() * vs[..., None]).to(torch.bfloat16)
-        if extra:
-            kf = torch.cat([kf, (cur[0].float() * cur[1][:, None]).to(torch.bfloat16)[:, None]], 1)
-            vf = torch.cat([vf, (cur[2].float() * cur[3][:, None]).to(torch.bfloat16)[:, None]], 1)
-            pos = torch.arange(s + 1, device=dev)
-            mask = (pos[None, :] < bound[:, None]) | (pos[None, :] == s)
-        else:
-            mask = torch.arange(s, device=dev)[None, :] < bound[:, None]
-        mask = mask[:, None, :].expand(g, r, mask.shape[-1])
-        qb = q.to(torch.bfloat16)
-        sdpa = torch.nn.functional.scaled_dot_product_attention
-        lib = time_ms(lambda a, b, c, m: sdpa(a, b, c, attn_mask=m), [(qb, kf, vf, mask)], 50)
-        vis = n_vis.sum().item()
-        nbytes = (vis * (2 * d + 8) + g * r * d * 4 * 2 + g * 4)
-        ops = 4 * r * d * vis
-        bnd = max(nbytes / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S) * 1e3
-        out[name] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bnd,
-                         bound_by="bytes" if nbytes / HBM_BYTES_PER_S >= ops / BF16_OPS_PER_S else "operations",
-                         max_abs_err=err)
-        log(f"{name} G={g} R={r} D={d} S={s} (bounds 1..{s}, {vis} visible rows): "
-            f"err {err:.3e} (tol {ATT_ABS_TOL}), kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-            f"sdpa bf16 {lib:.4f} ms, bound {bnd:.4f} ms")
+        lib, bnd = attention_yardsticks(q, *caches[0], bound, cur if extra else None)
+        out[name] = dict(ms=ms, plain_ms=plain, library_ms=lib, max_abs_err=err, **bnd)
+        log(f"{name} G={g} R={r} D={d} S={s} (bounds 1..{s}, {bnd['visible_rows']} visible "
+            f"rows): err {err:.3e} (tol {ATT_ABS_TOL}), kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+            f"sdpa bf16 {lib:.4f} ms, bound {bnd['bound_ms']:.4f} ms")
     report["attention"] = out
     del caches
     torch.cuda.empty_cache()
     return out
+
+
+def attention_yardsticks(q, kc, ks, vc, vs, bound, cur=None, extra_bytes=0):
+    """For one decode-attention call over a dense (G, S, D) cache (the
+    current rows ``cur`` as one more column, or None): the library
+    yardstick, SDPA over the dequantized bf16 cache with the bounds as a
+    mask, in ms; and the least time the card could take, from the bytes
+    the call must move (each visible row's codes and scales, q, the
+    output, the bounds, plus ``extra_bytes``) and its operations."""
+    g, s, d = kc.shape
+    r = q.shape[1]
+    kf = (kc.float() * ks[..., None]).to(torch.bfloat16)
+    vf = (vc.float() * vs[..., None]).to(torch.bfloat16)
+    pos = torch.arange(s + (cur is not None), device=kc.device)
+    mask = pos[None, :] < bound[:, None]
+    if cur is not None:
+        kf = torch.cat([kf, (cur[0].float() * cur[1][:, None]).to(torch.bfloat16)[:, None]], 1)
+        vf = torch.cat([vf, (cur[2].float() * cur[3][:, None]).to(torch.bfloat16)[:, None]], 1)
+        mask = mask | (pos[None, :] == s)
+    mask = mask[:, None, :].expand(g, r, mask.shape[-1])
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib = time_ms(lambda a, b, c, m: sdpa(a, b, c, attn_mask=m),
+                  [(q.to(torch.bfloat16), kf, vf, mask)], 50)
+    del kf, vf
+    vis = int(bound.to(torch.int64).clamp(max=s).sum()) + (g if cur is not None else 0)
+    nbytes = vis * (2 * d + 8) + g * r * d * 4 * 2 + g * 4 + extra_bytes
+    ops = 4 * r * d * vis
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S
+    return lib, dict(bound_ms=max(t_bytes, t_ops) * 1e3, visible_rows=vis,
+                     bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
 # ---------------------------------------------------------------- phase 4
@@ -332,18 +366,22 @@ class _Timed:
     def decode_batch(self, *a):
         return self._time(self._m.decode_batch, self.decode_s, *a)
 
+    def decode_batch_paged(self, *a):
+        return self._time(self._m.decode_batch_paged, self.decode_s, *a)
 
-def profile_decode(model, dev, reqs, report, out_dir: Path):
-    """A traced run of 5 decode steps with all 8 slots busy."""
+
+def profile_decode(model, dev, reqs, report, out_dir: Path, key="profile", **loop_kw):
+    """A traced run of 5 decode steps with all 8 slots busy (``loop_kw``
+    for ``ServeLoop``, e.g. the paged loop's)."""
     from micronet_tpu_torch.serve import Request, ServeLoop
 
-    loop = ServeLoop(model, SLOTS, device=dev)
+    loop = ServeLoop(model, SLOTS, device=dev, **loop_kw)
     for r in reqs[:SLOTS]:
         loop.submit(Request(1000 + r.rid, r.prompt, NEW_TOKENS))
     loop.step()  # admits every slot
     loop.step()
-    report["profile"] = trace(loop.step, 5, f"decode steps at {SLOTS} busy slots",
-                              out_dir / "chip_smoke_profile.txt")
+    report[key] = trace(loop.step, 5, f"{key}: decode steps at {SLOTS} busy slots",
+                        out_dir / f"chip_smoke_{key}.txt")
 
 
 def trace(step, steps: int, what: str, table: Path) -> dict:
@@ -367,13 +405,15 @@ def trace(step, steps: int, what: str, table: Path) -> dict:
     device_s = sum(e.self_device_time_total for e in kernels) / 1e6
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
     table.write_text(events.table(sort_by="self_device_time_total", row_limit=40))
+    launches = sum(e.count for e in kernels) // steps
     log(f"profile: {steps} {what}, traced wall {1e3 * wall / steps:.2f} ms each, device busy "
-        f"{1e3 * device_s / steps:.2f} ms each ({100 * device_s / wall:.1f}% busy)")
+        f"{1e3 * device_s / steps:.2f} ms each ({100 * device_s / wall:.1f}% busy), "
+        f"{launches} kernel launches each")
     for e in top:
         log(f"  {e.self_device_time_total / 1e3 / steps:9.3f} ms  {e.count // steps:6d} "
             f"calls  {e.key[:90]}")
     return dict(steps=steps, wall_s=wall, device_busy_s=device_s, busy_share=device_s / wall,
-                by_kernel=[dict(name=e.key, calls=e.count,
+                launches_per_step=launches, by_kernel=[dict(name=e.key, calls=e.count,
                                 device_ms=e.self_device_time_total / 1e3) for e in top])
 
 
@@ -679,9 +719,11 @@ def _all_kernels():
     from micronet_tpu_torch.ops import decode_attention as da
     from micronet_tpu_torch.ops import int4_matmul as im
     from micronet_tpu_torch.ops import int_matmul as i8
+    from micronet_tpu_torch.ops import paged_attention as pa
 
     return (im.int4_matmul_grouped_hl8, da.decode_attend_q8kv_cur, da.decode_attend_q8kv,
-            i8.int8_matmul_dequant)
+            i8.int8_matmul_dequant, da.decode_attend_q8kv_blocked_cur,
+            da.decode_attend_q8kv_blocked, pa.paged_decode_attend_cur, pa.paged_decode_attend)
 
 
 def resnet_engine(dev, seed, report, profile_dir=None):
@@ -707,12 +749,255 @@ def nin_engine(dev, seed, report, profile_dir=None):
                 NIN_BATCH, dev, seed, report, profile_dir)
 
 
+# ---------------------------------------------------------------- phase 10
+
+
+def _shuffled_pool(dev, gen, lengths, page, heads):
+    """A pool holding every slot's rows up to ``lengths`` in shuffled pages
+    (table entries past a length point at the zero page, as the allocator
+    leaves them), codes and scales random."""
+    slots = lengths.shape[0]
+    mp = LONG_CTX // page
+    p = 1 + slots * mp
+    pool = (torch.randint(-127, 128, (p, heads, page, ATT_D), dtype=torch.int8, device=dev,
+                          generator=gen),
+            torch.rand((p, heads, 1, page), device=dev, generator=gen) * 0.02 + 1e-3,
+            torch.randint(-127, 128, (p, heads, page, ATT_D), dtype=torch.int8, device=dev,
+                          generator=gen),
+            torch.rand((p, heads, 1, page), device=dev, generator=gen) * 0.02 + 1e-3)
+    for t in pool:
+        t[0] = 0  # the zero page
+    order = torch.randperm(p - 1, device=dev, generator=gen).to(torch.int32) + 1
+    used = torch.arange(mp, device=dev)[None, :] * page < lengths[:, None]
+    table = torch.where(used, order.reshape(slots, mp), 0).to(torch.int32).contiguous()
+    return pool, table
+
+
+def _check_close(name, got, ref):
+    torch.cuda.synchronize()
+    err = (got - ref).abs().max().item()
+    if not (torch.isfinite(got).all() and err <= LONG_ATT_TOL):
+        fail(f"{name}: max|err| {err:.3e} > {LONG_ATT_TOL}")
+    return err
+
+
+def check_long_attention(dev, gen, report):
+    """K4b/K5b at S = 8192 over a dense cache, K6/K7 over shuffled pools of
+    pages of 16 and 512: each against its twin, K4b(b) = K5b(b + 1) and each
+    paged kernel = the dense kernel over the gathered view, bit for bit."""
+    from micronet_tpu_torch.ops import decode_attention as da
+    from micronet_tpu_torch.ops import paged_attention as pa
+
+    g, r, d, s = ATT_G, ATT_R, ATT_D, LONG_CTX
+    slots, heads = SLOTS, ATT_G // SLOTS
+    ri = lambda *shape: torch.randint(-127, 128, shape, dtype=torch.int8, device=dev,
+                                      generator=gen)
+    rf = lambda *shape: torch.rand(shape, device=dev, generator=gen) * 0.02 + 1e-3
+    bound = torch.randint(1, s + 1, (g,), generator=gen, device=dev).to(torch.int32)
+    bound[:5] = torch.tensor([0, s, 1, 512, 513])  # extremes and split edges
+    cache = (ri(g, s, d), rf(g, s), ri(g, s, d), rf(g, s))
+    q = torch.randn((g, r, d), device=dev, generator=gen)
+    cur = (ri(g, d), rf(g), ri(g, d), rf(g))
+    out = {}
+    for name, fn, twin, extra in (
+        ("decode_attend_q8kv_blocked_cur", da.decode_attend_q8kv_blocked_cur,
+         da.decode_attend_q8kv_blocked_cur_ref, cur),
+        ("decode_attend_q8kv_blocked", da.decode_attend_q8kv_blocked,
+         da.decode_attend_q8kv_blocked_ref, ()),
+    ):
+        args = (*cache, q, bound, *extra)
+        err = _check_close(name, fn(*args), twin(*args))
+        ms = time_ms(fn, [args], 50)
+        plain = time_ms(twin, [args], 5, 1)
+        lib, bnd = attention_yardsticks(q, *cache, bound, cur if extra else None)
+        out[name] = dict(ms=ms, plain_ms=plain, library_ms=lib, max_abs_err=err, **bnd)
+        log(f"{name} G={g} R={r} D={d} S={s} (bounds 0..{s}, {bnd['visible_rows']} visible "
+            f"rows): err {err:.3e} (tol {LONG_ATT_TOL}), kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+            f"sdpa bf16 {lib:.4f} ms, bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
+    # K4b at bound b == K5b at b + 1 over the cache with row b = the current row
+    b = bound.clamp(max=s - 1)
+    rows = torch.arange(g, device=dev)
+    appended = [t.clone() for t in cache]
+    for t, c in zip(appended, cur):
+        t[rows, b.long()] = c
+    if not torch.equal(da.decode_attend_q8kv_blocked_cur(*cache, q, b, *cur),
+                       da.decode_attend_q8kv_blocked(*appended, q, b + 1)):
+        fail("K4b at bound b differs from K5b at b + 1 over the appended cache")
+    del appended, cache
+    log(f"K4b at bound b equals K5b at b + 1 over the appended cache, bit for bit ({g} groups)")
+
+    lengths = torch.randint(1, s + 1, (slots,), generator=gen, device=dev).to(torch.int32)
+    lengths[:4] = torch.tensor([0, s, 1, PAGES_E2E + 1])
+    qp = torch.randn((slots, heads, r, d), device=dev, generator=gen)
+    curp = (ri(slots, heads, d), rf(slots, heads), ri(slots, heads, d), rf(slots, heads))
+    dense_bound = lengths[:, None].expand(slots, heads).reshape(g).contiguous()
+    curd = [t.reshape(g, *t.shape[2:]) for t in curp]
+    for page in (PAGE, PAGES_E2E):
+        pool, table = _shuffled_pool(dev, gen, lengths, page, heads)
+        view = (*pa._gather_dense_batch(pool[0], pool[1], table),
+                *pa._gather_dense_batch(pool[2], pool[3], table))
+        pages_read = int((-(-lengths.to(torch.int64) // page)).sum())
+        for name, fn, twin, extra, dense in (
+            ("paged_decode_attend_cur", pa.paged_decode_attend_cur, pa.paged_decode_attend_cur_ref,
+             curp, lambda: da.decode_attend_q8kv_cur(*view, qp.reshape(g, r, d), dense_bound,
+                                                     *curd)),
+            ("paged_decode_attend", pa.paged_decode_attend, pa.paged_decode_attend_ref, (),
+             lambda: da.decode_attend_q8kv(*view, qp.reshape(g, r, d), dense_bound)),
+        ):
+            args = (*pool, table, lengths, qp, *extra)
+            got = fn(*args)
+            err = _check_close(f"{name} page {page}", got, twin(*args))
+            if not torch.equal(got.reshape(g, r, d), dense()):
+                fail(f"{name} page {page} differs from the dense kernel over the gathered view")
+            ms = time_ms(fn, [args], 50)
+            plain = time_ms(twin, [args], 5, 1)
+            # the library call runs on the gathered view: the gather is not timed
+            lib, bnd = attention_yardsticks(qp.reshape(g, r, d), *view, dense_bound,
+                                            curd if extra else None,
+                                            extra_bytes=4 * pages_read)
+            out[f"{name}_page{page}"] = dict(ms=ms, plain_ms=plain, library_ms=lib,
+                                             max_abs_err=err, page=page, **bnd)
+            log(f"{name} page {page} slots={slots} H={heads} R={r} S={s} (lengths 0..{s}): "
+                f"err {err:.3e} (tol {LONG_ATT_TOL}), equal to the dense kernel over the "
+                f"gathered view; kernel {ms:.4f} ms, plain {plain:.4f} ms, sdpa bf16 on the view {lib:.4f} ms, "
+                f"bound {bnd['bound_ms']:.4f} ms")
+        del pool, view
+    report["long_attention"] = out
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------- phase 11
+
+
+def _serve_all(loop, reqs):
+    """Run ``reqs`` (fresh copies) through ``loop``; returns the outputs by
+    request id, the admissions deferred and the wall seconds."""
+    from micronet_tpu_torch.serve import Request
+
+    for r in reqs:
+        loop.submit(Request(r.rid, list(r.prompt), r.max_new_tokens))
+    t0 = time.perf_counter()
+    done = loop.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if sorted(done) != [r.rid for r in reqs]:
+        fail(f"served {sorted(done)} of {len(reqs)} requests")
+    for r in done.values():
+        if len(r.output) != r.max_new_tokens:
+            fail(f"request {r.rid}: {len(r.output)} of {r.max_new_tokens} tokens "
+                 f"(truncated: the pool ran out)")
+    return {rid: r.output for rid, r in done.items()}, loop.deferred, wall
+
+
+def _loop_stats(timed, wall, peak, kv_bytes, deferred):
+    tokens = N_REQUESTS * (NEW_TOKENS - 1)  # every token after a request's first
+    decode_s = sum(timed.decode_s)
+    step_ms = sorted(1e3 * x for x in timed.decode_s)
+    return dict(wall_s=wall, decode_steps=len(step_ms), prefills=len(timed.prefill_s),
+                prefill_s=sum(timed.prefill_s), prefill_max_s=max(timed.prefill_s),
+                decode_s=decode_s, decode_tok_per_s=tokens / decode_s,
+                step_ms_median=step_ms[len(step_ms) // 2], step_ms_max=step_ms[-1],
+                kv_bytes=kv_bytes, peak_gb=peak / 1e9, deferred_admissions=deferred)
+
+
+def serve_long(dev, seed, card, report, profile_dir=None):
+    """Slice 3's main path: W4 Llama-3-8B at its 8,192-token context through
+    the dense and the paged ServeLoop, then one long request alone."""
+    from micronet_tpu_torch.models.llama import Llama, llama3_8b
+    from micronet_tpu_torch.quant.kv_cache import kv_cache_bytes
+    from micronet_tpu_torch.quant.paged_kv import paged_hbm_bytes
+    from micronet_tpu_torch.serve import Request, ServeLoop
+
+    cfg = llama3_8b(LONG_CTX)
+    model = Llama(cfg, w4_group=GROUP, device=dev,
+                  generator=torch.Generator(device=dev).manual_seed(seed + 1))
+    rng = np.random.default_rng(seed + 1)
+    lens = rng.integers(SHORT_PROMPTS[0], SHORT_PROMPTS[1] + 1, N_REQUESTS)
+    lens[0], lens[SLOTS - 1] = LONG_PROMPTS
+    reqs = [Request(i, [int(t) for t in rng.integers(0, cfg.vocab, n)], NEW_TOKENS)
+            for i, n in enumerate(lens)]
+    # every request reserves its prompt and the rows its decode appends;
+    # the pool holds what the first seven reserve: they are admitted with
+    # their growth covered, and the eighth (4,500 tokens) waits until they
+    # finish, since its pages exceed the growth they leave free
+    reserve = [-(-(int(n) + NEW_TOKENS - 1) // PAGE) for n in lens]
+    usable = sum(reserve[: SLOTS - 1])
+    if not usable < sum(reserve[:SLOTS]) or usable < max(reserve):
+        fail(f"pool of {usable} pages cannot defer the eighth request (reserves {reserve})")
+    kernels = _all_kernels()
+    for k in kernels:
+        k.launches = 0
+    # -- the main path: both loops, then request 0 alone ----------------
+    results = {}
+    for mode, kw in (("dense", {}), ("paged", dict(paged=True, page_size=PAGE,
+                                                   num_pages=1 + usable))):
+        torch.cuda.reset_peak_memory_stats()
+        timed = _Timed(model)
+        loop = ServeLoop(timed, SLOTS, device=dev, **kw)
+        kv = sum(paged_hbm_bytes(c) if mode == "paged" else kv_cache_bytes(c)
+                 for c in loop.caches)
+        outputs, deferred, wall = _serve_all(loop, reqs)
+        stats = _loop_stats(timed, wall, torch.cuda.max_memory_allocated(), kv, deferred)
+        if mode == "paged":
+            for c in loop.caches:
+                if (int(c.free_top) != usable or int(c.lengths.abs().sum())
+                        or int(c.page_table.abs().sum())):
+                    fail(f"paged loop: pages did not all return ({int(c.free_top)} of {usable} "
+                         f"free)")
+            if not deferred:
+                fail("paged loop: no admission was deferred")
+        results[mode] = (outputs, stats)
+        del loop
+        torch.cuda.empty_cache()
+    iso = model.generate(torch.tensor(reqs[0].prompt, device=dev), NEW_TOKENS).tolist()
+    torch.cuda.synchronize()
+    launches = {k.__name__: k.launches for k in kernels}
+    # ------------------------------------------------------------------
+    dense_out, dense = results["dense"]
+    paged_out, paged = results["paged"]
+    for rid in dense_out:
+        if dense_out[rid] != paged_out[rid]:
+            fail(f"request {rid}: dense loop {dense_out[rid]}, paged loop {paged_out[rid]}")
+    if iso != dense_out[0]:
+        fail(f"request 0 ({lens[0]} prompt tokens) served {dense_out[0]} but alone {iso}")
+    per_fwd = 4 * cfg.n_layers + 1
+    want = {k.__name__: 0 for k in kernels}
+    want.update(
+        int4_matmul_grouped_hl8=per_fwd * (dense["decode_steps"] + dense["prefills"]
+                                           + paged["decode_steps"] + paged["prefills"]
+                                           + NEW_TOKENS),
+        decode_attend_q8kv_blocked_cur=cfg.n_layers * dense["decode_steps"],
+        paged_decode_attend_cur=cfg.n_layers * paged["decode_steps"],
+        decode_attend_q8kv_blocked=cfg.n_layers * (NEW_TOKENS - 1),
+    )
+    if launches != want:
+        fail(f"long-context launch counts {launches}, expected {want}")
+    report["serve_long"] = dict(card=card, prompt_lens=[int(n) for n in lens],
+                                pool_pages=1 + usable, dense=dense, paged=paged,
+                                launches=launches)
+    for mode, st in (("dense", dense), ("paged", paged)):
+        log(f"serve_long {mode}: {st['decode_steps']} decode steps, {st['prefills']} prefills "
+            f"({st['prefill_s']:.2f} s, longest {st['prefill_max_s']:.2f} s); decode "
+            f"{st['decode_tok_per_s']:.1f} tok/s, step median {st['step_ms_median']:.2f} ms, "
+            f"max {st['step_ms_max']:.2f} ms; KV {st['kv_bytes'] / 1e9:.3f} GB; peak "
+            f"{st['peak_gb']:.2f} GB; {st['deferred_admissions']} deferred admissions; "
+            f"wall {st['wall_s']:.2f} s ({card})")
+    log(f"serve_long: all {N_REQUESTS} requests equal in both loops; request 0 "
+        f"({lens[0]} prompt tokens) equals its isolated generate run; every page back; "
+        f"launches {launches}")
+    if profile_dir is not None:  # the first eight requests, both long ones among them
+        for mode, kw in (("dense", {}), ("paged", dict(paged=True, page_size=PAGE))):
+            profile_decode(model, dev, reqs, report, profile_dir, f"profile_long_{mode}", **kw)
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
-                    help="also trace 5 decode steps and 3 forwards of each engine "
-                         "with torch.profiler")
+                    help="also trace 5 decode steps of each serving loop and 3 forwards "
+                         "of each engine with torch.profiler")
     ap.add_argument("--out", type=Path, default=Path("build/chip_smoke"),
                     help="directory for the JSON report and the profile table")
     args = ap.parse_args()
@@ -737,9 +1022,10 @@ def main() -> int:
     log(f"build: {built['seconds']:.1f} s")
     for name in _build.SOURCES:
         text = Path(built[name]).with_suffix(".log").read_text(errors="replace")
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {name}: {line.strip()}")
+        regs = [int(x) for x in re.findall(r"Used (\d+) registers", text)]
+        spills = sum(int(x) for x in re.findall(r"(\d+) bytes spill", text))
+        log(f"  {name}: {len(regs)} kernels, registers {min(regs)}..{max(regs)}, "
+            f"{spills} bytes of spill stores and loads")
 
     report = {"card": card, "torch": torch.__version__, "seed": args.seed}
     gen = torch.Generator(device=dev).manual_seed(args.seed)
@@ -756,8 +1042,16 @@ def main() -> int:
     launches["int8_matmul_dequant"] = resnet_engine(dev, args.seed, report,
                                                     profile_dir)["int8_matmul_dequant"]
     nin_engine(dev, args.seed, report, profile_dir)
+    long_att = check_long_attention(dev, gen, report)
+    launches.update({k: v for k, v in serve_long(dev, args.seed, card, report,
+                                                 profile_dir).items()
+                     if k in LONG_KERNELS})
 
     src = "micronet_tpu_torch/ops/csrc/"
+    long_per = (f"one call, G={ATT_G} R={ATT_R} D={ATT_D} S={LONG_CTX}, bounds 0..{LONG_CTX}")
+    paged_per = (f"one call, {SLOTS} slots x {ATT_G // SLOTS} KV heads, R={ATT_R}, pages of "
+                 f"{PAGE}, S={LONG_CTX}, lengths 0..{LONG_CTX}; library_ms is SDPA on the "
+                 f"gathered bf16 view, the gather not timed")
     rows = [
         dict(name="int4_matmul_grouped_hl8", route="cuda", source=src + "int4_matmul.cu",
              replaces="micronet_tpu/ops/int4_matmul.py:548",
@@ -780,6 +1074,23 @@ def main() -> int:
                  "torch._int_mm on codes quantized beforehand: the integer product only",
              **{k: v for k, v in k1["path"].items()
                 if k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err")}),
+        dict(name="decode_attend_q8kv_blocked_cur", route="cuda",
+             source=src + "decode_attention.cu",
+             replaces="micronet_tpu/ops/decode_attention.py:390",
+             launches=launches["decode_attend_q8kv_blocked_cur"], per=long_per,
+             **long_att["decode_attend_q8kv_blocked_cur"]),
+        dict(name="decode_attend_q8kv_blocked", route="cuda", source=src + "decode_attention.cu",
+             replaces="micronet_tpu/ops/decode_attention.py:233",
+             launches=launches["decode_attend_q8kv_blocked"], per=long_per,
+             **long_att["decode_attend_q8kv_blocked"]),
+        dict(name="paged_decode_attend_cur", route="cuda", source=src + "paged_attention.cu",
+             replaces="micronet_tpu/ops/paged_attention.py:306",
+             launches=launches["paged_decode_attend_cur"], per=paged_per,
+             **long_att[f"paged_decode_attend_cur_page{PAGE}"]),
+        dict(name="paged_decode_attend", route="cuda", source=src + "paged_attention.cu",
+             replaces="micronet_tpu/ops/paged_attention.py:131",
+             launches=launches["paged_decode_attend"], per=paged_per,
+             **long_att[f"paged_decode_attend_page{PAGE}"]),
     ]
     report["kernels"] = rows
     report["seconds"] = time.perf_counter() - t_start

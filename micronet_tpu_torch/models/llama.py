@@ -8,10 +8,10 @@ scales) on the W4A16 kernel; the KV cache is int8 and decode runs the
 fused int8-KV attention kernels.
 
 Serving API (the :class:`..serve.ServeLoop` contract): ``init_cache``,
-``init_cache_batch``, ``forward`` (prefill, or T = 1 decode) and
-``decode_batch`` (one token for each of B slots). The paged API of the
-JAX package (``init_paged_cache``, ``decode_batch_paged``) and
-``forward_batch`` are not ported yet.
+``init_cache_batch``, ``forward`` (prefill, or T = 1 decode),
+``forward_batch`` (``forward`` for each slot of a batched cache),
+``decode_batch`` (one token for each of B slots) and, over a paged KV
+pool, ``init_paged_cache`` and ``decode_batch_paged``.
 """
 
 from __future__ import annotations
@@ -26,6 +26,7 @@ from torch import nn
 from .._device import resolve_device
 from ..nn.modules import Linear
 from ..ops.decode_attention import decode_attend_q8kv_cur
+from ..ops.paged_attention import paged_decode_attend_cur
 from ..quant.kv_cache import (
     QuantKVCache,
     append_kv,
@@ -34,6 +35,7 @@ from ..quant.kv_cache import (
     init_kv_cache,
     quantize_kv_rows,
 )
+from ..quant.paged_kv import PagedKVCache, init_paged_kv, paged_append_batch
 from ..quant.weight_only import wo_quantize_linear
 
 __all__ = [
@@ -178,6 +180,29 @@ class LlamaBlock(nn.Module):
         x = x + self.wo(att.transpose(0, 1).reshape(t, cfg.dim))
         return self._mlp(x), cache
 
+    def _rows_batch(self, x: torch.Tensor, offsets: torch.Tensor):
+        """A batched decode step's projections and RoPE: q (B, hkv, r, D)
+        f32 (query head i reads KV group i // r, so this keeps head order)
+        and the current rows quantized once, codes (B, hkv, D) int8 and
+        scales (B, hkv) f32 for K then V."""
+        cfg = self.cfg
+        b = x.shape[0]
+        hkv, d = cfg.n_kv_heads, cfg.head_dim
+        qkv = self.wqkv(self.attn_norm(x))
+        q = qkv[:, : cfg.dim].reshape(b, cfg.n_heads, d)
+        k = qkv[:, cfg.dim : cfg.dim + cfg.kv_dim].reshape(b, hkv, d)
+        v = qkv[:, cfg.dim + cfg.kv_dim :].reshape(b, hkv, d)
+        q = apply_rope_batch(q, offsets, cfg.rope_theta)
+        k = apply_rope_batch(k, offsets, cfg.rope_theta)
+        kq, ks = quantize_kv_rows(k)
+        vq, vs = quantize_kv_rows(v)
+        q = q.reshape(b, hkv, cfg.n_heads // hkv, d).to(torch.float32).contiguous()
+        return q, kq, ks[..., 0], vq, vs[..., 0]
+
+    def _finish_batch(self, x: torch.Tensor, att: torch.Tensor) -> torch.Tensor:
+        x = x + self.wo(att.reshape(x.shape[0], self.cfg.dim).to(x.dtype))
+        return self._mlp(x)
+
     def step_batch(
         self,
         x: torch.Tensor,  # (B, dim), one token per slot
@@ -191,35 +216,39 @@ class LlamaBlock(nn.Module):
         Deferred append: the current K/V rows are quantized once, attended
         as an extra column over the PRE-append cache (bound = min(length,
         offset)), and the same codes are then written into the cache."""
-        cfg = self.cfg
-        b = x.shape[0]
-        hkv, s, d = cfg.n_kv_heads, cfg.max_seq, cfg.head_dim
-        r = cfg.n_heads // hkv
-        qkv = self.wqkv(self.attn_norm(x))
-        q = qkv[:, : cfg.dim].reshape(b, cfg.n_heads, d)
-        k = qkv[:, cfg.dim : cfg.dim + cfg.kv_dim].reshape(b, hkv, d)
-        v = qkv[:, cfg.dim + cfg.kv_dim :].reshape(b, hkv, d)
-        q = apply_rope_batch(q, offsets, cfg.rope_theta)
-        k = apply_rope_batch(k, offsets, cfg.rope_theta)
-        kq, ks = quantize_kv_rows(k)  # (B, hkv, D) int8, (B, hkv, 1)
-        vq, vs = quantize_kv_rows(v)
+        q, kq, ks, vq, vs = self._rows_batch(x, offsets)
+        b, hkv, r, d = q.shape
+        s = self.cfg.max_seq
+        g = b * hkv
         bound = torch.minimum(cache.length, offsets).to(torch.int32)
         att = decode_attend_q8kv_cur(
-            cache.k_codes.reshape(b * hkv, s, d),
-            cache.k_scale.reshape(b * hkv, s),
-            cache.v_codes.reshape(b * hkv, s, d),
-            cache.v_scale.reshape(b * hkv, s),
-            # query head i reads KV group i // r: (B, hkv, r, D) keeps head order
-            q.reshape(b * hkv, r, d).to(torch.float32).contiguous(),
-            bound[:, None].expand(b, hkv).reshape(b * hkv).contiguous(),
-            kq.reshape(b * hkv, d),
-            ks.reshape(b * hkv),
-            vq.reshape(b * hkv, d),
-            vs.reshape(b * hkv),
+            cache.k_codes.reshape(g, s, d), cache.k_scale.reshape(g, s),
+            cache.v_codes.reshape(g, s, d), cache.v_scale.reshape(g, s),
+            q.reshape(g, r, d), bound[:, None].expand(b, hkv).reshape(g).contiguous(),
+            kq.reshape(g, d), ks.reshape(g), vq.reshape(g, d), vs.reshape(g),
         )  # (B * hkv, r, D)
-        cache = append_kv_batch_quantized(cache, kq, ks[..., 0], vq, vs[..., 0])
-        x = x + self.wo(att.reshape(b, cfg.n_heads * d).to(x.dtype))
-        return self._mlp(x), cache
+        cache = append_kv_batch_quantized(cache, kq, ks, vq, vs)
+        return self._finish_batch(x, att), cache
+
+    def step_batch_paged(
+        self,
+        x: torch.Tensor,  # (B, dim), one token per slot
+        cache: PagedKVCache,  # the pool shared by the B slots
+        offsets: torch.Tensor,  # (B,) int32
+        active: torch.Tensor,  # (B,) bool: inactive lanes append nothing
+    ) -> Tuple[torch.Tensor, PagedKVCache]:
+        """:meth:`step_batch` over a paged pool: the same deferred-append
+        math, attention read straight from the pages, and the append
+        popping pages for active lanes only (an idle lane's append would
+        leak pages from the shared pool)."""
+        q, kq, ks, vq, vs = self._rows_batch(x, offsets)
+        bound = torch.minimum(cache.lengths, offsets).to(torch.int32)
+        att = paged_decode_attend_cur(
+            cache.k_codes, cache.k_scale, cache.v_codes, cache.v_scale,
+            cache.page_table, bound, q, kq, ks, vq, vs,
+        )  # (B, hkv, r, D)
+        cache = paged_append_batch(cache, kq, ks, vq, vs, active)
+        return self._finish_batch(x, att), cache
 
 
 class Llama(nn.Module):
@@ -280,6 +309,18 @@ class Llama(nn.Module):
                               batch=batch, device=self.device)
                 for _ in range(cfg.n_layers)]
 
+    def init_paged_cache(self, slots: int, page_size: int,
+                         num_pages: int) -> List[PagedKVCache]:
+        """A paged pool per layer of ``num_pages`` pages, sized to the
+        expected sum of live lengths; each slot still holds up to max_seq
+        rows (``max_seq // page_size`` pages)."""
+        cfg = self.cfg
+        if cfg.max_seq % page_size:
+            raise ValueError(f"page_size {page_size} must divide max_seq {cfg.max_seq}")
+        return [init_paged_kv(num_pages, page_size, cfg.n_kv_heads, cfg.head_dim, slots,
+                              cfg.max_seq // page_size, device=self.device)
+                for _ in range(cfg.n_layers)]
+
     @torch.no_grad()
     def forward(
         self,
@@ -297,6 +338,26 @@ class Llama(nn.Module):
         return self.lm_head(self.norm(x)), new_caches
 
     @torch.no_grad()
+    def forward_batch(
+        self,
+        tokens: torch.Tensor,  # (B, T)
+        caches: List[QuantKVCache],  # batched per-layer caches
+        offsets: torch.Tensor,  # (B,)
+    ) -> Tuple[torch.Tensor, List[QuantKVCache]]:
+        """:meth:`forward` for each slot on its own cache, in turn (what the
+        JAX package's vmap computes): logits (B, T, vocab) and the caches,
+        appended in place."""
+        logits = []
+        for b in range(tokens.shape[0]):
+            views = [QuantKVCache(c.k_codes[b], c.k_scale[b], c.v_codes[b], c.v_scale[b],
+                                  c.length[b]) for c in caches]
+            out, views = self.forward(tokens[b], views, int(offsets[b]))
+            for c, v in zip(caches, views):
+                c.length[b] = v.length
+            logits.append(out)
+        return torch.stack(logits), caches
+
+    @torch.no_grad()
     def decode_batch(
         self,
         tokens: torch.Tensor,  # (B, 1)
@@ -309,6 +370,23 @@ class Llama(nn.Module):
         new_caches = []
         for blk, cache in zip(self.blocks, caches):
             x, cache = blk.step_batch(x, cache, offsets)
+            new_caches.append(cache)
+        return self.lm_head(self.norm(x))[:, None, :], new_caches
+
+    @torch.no_grad()
+    def decode_batch_paged(
+        self,
+        tokens: torch.Tensor,  # (B, 1)
+        caches: List[PagedKVCache],  # from init_paged_cache
+        offsets: torch.Tensor,  # (B,) int32
+        active: torch.Tensor,  # (B,) bool, the loop's occupied slots
+    ) -> Tuple[torch.Tensor, List[PagedKVCache]]:
+        """:meth:`decode_batch` over the paged pools: logits (B, 1, vocab)
+        and the pools, appended in place for active slots."""
+        x = self.embed[tokens[:, 0]]
+        new_caches = []
+        for blk, cache in zip(self.blocks, caches):
+            x, cache = blk.step_batch_paged(x, cache, offsets, active)
             new_caches.append(cache)
         return self.lm_head(self.norm(x))[:, None, :], new_caches
 

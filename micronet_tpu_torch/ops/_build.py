@@ -4,8 +4,9 @@ Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface, loaded with ``ctypes``. Building
 happens at first use (or all at once through :func:`build_all`), from the
 sources in this checkout only, into ``build/kernels/`` at the repository
-root. The library name carries a hash of the source and the flags, so an
-edited source never loads a stale library.
+root. The library name carries a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source never loads a stale
+library.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch; the
 wrappers pass that code to :func:`check`, which raises on anything but 0.
@@ -29,7 +30,7 @@ __all__ = ["SOURCES", "CSRC", "BUILD_DIR", "load", "build_all", "check", "check_
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("int4_matmul", "decode_attention", "int_matmul")
+SOURCES = ("int4_matmul", "decode_attention", "paged_attention", "int_matmul")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -51,6 +52,7 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{h}.so"
 

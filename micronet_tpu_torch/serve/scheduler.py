@@ -1,15 +1,18 @@
 """Continuous-batching scheduler over the batched decode step.
 
-Counterpart of ``micronet_tpu/serve/scheduler.py`` (dense KV slots only).
-Requests of different lengths join mid-flight, finished requests leave,
-and their slot is recycled for the next queued request:
+Counterpart of ``micronet_tpu/serve/scheduler.py``. Requests of
+different lengths join mid-flight, finished requests leave, and their
+slot is recycled for the next queued request:
 
 - admission prefills the request alone (optionally in fixed-size chunks)
-  and copies its cache into the batched cache at the free slot;
-- every step runs ``model.decode_batch`` over all slots; idle slots step
-  too, on masked garbage, so the step's shapes never change;
-- eviction is host-side bookkeeping; the slot's device state is fully
-  overwritten at the next admission.
+  and copies its cache into the batched cache at the free slot, or, with
+  ``paged=True``, pages it into the shared pool;
+- every step runs ``model.decode_batch`` (or ``decode_batch_paged``)
+  over all slots; idle slots step too, on masked garbage, so the step's
+  shapes never change;
+- dense eviction is host-side bookkeeping (the slot's state is
+  overwritten at the next admission); paged eviction returns the slot's
+  pages to the pool at once.
 
 Determinism contract: a request's tokens equal those of its isolated
 ``generate()`` / ``generate_sampled()`` run, whatever shares the batch.
@@ -24,6 +27,7 @@ from typing import Deque, Dict, List, Optional, Union
 import torch
 
 from .._device import resolve_device
+from ..quant.paged_kv import paged_free_slot, paged_insert_from_dense
 from .sampling import position_generator, sample_token, sample_token_batch
 
 __all__ = ["Request", "ServeLoop"]
@@ -55,7 +59,19 @@ class ServeLoop:
     must be the model's device. ``prefill_chunk > 0`` prefills prompts in
     chunks of that many tokens; pad rows of the last chunk land past the
     true length, and the slot's fill pointer is reset to the true length,
-    so decode overwrites them."""
+    so decode overwrites them.
+
+    ``paged=True`` keeps the KV rows in a pool of ``num_pages`` pages of
+    ``page_size`` rows per layer (default: the dense capacity plus the
+    zero page) instead of ``max_slots * max_seq`` rows. Admission checks
+    that the pool has the pages of the whole request (prompt plus decode
+    growth) and otherwise puts it back at the head of the queue (counted
+    in ``deferred``); decode appends pop pages for occupied slots only;
+    eviction returns the pages. The check is made at admission time only: requests admitted one after
+    another may together outgrow the pool, and a slot whose append was
+    dropped is then finished early (truncated). The model must provide
+    ``init_paged_cache`` and ``decode_batch_paged``. Token streams equal
+    the dense loop's."""
 
     def __init__(
         self,
@@ -63,28 +79,35 @@ class ServeLoop:
         max_slots: int,
         *,
         paged: bool = False,
+        page_size: int = 16,
+        num_pages: Optional[int] = None,
         prefill_chunk: int = 0,
         device: Union[str, torch.device, None] = None,
     ):
-        if paged:
-            raise NotImplementedError(
-                "paged ServeLoop is not ported yet (ROADMAP.md, Queue 1, "
-                "slice 3: paged serving, kernels K6/K7)"
-            )
         dev = resolve_device(device)
         if model.device != dev:
             raise ValueError(f"model is on {model.device}, loop on {dev}")
         self.model = model
         self.device = dev
+        self.paged = paged
         self.prefill_chunk = prefill_chunk
         self.max_seq = model.cfg.max_seq
-        self.caches = model.init_cache_batch(max_slots)
+        if paged:
+            self.page_size = page_size
+            if num_pages is None:
+                num_pages = 1 + max_slots * (self.max_seq // page_size)
+            self.num_pages = num_pages
+            self.caches = model.init_paged_cache(max_slots, page_size, num_pages)
+            self.active = torch.zeros((max_slots,), dtype=torch.bool, device=dev)
+        else:
+            self.caches = model.init_cache_batch(max_slots)
         self.offsets = torch.zeros((max_slots,), dtype=torch.int32, device=dev)
         self.host_offsets = [0] * max_slots  # mirror of ``offsets``
         self.next_tok = torch.zeros((max_slots, 1), dtype=torch.int64, device=dev)
         self.slot_req: List[Optional[Request]] = [None] * max_slots
         self.queue: Deque[Request] = deque()
         self.finished: Dict[int, Request] = {}
+        self.deferred = 0  # admissions put back for want of pages
         # per-slot sampling parameters, on the host
         self.temps = [0.0] * max_slots
         self.topks = [0] * max_slots
@@ -99,24 +122,44 @@ class ServeLoop:
     def _free_slots(self) -> List[int]:
         return [i for i, r in enumerate(self.slot_req) if r is None]
 
-    def _admit(self, slot: int, req: Request) -> None:
+    def _admit(self, slot: int, req: Request) -> bool:
         """Prefill ``req`` alone, then copy its cache, offset and first
-        token into ``slot`` (overwriting all of the slot's state)."""
+        token into ``slot`` (overwriting all of the slot's state). In paged
+        mode, a pool short of the request's pages puts it back at the head
+        of the queue and returns False."""
         n = len(req.prompt)
+        if self.paged:
+            # the rows the request will append: its prompt and every output
+            # token but the last, whose row is never written; capped at
+            # max_seq, and at the whole pool, so a request bigger than the
+            # pool is admitted once the pool is free (and then truncated)
+            rows = min(n + max(req.max_new_tokens - 1, 0), self.max_seq)
+            needed = min(-(-rows // self.page_size), self.num_pages - 1)
+            if int(self.caches[0].free_top) < needed:
+                self.queue.appendleft(req)
+                self.deferred += 1
+                return False
         prompt = torch.tensor(req.prompt, dtype=torch.int64, device=self.device)
         last_logits, single = self._prefill(prompt)
         first = sample_token(
             last_logits, position_generator(req.seed, n, self.device),
             req.temperature, req.top_k, req.top_p,
         )
-        for full, one in zip(self.caches, single):
-            full.k_codes[slot].copy_(one.k_codes)
-            full.k_scale[slot].copy_(one.k_scale)
-            full.v_codes[slot].copy_(one.v_codes)
-            full.v_scale[slot].copy_(one.v_scale)
-            # a chunked prefill appended pad rows: the fill pointer is the
-            # true length, so decode overwrites them
-            full.length[slot] = n if self.prefill_chunk else one.length
+        if self.paged:
+            for pool, one in zip(self.caches, single):
+                paged_free_slot(pool, slot)
+                paged_insert_from_dense(pool, slot, one.k_codes, one.k_scale[..., 0],
+                                        one.v_codes, one.v_scale[..., 0], n)
+            self.active[slot] = True
+        else:
+            for full, one in zip(self.caches, single):
+                full.k_codes[slot].copy_(one.k_codes)
+                full.k_scale[slot].copy_(one.k_scale)
+                full.v_codes[slot].copy_(one.v_codes)
+                full.v_scale[slot].copy_(one.v_scale)
+                # a chunked prefill appended pad rows: the fill pointer is
+                # the true length, so decode overwrites them
+                full.length[slot] = n if self.prefill_chunk else one.length
         self.offsets[slot] = n
         self.host_offsets[slot] = n
         self.next_tok[slot, 0] = first
@@ -127,6 +170,7 @@ class ServeLoop:
         req.output.append(int(first))
         self.slot_req[slot] = req
         self._maybe_finish(slot)
+        return True
 
     def _prefill(self, prompt: torch.Tensor):
         """(last-position logits (V,), single-slot caches). With
@@ -148,17 +192,25 @@ class ServeLoop:
         logits, cache = self.model.forward(prompt, self.model.init_cache(), 0)
         return logits[-1], cache
 
-    def _maybe_finish(self, slot: int) -> None:
+    def _maybe_finish(self, slot: int, kv_len: Optional[int] = None) -> None:
         req = self.slot_req[slot]
         if req is None:
             return
         hit_eos = req.eos is not None and req.output and req.output[-1] == req.eos
         # capacity: a slot at offset >= max_seq cannot append another row
         full = self.host_offsets[slot] >= self.max_seq
-        if len(req.output) >= req.max_new_tokens or hit_eos or full:
+        # paged: a fill pointer behind the offset means an append was
+        # dropped (the pool ran out); decoding on would attend to an
+        # incomplete cache, so the request ends here (truncated)
+        pool_oom = self.paged and kv_len is not None and kv_len < self.host_offsets[slot]
+        if len(req.output) >= req.max_new_tokens or hit_eos or full or pool_oom:
             req.done = True
             self.finished[req.rid] = req
             self.slot_req[slot] = None
+            if self.paged:
+                for pool in self.caches:
+                    paged_free_slot(pool, slot)
+                self.active[slot] = False
 
     # -- the loop -----------------------------------------------------------
 
@@ -168,12 +220,16 @@ class ServeLoop:
         for slot in self._free_slots():
             if not self.queue:
                 break
-            self._admit(slot, self.queue.popleft())
+            if not self._admit(slot, self.queue.popleft()):
+                break  # the pool is short: later requests keep their turn
         if all(r is None for r in self.slot_req):
             return
-        logits, self.caches = self.model.decode_batch(
-            self.next_tok, self.caches, self.offsets
-        )
+        if self.paged:
+            logits, self.caches = self.model.decode_batch_paged(
+                self.next_tok, self.caches, self.offsets, self.active)
+        else:
+            step_fn = getattr(self.model, "decode_batch", None) or self.model.forward_batch
+            logits, self.caches = step_fn(self.next_tok, self.caches, self.offsets)
         # the token produced from the input at position `off` sits at
         # position off + 1: its generator is keyed by that position
         toks = sample_token_batch(
@@ -184,11 +240,13 @@ class ServeLoop:
         self.host_offsets = [o + 1 for o in self.host_offsets]
         self.next_tok = toks[:, None]
         host_toks = toks.tolist()
+        # the pool's fill pointers, read once per step
+        host_lens = self.caches[0].lengths.tolist() if self.paged else None
         for slot, req in enumerate(self.slot_req):
             if req is None:
                 continue
             req.output.append(host_toks[slot])
-            self._maybe_finish(slot)
+            self._maybe_finish(slot, None if host_lens is None else host_lens[slot])
 
     def run(self, max_steps: int = 10_000) -> Dict[int, Request]:
         """Drive until every submitted request finishes (or max_steps)."""

@@ -14,6 +14,7 @@ import torch
 from micronet_tpu_torch.ops import decode_attention as tda
 from micronet_tpu_torch.ops import int4_matmul as tim
 from micronet_tpu_torch.ops import int_matmul as ti8
+from micronet_tpu_torch.ops import paged_attention as tpa
 
 pytestmark = pytest.mark.cuda
 
@@ -103,6 +104,127 @@ def test_cur_kernel_equals_append_then_attend_bit_for_bit(cuda):
     a = tda.decode_attend_q8kv_cur(kc, ks, vc, vs, q, bound, *cur)
     b = tda.decode_attend_q8kv(kc2, ks2, vc2, vs2, q, bound + 1)
     assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("r", [1, 4, 8])
+def test_split_kernels_match_twins(cuda, r):
+    """K5b and K4b (the split-S regime, any S through the blocked wrappers)
+    at bounds 0, 1, split edges (512 positions a split), ragged and S."""
+    s = 1200
+    base, cur = _attn_case(8, s, 128, r, seed=70 + r)
+    bound = torch.tensor([0, 1, 511, 512, 513, 1024, s - 1, s], dtype=torch.int32, device=cuda)
+    n5, n4 = tda.decode_attend_q8kv_blocked.launches, tda.decode_attend_q8kv_blocked_cur.launches
+    out5 = tda.decode_attend_q8kv_blocked(*base, bound)
+    out4 = tda.decode_attend_q8kv_blocked_cur(*base, bound, *cur)
+    torch.cuda.synchronize()
+    assert tda.decode_attend_q8kv_blocked.launches == n5 + 1
+    assert tda.decode_attend_q8kv_blocked_cur.launches == n4 + 1
+    torch.testing.assert_close(out5, tda.decode_attend_q8kv_ref(*base, bound),
+                               rtol=0, atol=_ATTN_ATOL)
+    torch.testing.assert_close(out4, tda.decode_attend_q8kv_cur_ref(*base, bound, *cur),
+                               rtol=0, atol=_ATTN_ATOL)
+    assert torch.all(out5[0] == 0)  # bound 0: 0, not NaN
+
+
+def test_long_cache_takes_the_split_kernels(cuda):
+    """Past S = 4096 the whole-cache wrappers launch K5b / K4b, not K5a / K4a."""
+    base, cur = _attn_case(2, 4224, 128, 4, seed=80)
+    bound = torch.tensor([4224, 3000], dtype=torch.int32, device=cuda)
+    before = (tda.decode_attend_q8kv.launches, tda.decode_attend_q8kv_blocked.launches,
+              tda.decode_attend_q8kv_cur.launches, tda.decode_attend_q8kv_blocked_cur.launches)
+    out5 = tda.decode_attend_q8kv(*base, bound)
+    out4 = tda.decode_attend_q8kv_cur(*base, bound, *cur)
+    torch.cuda.synchronize()
+    after = (tda.decode_attend_q8kv.launches, tda.decode_attend_q8kv_blocked.launches,
+             tda.decode_attend_q8kv_cur.launches, tda.decode_attend_q8kv_blocked_cur.launches)
+    assert [a - b for a, b in zip(after, before)] == [0, 1, 0, 1]
+    torch.testing.assert_close(out5, tda.decode_attend_q8kv_ref(*base, bound),
+                               rtol=0, atol=_ATTN_ATOL)
+    torch.testing.assert_close(out4, tda.decode_attend_q8kv_cur_ref(*base, bound, *cur),
+                               rtol=0, atol=_ATTN_ATOL)
+
+
+def test_split_cur_kernel_equals_append_then_attend_bit_for_bit(cuda):
+    """K4b at bound b equals K5b at b + 1 over a cache whose row b holds the
+    current row, at split edges too."""
+    s = 1100
+    (kc, ks, vc, vs, q), cur = _attn_case(6, s + 1, 128, 4, seed=90)
+    bound = torch.tensor([0, 1, 511, 512, 1023, 1100], dtype=torch.int32, device=cuda)
+    kc2, ks2, vc2, vs2 = kc.clone(), ks.clone(), vc.clone(), vs.clone()
+    for i, b in enumerate(bound.tolist()):
+        kc2[i, b], ks2[i, b], vc2[i, b], vs2[i, b] = cur[0][i], cur[1][i], cur[2][i], cur[3][i]
+    a = tda.decode_attend_q8kv_blocked_cur(kc, ks, vc, vs, q, bound, *cur)
+    b = tda.decode_attend_q8kv_blocked(kc2, ks2, vc2, vs2, q, bound + 1)
+    assert torch.equal(a, b)
+
+
+def _paged_case(slots, h, r, page, mp, seed):
+    """A shuffled pool, its table, lengths 0, 1, page edges, ragged and
+    S, the query and current rows."""
+    gen = _gen(seed)
+    p = 1 + slots * mp
+    ri = lambda *shape: torch.randint(-127, 128, shape, dtype=torch.int8, device="cuda",
+                                      generator=gen)
+    rf = lambda *shape: torch.rand(shape, device="cuda", generator=gen) * 0.02 + 1e-3
+    s = mp * page
+    lengths = torch.tensor(([0, 1, page, page + 1, s // 2 + 3, s - 1, s] * slots)[:slots],
+                           dtype=torch.int32, device="cuda")
+    order = torch.randperm(p - 1, generator=gen, device="cuda").to(torch.int32) + 1
+    used = (torch.arange(mp, device="cuda")[None, :] * page) < lengths[:, None]
+    table = torch.where(used, order.reshape(slots, mp), 0).to(torch.int32).contiguous()
+    pool = (ri(p, h, page, 128), rf(p, h, 1, page), ri(p, h, page, 128), rf(p, h, 1, page))
+    q = torch.randn((slots, h, r, 128), device="cuda", generator=gen)
+    cur = (ri(slots, h, 128), rf(slots, h), ri(slots, h, 128), rf(slots, h))
+    return pool, table, lengths, q, cur
+
+
+@pytest.mark.parametrize("page,mp", [(16, 8), (16, 320), (512, 10)])  # S 128, 5120, 5120
+def test_paged_kernels_equal_dense_kernels_on_the_gathered_view(cuda, page, mp):
+    """K6 and K7 against their twins, and bit for bit against the dense
+    kernel of the same regime (K4a/K5a up to S = 4096, K4b/K5b past it) over
+    the view gathered from the pool."""
+    slots, h, r = 7, 2, 4
+    pool, table, lengths, q, cur = _paged_case(slots, h, r, page, mp, seed=page + mp)
+    n6, n7 = tpa.paged_decode_attend_cur.launches, tpa.paged_decode_attend.launches
+    out6 = tpa.paged_decode_attend_cur(*pool, table, lengths, q, *cur)
+    out7 = tpa.paged_decode_attend(*pool, table, lengths, q)
+    torch.cuda.synchronize()
+    assert (tpa.paged_decode_attend_cur.launches, tpa.paged_decode_attend.launches) == (n6 + 1,
+                                                                                        n7 + 1)
+    torch.testing.assert_close(out6, tpa.paged_decode_attend_cur_ref(*pool, table, lengths, q,
+                                                                     *cur),
+                               rtol=0, atol=_ATTN_ATOL)
+    torch.testing.assert_close(out7, tpa.paged_decode_attend_ref(*pool, table, lengths, q),
+                               rtol=0, atol=_ATTN_ATOL)
+    assert torch.all(out7[0] == 0)  # length 0, no current column
+    kc, ks = tpa._gather_dense_batch(pool[0], pool[1], table)
+    vc, vs = tpa._gather_dense_batch(pool[2], pool[3], table)
+    g = slots * h
+    bound = lengths[:, None].expand(slots, h).reshape(g).contiguous()
+    q3 = q.reshape(g, r, 128)
+    flat = [t.reshape(g, *t.shape[2:]) for t in cur]
+    dense6 = tda.decode_attend_q8kv_cur(kc, ks, vc, vs, q3, bound, *flat)
+    dense7 = tda.decode_attend_q8kv(kc, ks, vc, vs, q3, bound)
+    assert torch.equal(out6.reshape(g, r, 128), dense6)
+    assert torch.equal(out7.reshape(g, r, 128), dense7)
+
+
+def test_results_do_not_depend_on_the_batch(cuda):
+    """A group's result is the same in a batch of many groups and alone:
+    K4b over a dense cache and K6 over a pool (one slot's table row)."""
+    base, cur = _attn_case(12, 5000, 128, 4, seed=95)
+    bound = torch.arange(12, dtype=torch.int32, device=cuda) * 417
+    full = tda.decode_attend_q8kv_cur(*base, bound, *cur)
+    for i in (0, 5, 11):
+        one = tda.decode_attend_q8kv_cur(*(t[i:i + 1] for t in base), bound[i:i + 1],
+                                         *(t[i:i + 1] for t in cur))
+        assert torch.equal(one[0], full[i])
+    pool, table, lengths, q, cur = _paged_case(6, 2, 4, 16, 320, seed=96)
+    full = tpa.paged_decode_attend_cur(*pool, table, lengths, q, *cur)
+    for i in (1, 4):
+        one = tpa.paged_decode_attend_cur(*pool, table[i:i + 1], lengths[i:i + 1], q[i:i + 1],
+                                          *(t[i:i + 1] for t in cur))
+        assert torch.equal(one[0], full[i])
 
 
 # (M, K, N, s_x, zp, qmin, qmax): ResNet-18's fc call, ragged edges with

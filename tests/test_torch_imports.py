@@ -15,6 +15,7 @@ from micronet_tpu_torch.models import nin_gc
 from micronet_tpu_torch.models.llama import Llama, llama_tiny
 from micronet_tpu_torch.models.resnet import resnet18
 from micronet_tpu_torch.quant.kv_cache import init_kv_cache
+from micronet_tpu_torch.quant.paged_kv import init_paged_kv
 from micronet_tpu_torch.serve import ServeLoop
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -23,9 +24,10 @@ ROOT = Path(__file__).resolve().parents[1]
 def test_port_and_chip_smoke_import_no_jax():
     mods = sorted(m.name for m in pkgutil.walk_packages(
         micronet_tpu_torch.__path__, "micronet_tpu_torch."))
-    assert "micronet_tpu_torch.serve.scheduler" in mods and len(mods) >= 27
+    assert "micronet_tpu_torch.serve.scheduler" in mods and len(mods) >= 29
     for m in ("infer.engine", "infer.dataflow", "infer.bn_fuse", "nn.qat_iao", "nn.transform",
-              "ops.int_matmul", "models.resnet", "models.nin_gc", "quant.observers"):
+              "ops.int_matmul", "models.resnet", "models.nin_gc", "quant.observers",
+              "ops.paged_attention", "quant.paged_kv"):
         assert f"micronet_tpu_torch.{m}" in mods
     code = "\n".join(
         ["import sys", "preloaded = set(sys.modules)"]
@@ -45,14 +47,17 @@ def test_port_and_chip_smoke_import_no_jax():
     assert res.returncode == 0, res.stdout + res.stderr
 
 
-@pytest.mark.parametrize("entry", ["llama", "serve_loop", "kv_cache", "resnet18", "nin_gc"])
+@pytest.mark.parametrize("entry", ["llama", "serve_loop", "paged_serve_loop", "kv_cache",
+                                   "paged_kv", "resnet18", "nin_gc"])
 def test_entry_points_default_to_cuda_and_raise_without_card(monkeypatch, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cpu_model = Llama(llama_tiny(8), device="cpu")
     calls = {
         "llama": lambda: Llama(llama_tiny(8)),
         "serve_loop": lambda: ServeLoop(cpu_model, 2),
+        "paged_serve_loop": lambda: ServeLoop(cpu_model, 2, paged=True, page_size=4),
         "kv_cache": lambda: init_kv_cache(2, 8, 4),
+        "paged_kv": lambda: init_paged_kv(4, 2, 1, 8, 1, 2),
         "resnet18": lambda: resnet18(),
         "nin_gc": lambda: nin_gc.Net(cfg=[16] * 8),
     }

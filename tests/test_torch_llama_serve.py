@@ -172,14 +172,14 @@ def test_prefill_chunk_gives_the_same_tokens(pair):
     assert outs[0] == outs[1]
 
 
-def test_w4_build_quantizes_as_built_and_paged_is_not_ported():
+def test_w4_build_quantizes_as_built():
+    """``w4_group`` makes every block linear and the lm_head a WOLinear,
+    and the model runs; ``quantize_lm_head=False`` keeps a float head."""
     m = tl.Llama(tl.llama_tiny(16), w4_group=16, device="cpu")
     assert isinstance(m.lm_head, WOLinear)
     assert all(isinstance(getattr(b, n), WOLinear)
                for b in m.blocks for n in ("wqkv", "wo", "gateup", "down"))
     logits, _ = m.forward(torch.tensor([1, 2, 3]), m.init_cache(), 0)
     assert logits.shape == (3, 64) and torch.isfinite(logits).all()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServeLoop(m, 2, paged=True, device="cpu")
     float_head = tl.Llama(tl.llama_tiny(16), w4_group=16, quantize_lm_head=False, device="cpu")
     assert isinstance(float_head.lm_head, tl.Linear)
