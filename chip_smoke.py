@@ -24,8 +24,8 @@ Phases, each fatal on failure (non-zero exit, no final line):
    show every kernel ran as often as the path calls it;
 6. with ``--profile``, a traced run of 5 decode steps at 8 busy slots
    (``torch.profiler``): device busy share and kernel time by name (and
-   the same for 3 forwards of each engine in phase 9, and for both loops
-   of phase 11);
+   the same for 3 forwards of each engine in phases 9 and 13, and for both
+   loops of phase 11);
 7. K1 (``int8_matmul_dequant``) against its twin, bit for bit, at the
    engine's call, a large call and a ragged A4 call with zp != 0, timed
    beside ``torch._int_mm`` on codes and its int8 bound (1,979 TOP/s);
@@ -52,7 +52,23 @@ Phases, each fatal on failure (non-zero exit, no final line):
    reserve (admission must defer), then the 6,000-token request alone
    through ``Llama.generate`` (K5b): equal tokens everywhere, every page
    back, exact launch counts;
-12. the kernels line (JSON), then the final line
+12. wbwtab kernels: K2 (``binary_act_matmul``) against its twin, bit for
+   bit, at NIN-GC's largest ternary 1x1 conv as a dense GEMM (batch 1024:
+   M = 65,536, K = N = 1,024), a ragged call and a call with exact zeros,
+   -0.0 and NaN in x, timed beside ``torch._int_mm`` on sign codes made
+   beforehand; K8 (``int4_matmul``) and K9 (``int4_matmul_grouped``, group
+   128) at the five Llama-3-8B shapes of phase 3, M = 1 and 8, within K3's
+   tolerance, timed beside ``torch.matmul`` on the dequantized bf16 weight;
+13. wbwtab engine (slice 4's main path): ``nin_gc.Net()`` at full width
+   with seeded random weights, ``prepare(method="wbwtab")`` at W = 3 and
+   W = 2 (A = 2), 4 train-mode forwards at batch 64 for the BN
+   statistics, ``fuse_bn_wbwtab``, ``freeze_wbwtab`` (7 ``TernaryConv2d``),
+   engine forwards at batch 1024 (no hand-written kernel on this path: every
+   count zeroed just before and still 0 just after); img/s beside the
+   port's fp32 eval and the fused float model; on 8 images the first
+   block's pre-sign output on the card against the CPU, then the rest of
+   the engine from the same signs on both, bit for bit;
+14. the kernels line (JSON), then the final line
    ``{"ok": true, "device": {...}}``.
 
 Details of every measurement go to ``<out>/chip_smoke.json`` (``--out``,
@@ -104,6 +120,8 @@ SHORT_PROMPTS = (16, 512)  # the other ten, drawn from this range
 PAGE, PAGES_E2E = 16, 512  # the loop's page size; benchmarks/llm_paged_e2e.py's
 LONG_KERNELS = ("decode_attend_q8kv_blocked_cur", "decode_attend_q8kv_blocked",
                 "paged_decode_attend_cur", "paged_decode_attend")
+# slice 4: on no path of the JAX package; counted over the wbwtab engine's run
+WBWTAB_KERNELS = ("binary_act_matmul", "int4_matmul", "int4_matmul_grouped")
 # K1 calls: (label, M, K, N, s_x, zp, qmin, qmax, timed launches). "path" is
 # ResNet-18's fc at the engine batch of 512
 K1_CASES = [
@@ -138,6 +156,25 @@ CARD_CPU_TOL = 2e-2
 # bound (tests/test_resnet_quant.py, atol 0.1): the fake-quant model sums
 # dequantized values in f32, so codes at .5 boundaries move in many layers
 FQ_TOL = 0.1
+# K2 calls: (label, M, K, N, timed launches). "path" is NIN-GC's largest
+# ternary 1x1 conv (the 8th, 1024 -> 1024 at 8 x 8) as a dense GEMM at the
+# engine batch of 1024; "zeros" holds exact zeros, -0.0 and NaN in x
+K2_CASES = [("path", NIN_BATCH * 64, 1024, 1024, 10), ("ragged", 333, 200, 19, 100),
+            ("zeros", 1000, 512, 256, 100)]
+WO_MS = (1, 8)  # K8 and K9 at the shapes of K3_SHAPES
+# K8/K9 against their twins: K3's bound (exact products, f32 sums in
+# another order over up to 14,336 terms), relative to max|twin|; measured
+# on an H100 at the five 8B shapes: at most 5.8e-6 on outputs up to ~15,
+# under 5e-7 relative
+WO_REL_TOL = K3_REL_TOL
+# the wbwtab engine's first block: an f32 conv of 75 products per output,
+# summed in another order on the card and the CPU (as F32_ROUTE_RTOL);
+# from the same signs on, the engine's convs are exact on both
+WBWTAB_W = (3, 2)
+# the float classifier (a 1x1 conv over 1,024 signs) and the average pool
+# after the last ternary layer: f32 sums in another order, relative to
+# max(1, max|logit|)
+CLASSIFIER_RTOL = 1e-5
 
 
 def log(*a):
@@ -723,7 +760,8 @@ def _all_kernels():
 
     return (im.int4_matmul_grouped_hl8, da.decode_attend_q8kv_cur, da.decode_attend_q8kv,
             i8.int8_matmul_dequant, da.decode_attend_q8kv_blocked_cur,
-            da.decode_attend_q8kv_blocked, pa.paged_decode_attend_cur, pa.paged_decode_attend)
+            da.decode_attend_q8kv_blocked, pa.paged_decode_attend_cur, pa.paged_decode_attend,
+            i8.binary_act_matmul, im.int4_matmul, im.int4_matmul_grouped)
 
 
 def resnet_engine(dev, seed, report, profile_dir=None):
@@ -992,6 +1030,257 @@ def serve_long(dev, seed, card, report, profile_dir=None):
     return launches
 
 
+# ---------------------------------------------------------------- phase 12
+
+
+def check_k2(dev, gen, report):
+    """K2 against its twin, bit for bit. The library yardstick is
+    ``torch._int_mm`` over sign codes made beforehand: the integer product
+    only, without K2's sign and its alpha epilogue (N padded to what
+    ``_int_mm`` takes)."""
+    from micronet_tpu_torch.ops import int_matmul as i8
+
+    out_cases = {}
+    for label, m, k, n, iters in K2_CASES:
+        x = torch.randn((m, k), device=dev, generator=gen)
+        if label == "zeros":
+            x = torch.where(torch.rand((m, k), device=dev, generator=gen) < 0.25, 0.0, x)
+            x = torch.where(torch.rand((m, k), device=dev, generator=gen) < 0.25, -0.0, x)
+            x[0, :4] = float("nan")
+        w_q = torch.randint(-1, 2, (k, n), dtype=torch.int8, device=dev, generator=gen)
+        alpha = torch.rand((n,), device=dev, generator=gen) + 0.5
+        args = (x, w_q, alpha)
+        got = i8.binary_act_matmul(*args)
+        ref = i8.binary_act_matmul_ref(*args)
+        torch.cuda.synchronize()
+        err = (got - ref).abs().max().item()
+        if not torch.equal(got, ref):
+            fail(f"K2 {label} M={m} K={k} N={n}: kernel differs from its twin "
+                 f"(max|err| {err:.3e}, {int((got != ref).sum())} elements)")
+        ms = time_ms(i8.binary_act_matmul, [args], iters)
+        plain = time_ms(i8.binary_act_matmul_ref, [args], max(3, iters // 20), 1)
+        codes = torch.where(x >= 0, 1, -1).to(torch.int8)
+        w_nk = torch.zeros((max(16, -(-n // 8) * 8), k), dtype=torch.int8, device=dev)
+        w_nk[:n] = w_q.t()
+        lib = time_ms(torch._int_mm, [(codes, w_nk.t())], iters)
+        nbytes = m * k * 4 + k * n + n * 4 + m * n * 4
+        ops = 2 * m * k * n
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S
+        out_cases[label] = dict(m=m, k=k, n=n, ms=ms, plain_ms=plain, library_ms=lib,
+                                bound_ms=max(t_bytes, t_ops) * 1e3,
+                                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                                max_abs_err=err)
+        log(f"K2 {label:6s} M={m:6d} K={k:5d} N={n:5d}: equal to its twin; kernel {ms:.4f} ms, "
+            f"plain {plain:.4f} ms, torch._int_mm on sign codes {lib:.4f} ms, bound "
+            f"{out_cases[label]['bound_ms']:.4f} ms ({out_cases[label]['bound_by']})")
+        del x, codes, got, ref
+    torch.cuda.empty_cache()
+    report["k2_cases"] = out_cases
+    return out_cases
+
+
+def check_k8_k9(dev, gen, report):
+    """K8 (per-column scales) and K9 (group 128) against their twins at the
+    five W4 shapes of one Llama-3-8B decode step, with copies of the weights
+    larger than L2 together so each launch finds its weights cold. The
+    library yardstick is ``torch.matmul`` on the dequantized bf16 weight."""
+    from micronet_tpu_torch.ops import int4_matmul as im
+
+    cases = {"int4_matmul": {}, "int4_matmul_grouped": {}}
+    for (k, n), per_step in K3_SHAPES:
+        ncopy = copies_for(k // 2 * n + k // GROUP * n * 4)
+        packed = [torch.randint(-128, 128, (k // 2, n), dtype=torch.int8, device=dev,
+                                generator=gen) for _ in range(ncopy)]
+        scales = {
+            "int4_matmul": [torch.rand((n,), device=dev, generator=gen) * 0.01 + 1e-3
+                            for _ in range(ncopy)],
+            "int4_matmul_grouped": [torch.rand((k // GROUP, n), device=dev, generator=gen) * 0.01
+                                    + 1e-3 for _ in range(ncopy)],
+        }
+        for name, fn, twin in (("int4_matmul", im.int4_matmul, im.int4_matmul_ref),
+                               ("int4_matmul_grouped", im.int4_matmul_grouped,
+                                im.int4_matmul_grouped_ref)):
+            nlib = copies_for(2 * k * n)
+            if name == "int4_matmul":
+                w_bf16 = [(im.unpack_int4(p).float() * s).to(torch.bfloat16)
+                          for p, s in zip(packed[:nlib], scales[name])]
+            else:
+                w_bf16 = [im._dequant_grouped_bf16(p, s, GROUP).to(torch.bfloat16)
+                          for p, s in zip(packed[:nlib], scales[name])]
+            for m in WO_MS:
+                x = torch.randn((m, k), device=dev, generator=gen)
+                args = [(x, p, s) for p, s in zip(packed, scales[name])]
+                out = fn(*args[0])
+                ref = twin(*args[0])
+                torch.cuda.synchronize()
+                err = (out - ref).abs().max().item()
+                mag = ref.abs().max().item()
+                if not (torch.isfinite(out).all() and err <= WO_REL_TOL * mag):
+                    fail(f"{name} M={m} K={k} N={n}: max|err| {err:.3e} > {WO_REL_TOL} * "
+                         f"{mag:.3e}")
+                ms = time_ms(fn, args, 30)
+                plain = time_ms(twin, args, 5, 1)
+                lib = time_ms(torch.matmul, [(x.to(torch.bfloat16), w) for w in w_bf16], 30)
+                scale_bytes = n * 4 if name == "int4_matmul" else k // GROUP * n * 4
+                nbytes = m * k * 4 + k // 2 * n + scale_bytes + m * n * 4
+                ops = 2 * m * k * n
+                t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S
+                cases[name][(m, k, n)] = dict(
+                    ms=ms, plain_ms=plain, library_ms=lib, bound_ms=max(t_bytes, t_ops) * 1e3,
+                    bound_by="bytes" if t_bytes >= t_ops else "operations", max_abs_err=err,
+                    ref_max=mag, per_step=per_step)
+                log(f"{name:19s} M={m} K={k:6d} N={n:6d}: err {err:.3e} (tol "
+                    f"{WO_REL_TOL * mag:.3e}) kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+                    f"torch.matmul bf16 {lib:.4f} ms, bound "
+                    f"{cases[name][(m, k, n)]['bound_ms']:.4f} ms")
+            del w_bf16
+        del packed, scales
+        torch.cuda.empty_cache()
+    rows = {}
+    for name, by_shape in cases.items():
+        report[f"{name}_cases"] = [dict(m=m, k=k, n=n, **v) for (m, k, n), v in by_shape.items()]
+        # the kernels line: one decode step's worth of calls at M = 8 (129)
+        step = [v for (m, _, _), v in by_shape.items() if m == 8]
+        rows[name] = dict({key: sum(v[key] * v["per_step"] for v in step)
+                           for key in ("ms", "plain_ms", "library_ms", "bound_ms")},
+                          max_abs_err=max(v["max_abs_err"] for v in by_shape.values()),
+                          bound_by="bytes" if all(v["bound_by"] == "bytes" for v in step)
+                          else "operations")
+    return rows
+
+
+# ---------------------------------------------------------------- phase 13
+
+
+def _block_parts(layer, h):
+    """(pre-activation, output) of one NIN-GC block on the NCHW ``h``."""
+    from micronet_tpu_torch.nn import functional as F
+
+    if not hasattr(layer, "conv"):
+        out = layer(h)
+        return out, out
+    if layer.channel_shuffle_flag:
+        h = F.channel_shuffle(h, layer.shuffle_groups)
+    pre = layer.bn(layer.conv(h))
+    return pre, layer.relu(pre)
+
+
+def _card_vs_cpu(name, engine, x):
+    """The engine on the card against a copy on the CPU, on ``x``: the first
+    block's pre-sign output (an f32 conv) within F32_ROUTE_RTOL, with its
+    sign flips counted; then both run the rest from the card's signs:
+    every later block, the ternary convs' outputs included, bit for bit
+    up to the classifier, which (a float conv, then the average pool) must
+    agree within CLASSIFIER_RTOL."""
+    import copy
+
+    from micronet_tpu_torch.infer.engine import TernaryConv2d
+
+    cpu = copy.deepcopy(engine).to("cpu")
+    layers, cpu_layers = list(engine.model.layers), list(cpu.model.layers)
+    h = x.permute(0, 3, 1, 2)
+    pre, signs = _block_parts(layers[0], h)
+    pre_cpu, signs_cpu = _block_parts(cpu_layers[0], h.cpu())
+    pre_err = (pre.cpu() - pre_cpu).abs().max().item()
+    if pre_err > F32_ROUTE_RTOL * pre_cpu.abs().max().item():
+        fail(f"{name}: first block on the card vs the CPU, max|diff| {pre_err:.3e}")
+    flips = int((signs.cpu() != signs_cpu).sum())
+    h_card, h_cpu = signs, signs.cpu()
+    ternary = 0
+    for i, (lc, lh) in enumerate(zip(layers[1:], cpu_layers[1:]), start=1):
+        (p_card, h_card), (p_cpu, h_cpu) = _block_parts(lc, h_card), _block_parts(lh, h_cpu)
+        if i < len(layers) - 2:
+            if not (torch.equal(p_card.cpu(), p_cpu) and torch.equal(h_card.cpu(), h_cpu)):
+                fail(f"{name}: block {i} on the card differs from the CPU from the same signs "
+                     f"(max|diff| {(p_card.cpu() - p_cpu).abs().max().item():.3e})")
+            ternary += isinstance(getattr(lc, "conv", None), TernaryConv2d)
+    logits, logits_cpu = h_card.reshape(x.shape[0], -1).cpu(), h_cpu.reshape(x.shape[0], -1)
+    err = (logits - logits_cpu).abs().max().item()
+    if err > CLASSIFIER_RTOL * max(1.0, logits_cpu.abs().max().item()):
+        fail(f"{name}: logits on the card vs the CPU from the same signs, max|diff| {err:.3e}")
+    return dict(first_block_max_abs=pre_err, first_block_flips=flips,
+                first_block_values=signs.numel(), ternary_layers_equal=ternary,
+                logits_max_abs=err)
+
+
+@torch.no_grad()
+def wbwtab_path(W, dev, seed, report, profile_dir=None):
+    """Slice 4's main path at one weight width: NIN-GC at full width,
+    ``prepare(method="wbwtab")``, BN statistics from 4 train-mode forwards,
+    ``fuse_bn_wbwtab``, ``freeze_wbwtab``, then the engine at batch 1024."""
+    import copy
+
+    from micronet_tpu_torch.infer import freeze_wbwtab, fuse_bn_wbwtab
+    from micronet_tpu_torch.models.nin_gc import Net
+    from micronet_tpu_torch.nn import eval_mode, prepare, train_mode
+    from micronet_tpu_torch.quant.config import QuantConfig
+
+    name = f"nin_gc_wbwtab_w{W}"
+    cfg = QuantConfig(W=W, A=2)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    t0 = time.perf_counter()
+    model = Net(device=dev, generator=gen)
+    fp32 = eval_mode(copy.deepcopy(model))
+    q = train_mode(prepare(model, cfg, method="wbwtab", device=dev))
+    for _ in range(CALIB_STEPS):
+        q(torch.randn((CALIB_BATCH, 32, 32, 3), device=dev, generator=gen))
+    fused = eval_mode(fuse_bn_wbwtab(eval_mode(q), cfg, device=dev))
+    engine = eval_mode(freeze_wbwtab(fused, device=dev))
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    n_ternary = sum(type(m).__name__ == "TernaryConv2d" for m in engine.modules())
+    if n_ternary != 7:
+        fail(f"{name}: {n_ternary} TernaryConv2d, expected 7")
+    x = torch.randn((NIN_BATCH, 32, 32, 3), device=dev, generator=gen)
+
+    kernels = _all_kernels()
+    for kern in kernels:
+        kern.launches = 0
+    # -- the main path: engine forwards --------------------------------
+    out = engine(x)
+    engine_ms = _forward_ms(engine, x, ENGINE_ITERS)
+    launches = {kern.__name__: kern.launches for kern in kernels}
+    # ------------------------------------------------------------------
+    if any(launches.values()):
+        fail(f"{name}: launch counts {launches}, expected none (no kernel on this path)")
+    if tuple(out.shape) != (NIN_BATCH, 10) or not torch.isfinite(out).all():
+        fail(f"{name}: engine output {tuple(out.shape)}, finite={bool(torch.isfinite(out).all())}")
+    fp32(x)
+    fp32_ms = _forward_ms(fp32, x, ENGINE_ITERS)
+    fq = fused(x)
+    fused_ms = _forward_ms(fused, x, ENGINE_ITERS)
+    agree = (out.argmax(-1) == fq.argmax(-1)).float().mean().item()
+    if profile_dir is not None:
+        report[f"{name}_profile"] = trace(lambda: engine(x), 3, f"{name} engine forwards",
+                                          profile_dir / f"chip_smoke_{name}_profile.txt")
+    cmp = _card_vs_cpu(name, engine, x[:CPU_BATCH])
+    res = dict(batch=NIN_BATCH, W=W, setup_s=setup_s, ternary_layers=n_ternary,
+               launches=launches, forwards=1 + ENGINE_ITERS, engine_ms=engine_ms,
+               engine_img_s=NIN_BATCH / engine_ms * 1e3, fp32_ms=fp32_ms,
+               fp32_img_s=NIN_BATCH / fp32_ms * 1e3, fused_ms=fused_ms,
+               fused_img_s=NIN_BATCH / fused_ms * 1e3, top1_agree_with_fused=agree,
+               max_abs_vs_fused=(out - fq).abs().max().item(), cpu_rows=CPU_BATCH, **cmp,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    report[name] = res
+    log(f"{name}: setup {setup_s:.1f} s, {n_ternary} TernaryConv2d; engine at batch "
+        f"{NIN_BATCH}: {engine_ms:.2f} ms = {res['engine_img_s']:.0f} img/s, port fp32 eval "
+        f"(TF32 off) {fp32_ms:.2f} ms = {res['fp32_img_s']:.0f} img/s, fused float model "
+        f"{fused_ms:.2f} ms = {res['fused_img_s']:.0f} img/s; top-1 agreement with the fused "
+        f"model {agree:.4f}; launches {launches}")
+    log(f"{name}: on {CPU_BATCH} images, first block card vs CPU max|diff| "
+        f"{cmp['first_block_max_abs']:.3e}, {cmp['first_block_flips']} of "
+        f"{cmp['first_block_values']} signs flipped; from the card's signs every later block "
+        f"({cmp['ternary_layers_equal']} ternary convs) equal bit for bit, logits within "
+        f"{cmp['logits_max_abs']:.3e}")
+    return launches
+
+
+def wbwtab_engine(dev, seed, report, profile_dir=None):
+    """Both weight widths; the launch counts summed over both runs."""
+    runs = [wbwtab_path(W, dev, seed, report, profile_dir) for W in WBWTAB_W]
+    return {k: sum(r[k] for r in runs) for k in runs[0]}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1046,6 +1335,10 @@ def main() -> int:
     launches.update({k: v for k, v in serve_long(dev, args.seed, card, report,
                                                  profile_dir).items()
                      if k in LONG_KERNELS})
+    k2 = check_k2(dev, gen, report)
+    wo = check_k8_k9(dev, gen, report)
+    launches.update({k: v for k, v in wbwtab_engine(dev, args.seed, report, profile_dir).items()
+                     if k in WBWTAB_KERNELS})
 
     src = "micronet_tpu_torch/ops/csrc/"
     long_per = (f"one call, G={ATT_G} R={ATT_R} D={ATT_D} S={LONG_CTX}, bounds 0..{LONG_CTX}")
@@ -1091,6 +1384,23 @@ def main() -> int:
              replaces="micronet_tpu/ops/paged_attention.py:131",
              launches=launches["paged_decode_attend"], per=paged_per,
              **long_att[f"paged_decode_attend_page{PAGE}"]),
+        dict(name="binary_act_matmul", route="cuda", source=src + "int_matmul.cu",
+             replaces="micronet_tpu/ops/int_matmul.py:201",
+             launches=launches["binary_act_matmul"],
+             per=f"one call at M={K2_CASES[0][1]} K={K2_CASES[0][2]} N={K2_CASES[0][3]} "
+                 "(NIN-GC's 8th conv as a dense GEMM at batch 1024); library_ms is "
+                 "torch._int_mm on sign codes made beforehand: the integer product only",
+             **{k: v for k, v in k2["path"].items()
+                if k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err")}),
+        dict(name="int4_matmul", route="cuda", source=src + "int4_matmul.cu",
+             replaces="micronet_tpu/ops/int4_matmul.py:158", launches=launches["int4_matmul"],
+             per="129 calls at M=8 over the five 8B shapes (one decode step's worth)",
+             **wo["int4_matmul"]),
+        dict(name="int4_matmul_grouped", route="cuda", source=src + "int4_matmul.cu",
+             replaces="micronet_tpu/ops/int4_matmul.py:309",
+             launches=launches["int4_matmul_grouped"],
+             per="129 calls at M=8 over the five 8B shapes (one decode step's worth), group 128",
+             **wo["int4_matmul_grouped"]),
     ]
     report["kernels"] = rows
     report["seconds"] = time.perf_counter() - t_start

@@ -1,5 +1,6 @@
-"""PyTorch/CUDA port of ``micronet_tpu``: so far its dense LLM serving path
-and its IAO compression flow down to the integer engine.
+"""PyTorch/CUDA port of ``micronet_tpu``: so far its LLM serving paths
+(dense, paged, long-context) and its IAO and wbwtab compression flows down
+to their integer engines.
 
 The JAX package ``micronet_tpu`` stays the reference; this package mirrors
 its layout (``ops/``, ``quant/``, ``nn/``, ``models/``, ``infer/``,

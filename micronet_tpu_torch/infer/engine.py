@@ -26,10 +26,15 @@ The JAX package's bf16-codes lowering is a TPU choice; here both integer
 routes are exact at any window size. ``IntLinear`` runs the hand-written
 kernel K1 (``ops/int_matmul.py::int8_matmul_dequant``).
 
+The wbwtab engine (``freeze_wbwtab``) turns each binary-range conv into a
+:class:`TernaryConv2d`: its {-1, +1} inputs cast to int8 exactly and run
+through the same two integer routes as ``IntConv2d`` (a cuDNN conv over
++-1 values would not be exact: its algorithm choice, Winograd or FFT,
+rounds), then ``f32(acc) * alpha + bias``.
+
 Not ported yet: the asymmetric (``q_type=1``) paths (``freeze_int``
-raises), ``IntConcat``, ``IntConvTranspose2d``, ``TernaryConv2d`` and
-``freeze_wbwtab``, and the JAX package's ``pallas_pointwise`` and
-``pointwise_dot`` options.
+raises), ``IntConcat``, ``IntConvTranspose2d``, and the JAX package's
+``pallas_pointwise`` and ``pointwise_dot`` options.
 """
 
 from __future__ import annotations
@@ -44,13 +49,14 @@ from torch import nn
 from .._device import resolve_device
 from ..nn import functional as F
 from ..nn import modules as M
-from ..nn import qat_iao
+from ..nn import qat_iao, qat_wbwtab
 from ..nn.transform import _children, _copy_model
 from ..ops.int4_matmul import pack_int4, unpack_int4
 from ..ops.int_matmul import int8_linear
 from ..quant.rounding import round_half_away
 
-__all__ = ["IntConv2d", "IntLinear", "IntMaxPool2d", "IntAvgPool2d", "IntAdd", "freeze_int"]
+__all__ = ["IntConv2d", "IntLinear", "IntMaxPool2d", "IntAvgPool2d", "IntAdd", "freeze_int",
+           "TernaryConv2d", "freeze_wbwtab"]
 
 
 def _scalar_buffer(v, dev) -> torch.Tensor:
@@ -98,7 +104,76 @@ def _int_mm_exact(a: torch.Tensor, b_t: torch.Tensor) -> torch.Tensor:
     return torch._int_mm(a.contiguous(), b_t.contiguous().t())[:m, :n]
 
 
-class IntConv2d(nn.Module):
+class _IntConvRoutes(nn.Module):
+    """The exact integer accumulation of a conv over int8 codes, shared by
+    :class:`IntConv2d` and :class:`TernaryConv2d`. A subclass sets
+    ``w_shape`` (O, cg, kh, kw), ``stride``, ``padding``, ``dilation``,
+    ``groups`` and ``_gemm_cache``, and defines ``_codes`` (the stored
+    weight buffer) and ``_weights_hwio``."""
+
+    def _codes(self) -> torch.Tensor:
+        raise NotImplementedError
+
+    def _weights_hwio(self) -> torch.Tensor:
+        raise NotImplementedError
+
+    def _weights(self) -> torch.Tensor:
+        """OIHW int8 codes."""
+        return self._weights_hwio().permute(3, 2, 0, 1)
+
+    def _gemm_weight(self) -> torch.Tensor:
+        """(O, kh*kw*C) int8: row o holds output channel o's codes in im2col
+        (kh, kw, c) order over ALL input channels, zero outside its group.
+        Built once and kept until the stored codes move or are written in
+        place."""
+        codes = self._codes()
+        key = (codes.data_ptr(), codes.device, codes._version)
+        if self._gemm_cache is not None and self._gemm_cache[0] == key:
+            return self._gemm_cache[1]
+        co, cg, kh, kw = self.w_shape
+        g = self.groups
+        og = co // g
+        w = self._weights_hwio().permute(3, 0, 1, 2)  # (O, kh, kw, cg)
+        full = torch.zeros((g, og, kh, kw, g, cg), dtype=torch.int8, device=w.device)
+        for i in range(g):
+            full[i, :, :, :, i, :] = w[i * og:(i + 1) * og]
+        full = full.reshape(co, kh * kw * g * cg)
+        self._gemm_cache = (key, full)
+        return full
+
+    def _im2col(self, x: torch.Tensor) -> Tuple[torch.Tensor, Tuple[int, int, int]]:
+        """(N, C, H, W) -> the (N*Ho*Wo, kh*kw*C) patch matrix in (kh, kw, c)
+        column order, and (N, Ho, Wo). Padding is zero codes."""
+        n, c, h, w = x.shape
+        _, _, kh, kw = self.w_shape
+        (sh, sw), (ph, pw), (dh, dw) = self.stride, self.padding, self.dilation
+        xh = x.permute(0, 2, 3, 1)  # NHWC
+        if ph or pw:
+            xh = TF.pad(xh, (0, 0, pw, pw, ph, ph))
+        ho = (h + 2 * ph - dh * (kh - 1) - 1) // sh + 1
+        wo = (w + 2 * pw - dw * (kw - 1) - 1) // sw + 1
+        if (kh, kw) == (1, 1):
+            return xh[:, ::sh, ::sw][:, :ho, :wo].reshape(n * ho * wo, c), (n, ho, wo)
+        p = xh.unfold(1, dh * (kh - 1) + 1, sh).unfold(2, dw * (kw - 1) + 1, sw)
+        p = p[..., ::dh, ::dw]  # (N, Ho, Wo, C, kh, kw)
+        return p.permute(0, 1, 2, 4, 5, 3).reshape(n * ho * wo, kh * kw * c), (n, ho, wo)
+
+    def _int_acc_im2col(self, x_q: torch.Tensor) -> torch.Tensor:
+        cols, (n, ho, wo) = self._im2col(x_q)
+        acc = _int_mm_exact(cols, self._gemm_weight())
+        return acc.reshape(n, ho, wo, self.w_shape[0]).permute(0, 3, 1, 2)
+
+    def int_acc(self, x_q: torch.Tensor) -> torch.Tensor:
+        """The exact accumulator of the codes ``x_q`` (N, C, H, W) int8:
+        int32 on the card (im2col + ``torch._int_mm``), f64 on the CPU (an
+        f64 convolution), both exact."""
+        if x_q.device.type == "cuda":
+            return self._int_acc_im2col(x_q)
+        return TF.conv2d(x_q.to(torch.float64), self._weights().to(torch.float64), None,
+                         self.stride, self.padding, self.dilation, self.groups)
+
+
+class IntConv2d(_IntConvRoutes):
     """Integer conv: int8 in, int8 weights, exact int32-valued
     accumulation, f32 epilogue (or a requant to int8 when chained).
     ``w_q`` is OIHW; with W <= 4 it is stored nibble-packed
@@ -128,65 +203,15 @@ class IntConv2d(nn.Module):
         self.f32_dequant = groups == 1 and self.w_shape[1] < 8
         self._gemm_cache: Optional[Tuple[Tuple, torch.Tensor]] = None
 
+    def _codes(self) -> torch.Tensor:
+        return self.w_q
+
     def _weights_hwio(self) -> torch.Tensor:
         """(kh, kw, cg, O) int8 codes."""
         co, cg, kh, kw = self.w_shape
         if self.w_packed:
             return unpack_int4(self.w_q).reshape(kh, kw, cg, co)
         return self.w_q.permute(2, 3, 1, 0)
-
-    def _weights(self) -> torch.Tensor:
-        """OIHW int8 codes."""
-        return self._weights_hwio().permute(3, 2, 0, 1)
-
-    def _gemm_weight(self) -> torch.Tensor:
-        """(O, kh*kw*C) int8: row o holds output channel o's codes in im2col
-        (kh, kw, c) order over ALL input channels, zero outside its group.
-        Built once and kept until ``w_q`` moves or is written in place."""
-        key = (self.w_q.data_ptr(), self.w_q.device, self.w_q._version)
-        if self._gemm_cache is not None and self._gemm_cache[0] == key:
-            return self._gemm_cache[1]
-        co, cg, kh, kw = self.w_shape
-        g = self.groups
-        og = co // g
-        w = self._weights_hwio().permute(3, 0, 1, 2)  # (O, kh, kw, cg)
-        full = torch.zeros((g, og, kh, kw, g, cg), dtype=torch.int8, device=w.device)
-        for i in range(g):
-            full[i, :, :, :, i, :] = w[i * og:(i + 1) * og]
-        full = full.reshape(co, kh * kw * g * cg)
-        self._gemm_cache = (key, full)
-        return full
-
-    def _im2col(self, x: torch.Tensor) -> Tuple[torch.Tensor, Tuple[int, int, int]]:
-        """(N, C, H, W) -> the (N*Ho*Wo, kh*kw*C) patch matrix in (kh, kw, c)
-        column order, and (N, Ho, Wo)."""
-        n, c, h, w = x.shape
-        _, _, kh, kw = self.w_shape
-        (sh, sw), (ph, pw), (dh, dw) = self.stride, self.padding, self.dilation
-        xh = x.permute(0, 2, 3, 1)  # NHWC
-        if ph or pw:
-            xh = TF.pad(xh, (0, 0, pw, pw, ph, ph))
-        ho = (h + 2 * ph - dh * (kh - 1) - 1) // sh + 1
-        wo = (w + 2 * pw - dw * (kw - 1) - 1) // sw + 1
-        if (kh, kw) == (1, 1):
-            return xh[:, ::sh, ::sw][:, :ho, :wo].reshape(n * ho * wo, c), (n, ho, wo)
-        p = xh.unfold(1, dh * (kh - 1) + 1, sh).unfold(2, dw * (kw - 1) + 1, sw)
-        p = p[..., ::dh, ::dw]  # (N, Ho, Wo, C, kh, kw)
-        return p.permute(0, 1, 2, 4, 5, 3).reshape(n * ho * wo, kh * kw * c), (n, ho, wo)
-
-    def _int_acc_im2col(self, x_q: torch.Tensor) -> torch.Tensor:
-        cols, (n, ho, wo) = self._im2col(x_q)
-        acc = _int_mm_exact(cols, self._gemm_weight())
-        return acc.reshape(n, ho, wo, self.w_shape[0]).permute(0, 3, 1, 2)
-
-    def int_acc(self, x_q: torch.Tensor) -> torch.Tensor:
-        """The exact accumulator of the codes ``x_q`` (N, C, H, W) int8:
-        int32 on the card (im2col + ``torch._int_mm``), f64 on the CPU (an
-        f64 convolution), both exact."""
-        if x_q.device.type == "cuda":
-            return self._int_acc_im2col(x_q)
-        return TF.conv2d(x_q.to(torch.float64), self._weights().to(torch.float64), None,
-                         self.stride, self.padding, self.dilation, self.groups)
 
     def _finish(self, out: torch.Tensor) -> torch.Tensor:
         if self.bias is not None:
@@ -548,3 +573,74 @@ def _plan_chains_dataflow(model: nn.Module, example_input: torch.Tensor) -> None
             continue
         if _is_receiver(recv[0]):
             _link(m, recv[0])
+
+
+# --------------------------------------------------------------------------
+# wbwtab (ternary/binary) engine
+# --------------------------------------------------------------------------
+
+
+class TernaryConv2d(_IntConvRoutes):
+    """Integer execution of a wbwtab conv whose input is binary {-1, +1}.
+    The weights are ``w_t * alpha``, ``w_t`` (OIHW int8) in {-1, 0, +1}
+    and ``alpha`` (O,) f32 per out channel. The signs cast to int8
+    exactly, the conv accumulates exactly (im2col + ``torch._int_mm`` on
+    the card, an f64 conv on the CPU; the zero padding is code 0, as the
+    float conv pads with 0), and the epilogue is ``f32(acc) * alpha``,
+    then ``+ bias``, each rounded once."""
+
+    def __init__(self, w_t: torch.Tensor, alpha: torch.Tensor, bias,
+                 stride: Tuple[int, int], padding: Tuple[int, int],
+                 dilation: Tuple[int, int], groups: int):
+        super().__init__()
+        self.register_buffer("w_t", w_t)
+        self.register_buffer("alpha", alpha.to(torch.float32).clone())
+        self.register_buffer("bias", None if bias is None else bias.clone())
+        self.stride, self.padding, self.dilation = stride, padding, dilation
+        self.groups = groups
+        self.w_shape = tuple(w_t.shape)  # (O, cg, kh, kw)
+        self._gemm_cache: Optional[Tuple[Tuple, torch.Tensor]] = None
+
+    def _codes(self) -> torch.Tensor:
+        return self.w_t
+
+    def _weights_hwio(self) -> torch.Tensor:
+        return self.w_t.permute(2, 3, 1, 0)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        # the inputs are exact +-1.0 (a sign, or a max-pool of signs)
+        x_q = x if x.dtype == torch.int8 else x.to(torch.int8)
+        out = self.int_acc(x_q).to(torch.float32) * self.alpha[:, None, None]
+        if self.bias is not None:
+            out = out + self.bias[:, None, None]
+        return out
+
+
+@torch.no_grad()
+def _freeze_ternary(conv: qat_wbwtab.QuantConv2d) -> TernaryConv2d:
+    w = conv.weight  # t * alpha, alpha >= 0 per out channel
+    alpha = torch.amax(torch.abs(w), dim=(1, 2, 3))
+    w_t = round_half_away(w / torch.clamp(alpha, min=1e-12)[:, None, None, None])
+    return TernaryConv2d(w_t.to(torch.int8), alpha, conv.bias, conv.stride, conv.padding,
+                         conv.dilation, conv.groups)
+
+
+def freeze_wbwtab(model: nn.Module, *, inplace: bool = False, device=None) -> nn.Module:
+    """Convert a wbwtab BN-fused inference model (``fuse_bn_wbwtab``, its
+    weights pre-quantized to ``t * alpha``) into the ternary engine on
+    ``device`` (None = CUDA): every ``QuantConv2d(quant_inference=True)``
+    becomes a :class:`TernaryConv2d`."""
+    dev = resolve_device(device)
+    if not inplace:
+        model = _copy_model(model)
+    model.to(dev)
+
+    def rec(module: nn.Module) -> None:
+        for _, child, set_child in _children(module):
+            if type(child) is qat_wbwtab.QuantConv2d and child.quant_inference:
+                set_child(_freeze_ternary(child))
+            else:
+                rec(child)
+
+    rec(model)
+    return model

@@ -1,10 +1,14 @@
 """``prepare()``, the model-tree quantization transform: the counterpart of
-``micronet_tpu/nn/transform.py`` (IAO only; DoReFa and wbwtab are not
-ported yet).
+``micronet_tpu/nn/transform.py`` (IAO and wbwtab; DoReFa is not ported
+yet).
 
 IAO: Conv2d -> QuantConv2d, or with ``bn_fuse`` the pair (Conv2d,
 following sibling BatchNorm2d) -> (QuantBNFuseConv2d, Identity); Linear,
 the pools and Add -> their quant variants. A plain ReLU is left alone.
+
+wbwtab: every Conv2d but the first and the last -> the wbwtab
+QuantConv2d; every ReLU after the first conv and before the last ->
+``ActivationQuantizer``. BatchNorms stay (``fuse_bn_wbwtab`` folds them).
 The walk visits children in insertion order, flattening a
 ``Sequential``'s ``layers`` list into the ``Sequential``'s scope, so
 Conv -> BN adjacency follows the order the model defined them in.
@@ -22,9 +26,9 @@ from torch import nn
 from .._device import resolve_device
 from ..quant.config import QuantConfig
 from . import modules as M
-from . import qat_iao
+from . import qat_iao, qat_wbwtab
 
-__all__ = ["prepare", "prepare_iao"]
+__all__ = ["prepare", "prepare_iao", "prepare_wbwtab"]
 
 Setter = Callable[[nn.Module], None]
 
@@ -168,16 +172,53 @@ def prepare_iao(model: nn.Module, cfg: QuantConfig, *, inplace: bool = False,
     return model
 
 
+def _count_convs(module: nn.Module) -> int:
+    n = 0
+    for _, child, _ in _children(module):
+        n += 1 if type(child) is M.Conv2d else _count_convs(child)
+    return n
+
+
+def _add_quant_op_wbwtab(module: nn.Module, cfg: QuantConfig, dev: torch.device,
+                         counter: list, layer_num: int) -> None:
+    for _, child, set_child in _children(module):
+        if type(child) is M.Conv2d:
+            counter[0] += 1
+            if 1 < counter[0] < layer_num:  # skip the first AND the last
+                q = qat_wbwtab.QuantConv2d(cfg=cfg, device=dev, **_conv_args(child))
+                _copy_wb(q, child)
+                set_child(q)
+        elif type(child) is M.ReLU:
+            if 0 < counter[0] < layer_num:
+                set_child(qat_wbwtab.ActivationQuantizer(A=cfg.A))
+        else:
+            _add_quant_op_wbwtab(child, cfg, dev, counter, layer_num)
+
+
+def prepare_wbwtab(model: nn.Module, cfg: QuantConfig, *, inplace: bool = False,
+                   device=None) -> nn.Module:
+    """wbwtab prepare, on ``device`` (None = CUDA)."""
+    dev = resolve_device(device)
+    if not inplace:
+        model = _copy_model(model)
+    model.to(dev)
+    _add_quant_op_wbwtab(model, cfg, dev, [0], _count_convs(model))
+    return model
+
+
+_PREPARE = {"iao": prepare_iao, "wbwtab": prepare_wbwtab}
+
+
 def prepare(model: nn.Module, cfg: Optional[QuantConfig] = None, *, method: str = "iao",
             inplace: bool = False, device=None, **overrides) -> nn.Module:
     """Rewrite ``model``'s tree with quant layers per ``method``.
     ``overrides`` update fields of ``cfg`` (or of a default QuantConfig)."""
-    if method in ("dorefa", "wbwtab"):
+    if method == "dorefa":
         raise NotImplementedError(
-            f"method {method!r} is not ported yet (ROADMAP.md, Queue 1: DoReFa, wbwtab)")
-    if method != "iao":
+            "method 'dorefa' is not ported yet (ROADMAP.md, Queue 1: DoReFa)")
+    if method not in _PREPARE:
         raise ValueError(f"unknown method {method!r}; pick from ['dorefa', 'iao', 'wbwtab']")
     cfg = cfg or QuantConfig()
     if overrides:
         cfg = dataclasses.replace(cfg, **overrides)
-    return prepare_iao(model, cfg, inplace=inplace, device=device)
+    return _PREPARE[method](model, cfg, inplace=inplace, device=device)

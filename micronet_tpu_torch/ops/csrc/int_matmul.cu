@@ -1,6 +1,6 @@
-// Int8 matmul with the activation quantize and the dequantize fused, for Hopper (sm_90a).
+// Int8 matmuls with the activation quantize and the dequantize fused, for Hopper (sm_90a).
 //
-// Replaces the TPU kernel micronet_tpu/ops/int_matmul.py::int8_matmul_dequant (Pallas
+// K1 replaces the TPU kernel micronet_tpu/ops/int_matmul.py::int8_matmul_dequant (Pallas
 // body _kernel). It computes what the XLA oracle int8_matmul_dequant_xla computes, for
 // x (M, K) f32, w_q (K, N) int8 (row-major), w_scale (N,) f32 and per-tensor s_x, zp:
 //
@@ -24,6 +24,16 @@
 // 8 x 8 tile of outputs with __dp4a (CUDA cores, int32 accumulators). Ragged M, N and K
 // are masked in the kernel: codes and weights outside the matrix are 0. Tensor cores
 // (mma.sync / wgmma on s8) and TMA are later work.
+//
+// K2 replaces micronet_tpu/ops/int_matmul.py::binary_act_matmul (Pallas body
+// _sign_kernel): the same kernel instantiated with kBinary, whose quantize is the wbwtab
+// sign, q = x >= 0 ? +1 : -1 (0 and -0.0 give +1, NaN gives -1), with no zero point, and
+// whose epilogue is f32(acc) * alpha[n], one rounded multiply. w_q holds {-1, 0, +1}.
+// The ragged K edge is masked with code 0, never with x = 0, which would binarize to +1.
+// At the wbwtab engine's largest 1x1 conv as a GEMM (M = 65,536, K = N = 1,024) the
+// bytes bound it: 0.54 GB of f32 x and f32 out, 0.16 ms at 3.35 TB/s, against 137 G
+// int8 operations, 0.069 ms at 1,979 TOP/s. __dp4a on the CUDA cores reaches neither
+// (tensor cores are later work).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -47,18 +57,22 @@ __device__ __forceinline__ int8_t quantize(float x, float s, float zp, float qmi
   return (int8_t)(int)q;
 }
 
+__device__ __forceinline__ int8_t sign_code(float x) { return x >= 0.f ? 1 : -1; }
+
+// kBinary = false: K1 (quantize, zero point, s_x * w_scale); true: K2 (sign, alpha).
+template <bool kBinary>
 __global__ void __launch_bounds__(kThreads)
-int8_matmul_dequant_kernel(const float* __restrict__ x, const int8_t* __restrict__ w,
-                           const float* __restrict__ w_scale, const float* __restrict__ sx_p,
-                           const float* __restrict__ zp_p, float* __restrict__ out, int M,
-                           int K, int N, float qmin, float qmax) {
+int8_matmul_kernel(const float* __restrict__ x, const int8_t* __restrict__ w,
+                   const float* __restrict__ w_scale, const float* __restrict__ sx_p,
+                   const float* __restrict__ zp_p, float* __restrict__ out, int M, int K,
+                   int N, float qmin, float qmax) {
   // As: the quantized x stripe, row-major bytes; Bs: w tile transposed, one row of
   // kKW words per column (+1 word of padding against bank conflicts)
   __shared__ __align__(16) int8_t As[kBM][kBK];
   __shared__ int Bs[kBN][kKW + 1];
 
-  const float s_x = *sx_p;
-  const float zp = *zp_p;
+  const float s_x = kBinary ? 1.f : *sx_p;
+  const float zp = kBinary ? 0.f : *zp_p;
   const int izp = (int)zp;  // truncation, as the oracle's astype(int32)
   const int m0 = blockIdx.y * kBM;
   const int n0 = blockIdx.x * kBN;
@@ -80,9 +94,12 @@ int8_matmul_dequant_kernel(const float* __restrict__ x, const int8_t* __restrict
     for (int i = threadIdx.x; i < kBM * kBK; i += kThreads) {
       const int r = i / kBK, c = i % kBK;
       const int gm = m0 + r, gk = k0 + c;
-      As[r][c] = (gm < M && gk < K)
-                     ? quantize(x[(size_t)gm * K + gk], s_x, zp, qmin, qmax)
-                     : (int8_t)0;
+      int8_t q = 0;
+      if (gm < M && gk < K) {
+        const float v = x[(size_t)gm * K + gk];
+        q = kBinary ? sign_code(v) : quantize(v, s_x, zp, qmin, qmax);
+      }
+      As[r][c] = q;
     }
     // w tile: word (n, kw) packs w[k0 + 4kw + 0..3][n0 + n], low byte first
     for (int i = threadIdx.x; i < kBN * kKW; i += kThreads) {
@@ -121,7 +138,7 @@ int8_matmul_dequant_kernel(const float* __restrict__ x, const int8_t* __restrict
   for (int j = 0; j < kTN; ++j) {
     const int gn = n0 + tx + 16 * j;
     if (gn >= N) continue;
-    const float scale = __fmul_rn(s_x, w_scale[gn]);
+    const float scale = kBinary ? w_scale[gn] : __fmul_rn(s_x, w_scale[gn]);
 #pragma unroll
     for (int i = 0; i < kTM; ++i) {
       const int gm = m0 + ty + 16 * i;
@@ -143,9 +160,23 @@ extern "C" int mn_int8_matmul_dequant(const void* x, const void* w_q, const void
   if (M <= 0 || K <= 0 || N <= 0 || (M + kBM - 1) / kBM > 65535)
     return (int)cudaErrorInvalidValue;
   dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
-  int8_matmul_dequant_kernel<<<grid, kThreads, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
+  int8_matmul_kernel<false><<<grid, kThreads, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<const int8_t*>(w_q),
       static_cast<const float*>(w_scale), static_cast<const float*>(s_x),
       static_cast<const float*>(zp), static_cast<float*>(out), M, K, N, qmin, qmax);
+  return (int)cudaGetLastError();
+}
+
+// K2: x (M, K) f32, w_q (K, N) int8 in {-1, 0, +1}, alpha (N,) f32, out (M, N) f32.
+// Returns cudaGetLastError() after the launch.
+extern "C" int mn_binary_act_matmul(const void* x, const void* w_q, const void* alpha,
+                                    void* out, int M, int K, int N, void* stream) {
+  if (M <= 0 || K <= 0 || N <= 0 || (M + kBM - 1) / kBM > 65535)
+    return (int)cudaErrorInvalidValue;
+  dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
+  int8_matmul_kernel<true><<<grid, kThreads, 0, reinterpret_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<const int8_t*>(w_q),
+      static_cast<const float*>(alpha), nullptr, nullptr, static_cast<float*>(out), M, K, N,
+      0.f, 0.f);
   return (int)cudaGetLastError();
 }

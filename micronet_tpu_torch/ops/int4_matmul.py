@@ -1,15 +1,22 @@
-"""Weight-only int4 matmul (W4A16) over hl8-packed group-scaled weights.
+"""Weight-only int4 matmuls (W4A16): the counterpart of
+``micronet_tpu/ops/int4_matmul.py``, its three kernels each with a plain
+twin:
 
-Counterpart of ``micronet_tpu/ops/int4_matmul.py``. Only the serving
-format is ported here: group scales (K/g, N) and the hl8 byte layout. The
-per-column and v1-grouped kernels of the JAX package are not on the
-serving path.
+- K3 :func:`int4_matmul_grouped_hl8`, the serving format: group scales
+  (K/g, N) over the hl8 byte layout, each group's partial dot scaled;
+- K8 :func:`int4_matmul`: the plain packing with per-column scales,
+  applied in the epilogue;
+- K9 :func:`int4_matmul_grouped`: the plain packing with group scales,
+  each weight dequantized to bf16 (``bf16(f32(q) * gscale)``, rounded
+  once) before the dot.
 
 Packing: rows [0, K/2) of the (K, N) int4 codes live in the LOW nibble
-and rows [K/2, K) in the HIGH nibble of a (K/2, N) int8 array. The hl8
-layout XORs every byte with 0x08, so that the byte's signed value is
-``b = 16 * q_hi + (q_lo + 8)``; integer unpack is then
-``q_hi = b >> 4`` (arithmetic) and ``q_lo = (b & 0xF) - 8``.
+and rows [K/2, K) in the HIGH nibble of a (K/2, N) int8 array. The plain
+layout (:func:`pack_int4`) unpacks as ``q_lo = (b << 4) >> 4`` and
+``q_hi = b >> 4`` (arithmetic). The hl8 layout XORs every byte with 0x08,
+so that the byte's signed value is ``b = 16 * q_hi + (q_lo + 8)``;
+integer unpack is then ``q_hi = b >> 4`` and ``q_lo = (b & 0xF) - 8``.
+A group must divide K/2, so each nibble half covers whole groups.
 
 Numeric traps kept out of this module:
 
@@ -44,6 +51,12 @@ __all__ = [
     "int4_matmul_grouped_hl8",
     "int4_matmul_grouped_hl8_ref",
     "wo_linear_grouped_hl8",
+    "int4_matmul",
+    "int4_matmul_ref",
+    "int4_matmul_grouped",
+    "int4_matmul_grouped_ref",
+    "wo_linear",
+    "wo_linear_grouped",
 ]
 
 
@@ -172,18 +185,22 @@ _LIB_SIGNATURES = {
     "mn_int4_matmul_grouped_hl8": [ctypes.c_void_p] * 5
     + [ctypes.c_int] * 5
     + [ctypes.c_void_p],
+    "mn_int4_matmul": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+    "mn_int4_matmul_grouped": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
 }
 _BLOCK_N = 512  # columns per block in csrc/int4_matmul.cu (kBlockN)
 _MAX_GROUP = 256  # csrc/int4_matmul.cu kMaxGroup
+_CHUNK = 128  # packed rows per K8/K9 step, csrc/int4_matmul.cu kChunk
 
 
-def _k_splits(g1: int, n: int, device: torch.device) -> int:
+def _k_splits(units: int, n: int, device: torch.device) -> int:
     """K-split count, chosen from K, N and the card only (never from M),
     so a row's result does not depend on the batch it shares: enough
-    blocks to give every SM two, at most one split per packed group."""
+    blocks to give every SM two, at most one split per unit of K (a
+    packed group for K3, a chunk of packed rows for K8/K9)."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     col_blocks = -(-n // _BLOCK_N)
-    return max(1, min(g1, -(-2 * sms // col_blocks)))
+    return max(1, min(units, -(-2 * sms // col_blocks)))
 
 
 def int4_matmul_grouped_hl8(
@@ -242,3 +259,126 @@ def wo_linear_grouped_hl8(
         packed_hl8, gscale,
     )
     return out.reshape(*lead, packed_hl8.shape[1])
+
+
+# ---------------------------------------------------------------------------
+# K8 and K9: the plain packing (pack_int4), per-column and group scales
+# ---------------------------------------------------------------------------
+
+
+def int4_matmul_ref(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch twin of K8, what the JAX oracle ``int4_matmul_xla``
+    computes: bf16-rounded x times the exact codes, f32 sums, then the
+    per-column scale."""
+    w = unpack_int4(packed).to(torch.float32)
+    out = round_bf16(x.to(torch.float32)) @ w
+    return out * scale.to(torch.float32).reshape(1, -1)
+
+
+def _dequant_grouped_bf16(packed: torch.Tensor, gscale: torch.Tensor,
+                          group: int) -> torch.Tensor:
+    """(K, N) weights ``bf16(f32(code) * f32(group scale))``, rounded once
+    and held in f32."""
+    w = unpack_int4(packed).to(torch.float32)
+    return round_bf16(w * expand_gscale(gscale.to(torch.float32), group))
+
+
+def int4_matmul_grouped_ref(x: torch.Tensor, packed: torch.Tensor,
+                            gscale: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch twin of K9, what the JAX oracle
+    ``int4_matmul_grouped_xla`` computes: the weights dequantized to bf16
+    first, then the low and the high half as two dots with exact products
+    and f32 sums, added."""
+    k2 = packed.shape[0]
+    w = _dequant_grouped_bf16(packed, gscale, 2 * k2 // gscale.shape[0])
+    xb = round_bf16(x.to(torch.float32))
+    return xb[:, :k2] @ w[:k2] + xb[:, k2:] @ w[k2:]
+
+
+def _plain_call(fn: str, x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
+                group: int) -> torch.Tensor:
+    """Launch K8 (``group`` 0) or K9 on the card; raises on what the kernel
+    does not take."""
+    m, k = x.shape
+    n = packed.shape[1]
+    dev = x.device
+    _build.check_operand("x", x, torch.float32, dev)
+    _build.check_operand("packed", packed, torch.int8, dev)
+    _build.check_operand("scale", scale, torch.float32, dev, align=16)
+    if n % 4 or m == 0:
+        raise ValueError(f"kernel needs N % 4 == 0 and M > 0 (N={n}, M={m})")
+    lib = _build.load("int4_matmul", _LIB_SIGNATURES)
+    splits = _k_splits(-(-(k // 2) // _CHUNK), n, dev)
+    out = torch.empty((m, n), dtype=torch.float32, device=dev)
+    ws = (torch.empty((splits, m, n), dtype=torch.float32, device=dev)
+          if splits > 1 else out)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    args = (x.data_ptr(), packed.data_ptr(), scale.data_ptr(), out.data_ptr(), ws.data_ptr(),
+            m, k, n)
+    if group:
+        rc = getattr(lib, fn)(*args, group, splits, stream)
+    else:
+        rc = getattr(lib, fn)(*args, splits, stream)
+    _build.check(rc, fn[3:])
+    return out
+
+
+def int4_matmul(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """K8: x (M, K) f32 @ plain-packed int4 w (K/2, N) * scale (N,) or
+    (1, N) -> (M, N) f32. On a CUDA tensor this launches the hand-written
+    kernel (``csrc/int4_matmul.cu``) or raises; on a CPU tensor it runs
+    the plain twin :func:`int4_matmul_ref`."""
+    m, k = x.shape
+    k2, n = packed.shape
+    if k != 2 * k2 or scale.numel() != n:
+        raise ValueError(f"shapes x {tuple(x.shape)}, packed {tuple(packed.shape)}, "
+                         f"scale {tuple(scale.shape)}")
+    if not on_cuda(x):
+        return int4_matmul_ref(x, packed, scale)
+    out = _plain_call("mn_int4_matmul", x, packed, scale.reshape(-1).contiguous(), 0)
+    int4_matmul.launches += 1
+    return out
+
+
+int4_matmul.launches = 0
+
+
+def int4_matmul_grouped(x: torch.Tensor, packed: torch.Tensor,
+                        gscale: torch.Tensor) -> torch.Tensor:
+    """K9: x (M, K) f32 @ plain-packed int4 w (K/2, N) with (K/g, N) group
+    scales -> (M, N) f32. The group must divide K/2. On a CUDA tensor this
+    launches the hand-written kernel or raises; on a CPU tensor it runs
+    the plain twin :func:`int4_matmul_grouped_ref`."""
+    m, k = x.shape
+    k2, n = packed.shape
+    groups = gscale.shape[0]
+    if k != 2 * k2 or k % groups or gscale.shape[1] != n:
+        raise ValueError(f"shapes x {tuple(x.shape)}, packed "
+                         f"{tuple(packed.shape)}, gscale {tuple(gscale.shape)}")
+    group = k // groups
+    if k2 % group:
+        raise ValueError(f"group {group} must divide K/2={k2}")
+    if not on_cuda(x):
+        return int4_matmul_grouped_ref(x, packed, gscale)
+    out = _plain_call("mn_int4_matmul_grouped", x, packed, gscale, group)
+    int4_matmul_grouped.launches += 1
+    return out
+
+
+int4_matmul_grouped.launches = 0
+
+
+def wo_linear(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Per-column weight-only int4 linear (K8) over any leading dims."""
+    lead = x.shape[:-1]
+    out = int4_matmul(x.reshape(-1, x.shape[-1]).to(torch.float32).contiguous(), packed, scale)
+    return out.reshape(*lead, packed.shape[1])
+
+
+def wo_linear_grouped(x: torch.Tensor, packed: torch.Tensor,
+                      gscale: torch.Tensor) -> torch.Tensor:
+    """Group-scaled weight-only int4 linear (K9) over any leading dims."""
+    lead = x.shape[:-1]
+    out = int4_matmul_grouped(x.reshape(-1, x.shape[-1]).to(torch.float32).contiguous(),
+                              packed, gscale)
+    return out.reshape(*lead, packed.shape[1])

@@ -1,20 +1,27 @@
-"""Int8 matmul with the activation quantize and the dequantize fused: the
+"""Int8 matmuls with the activation quantize and the dequantize fused: the
 counterpart of ``micronet_tpu/ops/int_matmul.py``.
 
-One call computes, for x (M, K) f32 and int8 weights w_q (K, N) with
-per-column scales:
+K1, :func:`int8_matmul_dequant`, computes for x (M, K) f32 and int8
+weights w_q (K, N) with per-column scales:
 
     q   = clamp(round_half_away(x / s_x) - zp, qmin, qmax)     (int8)
     acc = q . w_q + int(zp) * colsum(w_q)                      (int32)
     out = f32(acc) * (s_x * w_scale[n])
 
 ``qmin``/``qmax`` are the activation range (narrower than int8 at A4).
-On a CUDA tensor :func:`int8_matmul_dequant` launches the hand-written
-kernel (``csrc/int_matmul.cu``) or raises; on a CPU tensor it runs the
-plain twin :func:`int8_matmul_dequant_ref`, which does the same f32
-operations in the same order, so the two agree bit for bit.
-``binary_act_matmul`` (reached by no path of the JAX package) is not
-ported yet.
+
+K2, :func:`binary_act_matmul`, is the wbwtab product: binary activations
+times ternary (or binary) weights times a per-column alpha:
+
+    q   = where(x >= 0, 1, -1)      (int8; 0 and -0.0 -> +1, NaN -> -1)
+    acc = q . w_q                    (int32, w_q in {-1, 0, +1})
+    out = f32(acc) * alpha[n]
+
+On a CUDA tensor each wrapper launches its hand-written kernel
+(``csrc/int_matmul.cu``) or raises; on a CPU tensor it runs its plain
+twin (``*_ref``), which does the same f32 operations in the same order,
+so kernel and twin agree bit for bit. K2 masks the ragged K edge with
+code 0 inside the kernel: padding x with zeros would binarize them to +1.
 """
 
 from __future__ import annotations
@@ -28,7 +35,8 @@ from .._device import on_cuda
 from ..quant.rounding import round_half_away
 from . import _build
 
-__all__ = ["quantize_int8", "int8_matmul_dequant_ref", "int8_matmul_dequant", "int8_linear"]
+__all__ = ["quantize_int8", "int8_matmul_dequant_ref", "int8_matmul_dequant", "int8_linear",
+           "binary_act_matmul_ref", "binary_act_matmul"]
 
 Scalar = Union[float, torch.Tensor]
 
@@ -64,6 +72,7 @@ def int8_matmul_dequant_ref(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.T
 _LIB_SIGNATURES = {
     "mn_int8_matmul_dequant": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
     + [ctypes.c_float] * 2 + [ctypes.c_void_p],
+    "mn_binary_act_matmul": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
 }
 
 
@@ -115,3 +124,43 @@ def int8_linear(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
     if bias is not None:
         out = out + bias
     return out.reshape(*lead, w_q.shape[1])
+
+
+def binary_act_matmul_ref(x: torch.Tensor, w_q: torch.Tensor,
+                          w_scale: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch twin of K2, what the JAX package's XLA route computes.
+    The integer product runs in f64, exact for every int32 accumulator."""
+    q = torch.where(x >= 0, 1.0, -1.0).to(torch.float64)
+    acc = (q @ w_q.to(torch.float64)).to(torch.int32)
+    w_scale = torch.broadcast_to(w_scale.to(torch.float32), (w_q.shape[1],))
+    return acc.to(torch.float32) * w_scale[None, :]
+
+
+def binary_act_matmul(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor) -> torch.Tensor:
+    """x (M, K) f32 (pre-activation values; the sign is taken inside),
+    w_q (K, N) int8 in {-1, 0, +1}, w_scale (N,) or scalar alpha ->
+    (M, N) f32. Ragged M, N and K are masked inside the kernel; nothing
+    is padded."""
+    m, k = x.shape
+    k2, n = w_q.shape
+    if k != k2:
+        raise ValueError(f"shapes x {tuple(x.shape)}, w_q {tuple(w_q.shape)}")
+    if not on_cuda(x):
+        return binary_act_matmul_ref(x, w_q, w_scale)
+    dev = x.device
+    ws = torch.broadcast_to(w_scale.to(torch.float32), (n,)).contiguous()
+    _build.check_operand("x", x, torch.float32, dev)
+    _build.check_operand("w_q", w_q, torch.int8, dev, align=1)
+    _build.check_operand("w_scale", ws, torch.float32, dev, shape=(n,))
+    if m == 0 or n == 0 or k == 0:
+        raise ValueError(f"kernel needs M, K, N > 0 (M={m}, K={k}, N={n})")
+    out = torch.empty((m, n), dtype=torch.float32, device=dev)
+    lib = _build.load("int_matmul", _LIB_SIGNATURES)
+    rc = lib.mn_binary_act_matmul(x.data_ptr(), w_q.data_ptr(), ws.data_ptr(), out.data_ptr(),
+                                  m, k, n, torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(rc, "binary_act_matmul")
+    binary_act_matmul.launches += 1
+    return out
+
+
+binary_act_matmul.launches = 0

@@ -3,7 +3,7 @@
 
 The axes are the feature matrix of ``prepare(...)``: every IAO flag plus
 the DoReFa and wbwtab knobs, so one object configures all three flavours
-(only IAO is ported so far).
+(IAO and wbwtab are ported so far).
 """
 
 from __future__ import annotations

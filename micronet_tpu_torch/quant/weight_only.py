@@ -1,17 +1,22 @@
 """Weight-only quantization for the LLM decode path.
 
-Counterpart of ``micronet_tpu/quant/weight_only.py`` (``WOTensor``,
-``_quantize_2d``, ``WOLinear``, ``wo_quantize_linear``). Every large 2-D
+Counterpart of ``micronet_tpu/quant/weight_only.py``. Every large 2-D
 weight becomes int4 codes packed in the hl8 layout (or plain int8 codes)
-plus f32 scales; int4 matmuls run the W4A16 kernel
-(:func:`..ops.int4_matmul.wo_linear_grouped_hl8`), int8 ones are plain
-PyTorch, as the JAX package leaves them to XLA.
+plus f32 scales; int4 matmuls run the W4A16 kernel K3
+(:func:`..ops.int4_matmul.wo_linear_grouped_hl8`) for both scale layouts,
+as the JAX package does; int8 ones are plain PyTorch, as the JAX package
+leaves them to XLA.
+
+:func:`quantize_pytree` compresses a nested structure of dicts, lists and
+tuples of tensors. Its ``predicate`` receives the path as a tuple of the
+plain keys and indices (``("blocks", 0, "w")``), where the JAX package
+passes ``jax.tree_util`` key entries (``DictKey``, ``SequenceKey``).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Any, Callable, Optional, Tuple
 
 import torch
 from torch import nn
@@ -28,7 +33,8 @@ from ..ops.int4_matmul import (
     wo_linear_grouped_hl8,
 )
 
-__all__ = ["WOTensor", "WOLinear", "wo_quantize_linear"]
+__all__ = ["WOTensor", "WOLinear", "wo_quantize_linear", "quantize_pytree", "dequantize_leaf",
+           "pytree_bytes"]
 
 
 @dataclasses.dataclass
@@ -117,3 +123,52 @@ def wo_quantize_linear(linear, group: int = 0, bits: int = 4) -> WOLinear:
         w = linear.weight.detach()
         b = None if linear.bias is None else linear.bias.detach()
         return WOLinear(_quantize_2d(w, group, bits), b)
+
+
+def _map_with_path(fn: Callable[[Tuple, Any], Any], tree: Any, path: Tuple = ()) -> Any:
+    """``fn(path, leaf)`` over the leaves of nested dicts, lists and tuples,
+    keeping the containers' types."""
+    if isinstance(tree, dict):
+        return type(tree)((k, _map_with_path(fn, v, path + (k,))) for k, v in tree.items())
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_with_path(fn, v, path + (i,)) for i, v in enumerate(tree))
+    return fn(path, tree)
+
+
+def quantize_pytree(params: Any, *, min_size: int = 1 << 16,
+                    predicate: Optional[Callable[[Tuple, torch.Tensor], bool]] = None,
+                    group: int = 0, bits: int = 4) -> Any:
+    """Replace every floating 2-D tensor of ``params`` with at least
+    ``min_size`` elements (and, if given, ``predicate(path, leaf)`` true)
+    by a :class:`WOTensor`, quantized along axis 0 (the contraction axis
+    of ``x @ w``). ``group > 0`` selects group scales; a leaf whose K the
+    group does not divide falls back to per-column. ``bits`` is 4 or 8."""
+
+    def visit(path, leaf):
+        if (isinstance(leaf, torch.Tensor) and leaf.dim() == 2 and leaf.is_floating_point()
+                and leaf.numel() >= min_size and (predicate is None or predicate(path, leaf))):
+            return _quantize_2d(leaf, group, bits)
+        return leaf
+
+    return _map_with_path(visit, params)
+
+
+def dequantize_leaf(leaf: Any) -> Any:
+    """The inverse map of :func:`quantize_pytree` for one leaf."""
+    return leaf.dequantize() if isinstance(leaf, WOTensor) else leaf
+
+
+def pytree_bytes(params: Any) -> int:
+    """Storage bytes of the tensors in ``params`` (a :class:`WOTensor`
+    counts its codes and scales)."""
+    total = 0
+
+    def count(_, leaf):
+        nonlocal total
+        for t in (leaf.packed, leaf.scale) if isinstance(leaf, WOTensor) else (leaf,):
+            if isinstance(t, torch.Tensor):
+                total += t.numel() * t.element_size()
+        return leaf
+
+    _map_with_path(count, params)
+    return total

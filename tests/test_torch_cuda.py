@@ -349,3 +349,100 @@ def test_small_resnet_engine_on_card_matches_cpu(cuda):
     # the first layer's f32 sums run in another order on the card: a code
     # there can move one step, damped by the layers after it
     torch.testing.assert_close(out.cpu(), ref, rtol=0, atol=2e-2 * max(1.0, ref.abs().max().item()))
+
+
+# K2 calls: the engine's largest 1x1 conv as a GEMM at a small batch, a
+# ragged call with K % 128 != 0, and one of many row blocks
+_K2_CASES = [(1024, 1024, 1024), (333, 200, 19), (5, 37, 10), (2000, 256, 130)]
+
+
+@pytest.mark.parametrize("m,k,n", _K2_CASES)
+def test_binary_act_matmul_kernel_equals_twin_bit_for_bit(cuda, m, k, n):
+    """K2 against its twin: exact int32 sums, one rounded multiply; x holds
+    exact zeros, -0.0 (both +1) and NaN (-1)."""
+    gen = _gen(m + n)
+    x = torch.randn((m, k), device=cuda, generator=gen)
+    x = torch.where(torch.rand((m, k), device=cuda, generator=gen) < 0.1, 0.0, x)
+    x = torch.where(torch.rand((m, k), device=cuda, generator=gen) < 0.1, -0.0, x)
+    x[0, 0] = float("nan")
+    w_q = torch.randint(-1, 2, (k, n), dtype=torch.int8, device=cuda, generator=gen)
+    alpha = torch.rand((n,), device=cuda, generator=gen) + 0.5
+    before = ti8.binary_act_matmul.launches
+    out = ti8.binary_act_matmul(x, w_q, alpha)
+    torch.cuda.synchronize()
+    assert ti8.binary_act_matmul.launches == before + 1
+    assert torch.equal(out, ti8.binary_act_matmul_ref(x, w_q, alpha))
+
+
+def test_binary_act_matmul_kernel_rejects_what_it_cannot_take(cuda):
+    x = torch.randn((4, 16), device=cuda)
+    with pytest.raises(ValueError):  # int32 weights
+        ti8.binary_act_matmul(x, torch.zeros((16, 8), dtype=torch.int32, device=cuda),
+                              torch.ones(8, device=cuda))
+    with pytest.raises(ValueError):  # f16 activations
+        ti8.binary_act_matmul(x.half(), torch.zeros((16, 8), dtype=torch.int8, device=cuda),
+                              torch.ones(8, device=cuda))
+
+
+@pytest.mark.parametrize("m", [1, 8, 33])
+@pytest.mark.parametrize("k,n", [(4096, 4096), (640, 100), (14336, 512)])
+def test_int4_plain_kernels_match_twins(cuda, m, k, n):
+    """K8 (per-column scales) and K9 (group 128, or 64 where 128 does not
+    divide K/2) against their twins within K3's bound (exact products, f32
+    sums in another order), and a row's result does not depend on the
+    rows sharing its call."""
+    gen = _gen(m + k)
+    w = torch.randn((k, n), device=cuda, generator=gen) * 0.05
+    x = torch.randn((m, k), device=cuda, generator=gen)
+    w_q, scale = tim.quantize_int4_weight(w)
+    g = 128 if (k // 2) % 128 == 0 else 64
+    wg_q, gs = tim.quantize_int4_weight_grouped(w, g)
+    for fn, twin, packed, s in ((tim.int4_matmul, tim.int4_matmul_ref, tim.pack_int4(w_q), scale),
+                                (tim.int4_matmul_grouped, tim.int4_matmul_grouped_ref,
+                                 tim.pack_int4(wg_q), gs)):
+        before = fn.launches
+        out = fn(x, packed, s)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1
+        ref = twin(x, packed, s)
+        torch.testing.assert_close(out, ref, rtol=0, atol=2e-5 * ref.abs().max().item())
+        assert torch.equal(fn(x[-1:].contiguous(), packed, s)[0], out[-1])
+
+
+def test_int4_plain_kernels_reject_what_they_cannot_take(cuda):
+    x = torch.randn((2, 96), device=cuda)
+    packed = torch.zeros((48, 8), dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="must divide K/2"):  # 32 does not divide 48
+        tim.int4_matmul_grouped(x, packed, torch.ones((3, 8), device=cuda))
+    with pytest.raises(ValueError):  # N % 4 != 0
+        tim.int4_matmul(x, torch.zeros((48, 6), dtype=torch.int8, device=cuda),
+                        torch.ones(6, device=cuda))
+    with pytest.raises(ValueError):  # bf16 activations
+        tim.int4_matmul(x.bfloat16(), packed, torch.ones(8, device=cuda))
+
+
+# NIN-GC's seven ternary convs at default widths (cin, size, cout, k, pad, groups)
+_TERNARY_CASES = [(256, 32, 256, 1, 0, 2), (256, 32, 256, 1, 0, 2), (256, 16, 512, 3, 1, 16),
+                  (512, 16, 512, 1, 0, 4), (512, 16, 512, 1, 0, 4), (512, 8, 1024, 3, 1, 32),
+                  (1024, 8, 1024, 1, 0, 8)]
+
+
+@pytest.mark.parametrize("cin,size,cout,k,pad,groups", _TERNARY_CASES)
+def test_ternary_conv_card_route_exact(cuda, cin, size, cout, k, pad, groups):
+    """The wbwtab engine's conv on the card (im2col over the int8 signs,
+    ``torch._int_mm``) equals an f64 conv of the same signs bit for bit,
+    and its output equals the CPU engine's."""
+    from micronet_tpu_torch.infer.engine import TernaryConv2d
+
+    gen = _gen(cin + cout + k)
+    w_t = torch.randint(-1, 2, (cout, cin // groups, k, k), dtype=torch.int8, device=cuda,
+                        generator=gen)
+    alpha = torch.rand((cout,), device=cuda, generator=gen) + 0.1
+    bias = torch.randn((cout,), device=cuda, generator=gen)
+    conv = TernaryConv2d(w_t, alpha, bias, (1, 1), (pad, pad), (1, 1), groups)
+    x = torch.where(torch.randn((4, cin, size, size), device=cuda, generator=gen) >= 0, 1.0, -1.0)
+    acc = conv.int_acc(x.to(torch.int8))
+    ref = torch.nn.functional.conv2d(x.cpu().double(), w_t.cpu().double(), None, 1, pad, 1, groups)
+    assert acc.dtype == torch.int32 and torch.equal(acc.cpu().double(), ref)
+    cpu = TernaryConv2d(w_t.cpu(), alpha.cpu(), bias.cpu(), (1, 1), (pad, pad), (1, 1), groups)
+    assert torch.equal(conv(x).cpu(), cpu(x.cpu()))

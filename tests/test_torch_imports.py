@@ -11,8 +11,11 @@ import pytest
 import torch
 
 import micronet_tpu_torch
-from micronet_tpu_torch.models import nin_gc
+from micronet_tpu_torch.models import nin, nin_gc
+from micronet_tpu_torch.infer import freeze_wbwtab, fuse_bn_wbwtab
 from micronet_tpu_torch.models.llama import Llama, llama_tiny
+from micronet_tpu_torch.nn import prepare
+from micronet_tpu_torch.quant.config import QuantConfig
 from micronet_tpu_torch.models.resnet import resnet18
 from micronet_tpu_torch.quant.kv_cache import init_kv_cache
 from micronet_tpu_torch.quant.paged_kv import init_paged_kv
@@ -24,10 +27,11 @@ ROOT = Path(__file__).resolve().parents[1]
 def test_port_and_chip_smoke_import_no_jax():
     mods = sorted(m.name for m in pkgutil.walk_packages(
         micronet_tpu_torch.__path__, "micronet_tpu_torch."))
-    assert "micronet_tpu_torch.serve.scheduler" in mods and len(mods) >= 29
+    assert "micronet_tpu_torch.serve.scheduler" in mods and len(mods) >= 32
     for m in ("infer.engine", "infer.dataflow", "infer.bn_fuse", "nn.qat_iao", "nn.transform",
               "ops.int_matmul", "models.resnet", "models.nin_gc", "quant.observers",
-              "ops.paged_attention", "quant.paged_kv"):
+              "ops.paged_attention", "quant.paged_kv", "quant.wbwtab", "nn.qat_wbwtab",
+              "models.nin", "ops.int4_matmul", "quant.weight_only"):
         assert f"micronet_tpu_torch.{m}" in mods
     code = "\n".join(
         ["import sys", "preloaded = set(sys.modules)"]
@@ -48,10 +52,12 @@ def test_port_and_chip_smoke_import_no_jax():
 
 
 @pytest.mark.parametrize("entry", ["llama", "serve_loop", "paged_serve_loop", "kv_cache",
-                                   "paged_kv", "resnet18", "nin_gc"])
+                                   "paged_kv", "resnet18", "nin_gc", "nin", "prepare_wbwtab",
+                                   "fuse_bn_wbwtab", "freeze_wbwtab"])
 def test_entry_points_default_to_cuda_and_raise_without_card(monkeypatch, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cpu_model = Llama(llama_tiny(8), device="cpu")
+    cpu_nin = nin.Net(cfg=[8] * 8, device="cpu")
     calls = {
         "llama": lambda: Llama(llama_tiny(8)),
         "serve_loop": lambda: ServeLoop(cpu_model, 2),
@@ -60,6 +66,11 @@ def test_entry_points_default_to_cuda_and_raise_without_card(monkeypatch, entry)
         "paged_kv": lambda: init_paged_kv(4, 2, 1, 8, 1, 2),
         "resnet18": lambda: resnet18(),
         "nin_gc": lambda: nin_gc.Net(cfg=[16] * 8),
+        "nin": lambda: nin.Net(cfg=[8] * 8),
+        "prepare_wbwtab": lambda: prepare(cpu_nin, method="wbwtab"),
+        "fuse_bn_wbwtab": lambda: fuse_bn_wbwtab(prepare(cpu_nin, method="wbwtab",
+                                                         device="cpu"), QuantConfig()),
+        "freeze_wbwtab": lambda: freeze_wbwtab(cpu_nin),
     }
     with pytest.raises(RuntimeError, match="CUDA"):
         calls[entry]()
