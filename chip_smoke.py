@@ -57,8 +57,11 @@ Phases, each fatal on failure (non-zero exit, no final line):
    M = 65,536, K = N = 1,024), a ragged call and a call with exact zeros,
    -0.0 and NaN in x, timed beside ``torch._int_mm`` on sign codes made
    beforehand; K8 (``int4_matmul``) and K9 (``int4_matmul_grouped``, group
-   128) at the five Llama-3-8B shapes of phase 3, M = 1 and 8, within K3's
-   tolerance, timed beside ``torch.matmul`` on the dequantized bf16 weight;
+   128) at the five Llama-3-8B shapes of phase 3, M = 1, 8 and 128, within
+   K3's tolerance, timed beside ``torch.matmul`` on the dequantized bf16
+   weight, each also by its device time alone (``torch.profiler``); the
+   kernels line's times are a decode step's 129 calls at M = 8, its
+   ``max_abs_err`` the largest over every M;
 13. wbwtab engine (slice 4's main path): ``nin_gc.Net()`` at full width
    with seeded random weights, ``prepare(method="wbwtab")`` at W = 3 and
    W = 2 (A = 2), 4 train-mode forwards at batch 64 for the BN
@@ -161,11 +164,12 @@ FQ_TOL = 0.1
 # engine batch of 1024; "zeros" holds exact zeros, -0.0 and NaN in x
 K2_CASES = [("path", NIN_BATCH * 64, 1024, 1024, 10), ("ragged", 333, 200, 19, 100),
             ("zeros", 1000, 512, 256, 100)]
-WO_MS = (1, 8)  # K8 and K9 at the shapes of K3_SHAPES
+WO_MS = (1, 8, 128)  # K8 and K9 at the shapes of K3_SHAPES
 # K8/K9 against their twins: K3's bound (exact products, f32 sums in
-# another order over up to 14,336 terms), relative to max|twin|; measured
-# on an H100 at the five 8B shapes: at most 5.8e-6 on outputs up to ~15,
-# under 5e-7 relative
+# another order over up to 14,336 terms, tensor-core accumulation
+# included), relative to max|twin|; measured on an H100 at the five 8B
+# shapes: at most 5.8e-6 at M = 1 and 8 and 1.4e-5 at M = 128, on outputs
+# up to ~15: under 1.3e-6 relative
 WO_REL_TOL = K3_REL_TOL
 # the wbwtab engine's first block: an f32 conv of 75 products per output,
 # summed in another order on the card and the CPU (as F32_ROUTE_RTOL);
@@ -199,6 +203,30 @@ def time_ms(fn, args_list, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, args_list, iters: int) -> float:
+    """Mean device time (ms) of the kernels one ``fn(*args)`` launches,
+    from ``torch.profiler`` over ``iters`` calls: no host time, unlike
+    :func:`time_ms`, which measures back-to-back calls and so the host
+    where a call's host work outlasts its kernels. Every call launches at
+    least one kernel, so a trace holding fewer kernels than calls lost
+    events (seen on an H100: readings of 0 and under the bound) and is
+    taken again."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(*args_list[0])
+    torch.cuda.synchronize()
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for i in range(iters):
+                fn(*args_list[i % len(args_list)])
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        if sum(e.count for e in kernels) >= iters:
+            return sum(e.self_device_time_total for e in kernels) / 1e3 / iters
+    fail(f"torch.profiler recorded fewer kernels than the {iters} calls in five traces")
 
 
 def copies_for(nbytes: int) -> int:
@@ -1120,7 +1148,9 @@ def check_k8_k9(dev, gen, report):
                          f"{mag:.3e}")
                 ms = time_ms(fn, args, 30)
                 plain = time_ms(twin, args, 5, 1)
-                lib = time_ms(torch.matmul, [(x.to(torch.bfloat16), w) for w in w_bf16], 30)
+                lib_args = [(x.to(torch.bfloat16), w) for w in w_bf16]
+                lib = time_ms(torch.matmul, lib_args, 30)
+                dev_ms, lib_dev_ms = device_ms(fn, args, 30), device_ms(torch.matmul, lib_args, 30)
                 scale_bytes = n * 4 if name == "int4_matmul" else k // GROUP * n * 4
                 nbytes = m * k * 4 + k // 2 * n + scale_bytes + m * n * 4
                 ops = 2 * m * k * n
@@ -1128,11 +1158,11 @@ def check_k8_k9(dev, gen, report):
                 cases[name][(m, k, n)] = dict(
                     ms=ms, plain_ms=plain, library_ms=lib, bound_ms=max(t_bytes, t_ops) * 1e3,
                     bound_by="bytes" if t_bytes >= t_ops else "operations", max_abs_err=err,
-                    ref_max=mag, per_step=per_step)
-                log(f"{name:19s} M={m} K={k:6d} N={n:6d}: err {err:.3e} (tol "
-                    f"{WO_REL_TOL * mag:.3e}) kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-                    f"torch.matmul bf16 {lib:.4f} ms, bound "
-                    f"{cases[name][(m, k, n)]['bound_ms']:.4f} ms")
+                    ref_max=mag, per_step=per_step, device_ms=dev_ms, library_device_ms=lib_dev_ms)
+                log(f"{name:19s} M={m:3d} K={k:6d} N={n:6d}: err {err:.3e} (tol "
+                    f"{WO_REL_TOL * mag:.3e}) kernel {ms:.4f} ms (device {dev_ms:.4f}), plain "
+                    f"{plain:.4f} ms, torch.matmul bf16 {lib:.4f} ms (device {lib_dev_ms:.4f}), "
+                    f"bound {cases[name][(m, k, n)]['bound_ms']:.4f} ms")
             del w_bf16
         del packed, scales
         torch.cuda.empty_cache()
@@ -1142,7 +1172,8 @@ def check_k8_k9(dev, gen, report):
         # the kernels line: one decode step's worth of calls at M = 8 (129)
         step = [v for (m, _, _), v in by_shape.items() if m == 8]
         rows[name] = dict({key: sum(v[key] * v["per_step"] for v in step)
-                           for key in ("ms", "plain_ms", "library_ms", "bound_ms")},
+                           for key in ("ms", "plain_ms", "library_ms", "bound_ms", "device_ms",
+                                       "library_device_ms")},
                           max_abs_err=max(v["max_abs_err"] for v in by_shape.values()),
                           bound_by="bytes" if all(v["bound_by"] == "bytes" for v in step)
                           else "operations")

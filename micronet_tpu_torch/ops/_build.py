@@ -5,8 +5,8 @@ shared library with a plain C interface, loaded with ``ctypes``. Building
 happens at first use (or all at once through :func:`build_all`), from the
 sources in this checkout only, into ``build/kernels/`` at the repository
 root. The library name carries a hash of the source, the shared headers
-(``csrc/*.cuh``) and the flags, so an edited source never loads a stale
-library.
+(``csrc/*.cuh``), the flags and any macros defined for a diagnostic build,
+so an edited source never loads a stale library.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch; the
 wrappers pass that code to :func:`check`, which raises on anything but 0.
@@ -26,7 +26,8 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
-__all__ = ["SOURCES", "CSRC", "BUILD_DIR", "load", "build_all", "check", "check_operand"]
+__all__ = ["SOURCES", "CSRC", "BUILD_DIR", "load", "build_all", "check", "check_operand",
+           "sm_count"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -50,24 +51,29 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
-def _lib_path(name: str) -> Path:
+def _flags(defines: Tuple[str, ...]) -> List[str]:
+    return NVCC_FLAGS + [f"-D{d}" for d in defines]
+
+
+def _lib_path(name: str, defines: Tuple[str, ...] = ()) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
     src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
-    h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256(src + " ".join(_flags(defines)).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{h}.so"
 
 
-def _start(name: str):
-    """Start nvcc for ``name`` unless its library exists; returns the
-    running process (or None) and the target path."""
-    out = _lib_path(name)
+def _start(name: str, defines: Tuple[str, ...] = ()):
+    """Start nvcc for ``name`` (with the macros ``defines``) unless its
+    library exists; returns the running process (or None) and the target
+    path."""
+    out = _lib_path(name, defines)
     if out.exists():
         return None, out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     log = open(out.with_suffix(".log"), "wb")
     proc = subprocess.Popen(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+        [_nvcc(), *_flags(defines), "-o", str(tmp), str(CSRC / f"{name}.cu")],
         stdout=log, stderr=subprocess.STDOUT,
     )
     return (proc, tmp, log), out
@@ -98,23 +104,38 @@ def build_all() -> Dict[str, float]:
 
 
 @functools.lru_cache(maxsize=None)
-def _cdll(name: str) -> ctypes.CDLL:
-    st, out = _start(name)
+def _cdll(name: str, defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
+    st, out = _start(name, defines)
     if st is not None:
         _finish(name, st, out)
     return ctypes.CDLL(str(out))
 
 
-def load(name: str, signatures: Dict[str, List]) -> ctypes.CDLL:
-    """The library of ``csrc/<name>.cu``, built if needed, with
-    ``argtypes`` set for each entry point (every pointer and the stream
-    as ``c_void_p``, so none is cut to 32 bits) and ``restype`` int."""
-    lib = _cdll(name)
-    for fn, argtypes in signatures.items():
-        f = getattr(lib, fn)
-        f.argtypes = argtypes
-        f.restype = ctypes.c_int
+def load(name: str, signatures: Dict[str, List],
+         defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
+    """The library of ``csrc/<name>.cu``, built if needed (with the macros
+    ``defines``, for a diagnostic build), with ``argtypes`` set for each
+    entry point (every pointer and the stream as ``c_void_p``, so none is
+    cut to 32 bits) and ``restype`` int. Binding happens once per library;
+    later calls cost a cache lookup."""
+    lib = _cdll(name, tuple(defines))
+    if "bound" not in vars(lib):
+        for fn, argtypes in signatures.items():
+            f = getattr(lib, fn)
+            f.argtypes = argtypes
+            f.restype = ctypes.c_int
+        lib.bound = True
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device: torch.device) -> int:
+    """The card's number of SMs, read once per card."""
+    return _sm_count(torch.cuda.current_device() if device.index is None else device.index)
 
 
 def check(rc: int, what: str) -> None:

@@ -30,6 +30,7 @@ Numeric traps kept out of this module:
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Tuple
 
 import torch
@@ -185,19 +186,22 @@ _LIB_SIGNATURES = {
     "mn_int4_matmul_grouped_hl8": [ctypes.c_void_p] * 5
     + [ctypes.c_int] * 5
     + [ctypes.c_void_p],
-    "mn_int4_matmul": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
-    "mn_int4_matmul_grouped": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+    "mn_int4_matmul": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+    "mn_int4_matmul_grouped": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
 }
 _BLOCK_N = 512  # columns per block in csrc/int4_matmul.cu (kBlockN)
 _MAX_GROUP = 256  # csrc/int4_matmul.cu kMaxGroup
-_CHUNK = 128  # packed rows per K8/K9 step, csrc/int4_matmul.cu kChunk
+# K8/K9's w4 kernel (csrc/int4_matmul.cu): kW4BlockN columns a block, K split in units of
+# kW4StageRows packed rows
+_W4_BLOCK_N = 128
+_W4_UNIT = 64
 
 
 def _k_splits(units: int, n: int, device: torch.device) -> int:
     """K-split count, chosen from K, N and the card only (never from M),
     so a row's result does not depend on the batch it shares: enough
     blocks to give every SM two, at most one split per unit of K (a
-    packed group for K3, a chunk of packed rows for K8/K9)."""
+    packed group)."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     col_blocks = -(-n // _BLOCK_N)
     return max(1, min(units, -(-2 * sms // col_blocks)))
@@ -295,10 +299,49 @@ def int4_matmul_grouped_ref(x: torch.Tensor, packed: torch.Tensor,
     return xb[:, :k2] @ w[:k2] + xb[:, k2:] @ w[k2:]
 
 
+@functools.lru_cache(maxsize=None)
+def _w4_splits(k2: int, n: int, sms: int) -> int:
+    """K8/K9's K-split count, from K/2, N and the card's SM count only
+    (never from M, so a row's result does not depend on the batch it
+    shares): about two blocks of 128 columns per SM, at most one split per
+    unit of 64 packed rows."""
+    units = -(-k2 // _W4_UNIT)
+    return max(1, min(units, 2 * sms // -(-n // _W4_BLOCK_N)))
+
+
+# Kept per (card, stream), since stream order keeps two calls from sharing them at once:
+# - the split calls' int32 tile counters, which the kernel leaves zeroed;
+# - the workspace of the split calls of up to _W4_KEEP_ROWS batch rows (decode). Its size is
+#   fixed: with splits > 1, _w4_splits gives splits x column tiles <= 2 x SMs, so such a
+#   call's (splits, M, N) f32 partials fit in 2 x SMs x 128 x 16 floats (2.2 MB on an H100),
+#   whatever K and N. A decode call is host-bound, and an allocation is about a sixth of its
+#   host time (tools/w4_variants.py); a larger call, bound by its kernel, allocates its own.
+_W4_KEEP_ROWS = 16
+_W4_COUNTERS = {}
+_W4_WORKSPACE = {}
+
+
+def _w4_counters(dev: torch.device, stream: int, tiles: int) -> torch.Tensor:
+    c = _W4_COUNTERS.get((dev.index, stream))
+    if c is None or c.numel() < tiles:
+        c = _W4_COUNTERS[dev.index, stream] = torch.zeros(max(tiles, 4096), dtype=torch.int32,
+                                                          device=dev)
+    return c
+
+
+def _w4_workspace(dev: torch.device, stream: int, sms: int) -> torch.Tensor:
+    ws = _W4_WORKSPACE.get((dev.index, stream))
+    if ws is None:
+        ws = _W4_WORKSPACE[dev.index, stream] = torch.empty(
+            2 * sms * _W4_BLOCK_N * _W4_KEEP_ROWS, dtype=torch.float32, device=dev)
+    return ws
+
+
 def _plain_call(fn: str, x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
-                group: int) -> torch.Tensor:
-    """Launch K8 (``group`` 0) or K9 on the card; raises on what the kernel
-    does not take."""
+                group: int, lib=None) -> torch.Tensor:
+    """Launch K8 (``group`` 0) or K9 on the card, from ``lib`` (default:
+    this checkout's build of ``csrc/int4_matmul.cu``); raises on what the
+    kernel does not take."""
     m, k = x.shape
     n = packed.shape[1]
     dev = x.device
@@ -307,18 +350,23 @@ def _plain_call(fn: str, x: torch.Tensor, packed: torch.Tensor, scale: torch.Ten
     _build.check_operand("scale", scale, torch.float32, dev, align=16)
     if n % 4 or m == 0:
         raise ValueError(f"kernel needs N % 4 == 0 and M > 0 (N={n}, M={m})")
-    lib = _build.load("int4_matmul", _LIB_SIGNATURES)
-    splits = _k_splits(-(-(k // 2) // _CHUNK), n, dev)
-    out = torch.empty((m, n), dtype=torch.float32, device=dev)
-    ws = (torch.empty((splits, m, n), dtype=torch.float32, device=dev)
-          if splits > 1 else out)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    args = (x.data_ptr(), packed.data_ptr(), scale.data_ptr(), out.data_ptr(), ws.data_ptr(),
-            m, k, n)
-    if group:
-        rc = getattr(lib, fn)(*args, group, splits, stream)
-    else:
-        rc = getattr(lib, fn)(*args, splits, stream)
+    # built on first use, before anything asks the card
+    launch = getattr(lib or _build.load("int4_matmul", _LIB_SIGNATURES), fn)
+    sms = _build.sm_count(dev)
+    splits = _w4_splits(k // 2, n, sms)
+    mb = 1 if m <= 8 else 2  # batch rows of a block / 8
+    out = x.new_empty((m, n))
+    # torch.cuda.current_stream(dev).cuda_stream without building a Stream object (cheaper on
+    # the host: tools/w4_variants.py times both)
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    ws = counters = None
+    if splits > 1:
+        ws = _w4_workspace(dev, stream, sms) if m <= _W4_KEEP_ROWS else x.new_empty((splits, m, n))
+        counters = _w4_counters(dev, stream, -(-m // (8 * mb)) * -(-n // _W4_BLOCK_N))
+    args = (x.data_ptr(), packed.data_ptr(), scale.data_ptr(), out.data_ptr(),
+            None if ws is None else ws.data_ptr(),
+            None if counters is None else counters.data_ptr(), m, k, n)
+    rc = launch(*args, group, splits, mb, stream) if group else launch(*args, splits, mb, stream)
     _build.check(rc, fn[3:])
     return out
 
@@ -335,7 +383,9 @@ def int4_matmul(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor) -> t
                          f"scale {tuple(scale.shape)}")
     if not on_cuda(x):
         return int4_matmul_ref(x, packed, scale)
-    out = _plain_call("mn_int4_matmul", x, packed, scale.reshape(-1).contiguous(), 0)
+    if scale.dim() != 1 or not scale.is_contiguous():
+        scale = scale.reshape(-1).contiguous()
+    out = _plain_call("mn_int4_matmul", x, packed, scale, 0)
     int4_matmul.launches += 1
     return out
 

@@ -384,18 +384,25 @@ def test_binary_act_matmul_kernel_rejects_what_it_cannot_take(cuda):
                               torch.ones(8, device=cuda))
 
 
-@pytest.mark.parametrize("m", [1, 8, 33])
-@pytest.mark.parametrize("k,n", [(4096, 4096), (640, 100), (14336, 512)])
-def test_int4_plain_kernels_match_twins(cuda, m, k, n):
-    """K8 (per-column scales) and K9 (group 128, or 64 where 128 does not
-    divide K/2) against their twins within K3's bound (exact products, f32
-    sums in another order), and a row's result does not depend on the
-    rows sharing its call."""
-    gen = _gen(m + k)
+# (K, N, K9's group): the 8B wo shape; K/2 = 320 (five 64-row stages) with a ragged N;
+# K/2 not a multiple of 16 with N = 4 and with N = 4000 (ragged column tile, 16-byte rows);
+# K/2 odd (x copied 4 bytes at a time) with N = 12; groups of 16, 32, 64, 128 (a k-tile in
+# one group) and 20, 50, 11 (groups crossing k-tiles)
+_W4_SHAPES = [(4096, 4096, 128), (640, 100, 64), (14336, 512, 128), (200, 4, 20),
+              (1000, 4000, 50), (198, 12, 11), (2560, 256, 32), (512, 64, 16)]
+
+
+@pytest.mark.parametrize("m", [1, 2, 7, 8, 9, 16, 33, 128])
+@pytest.mark.parametrize("k,n,g", _W4_SHAPES)
+def test_int4_plain_kernels_match_twins(cuda, m, k, n, g):
+    """K8 (per-column scales) and K9 (group ``g``) against their twins
+    within K3's bound (exact products, f32 sums in another order); the
+    first, a middle and the last row alone equal the same rows of the
+    batch bit for bit, and a second call equals the first."""
+    gen = _gen(m + k + n)
     w = torch.randn((k, n), device=cuda, generator=gen) * 0.05
     x = torch.randn((m, k), device=cuda, generator=gen)
     w_q, scale = tim.quantize_int4_weight(w)
-    g = 128 if (k // 2) % 128 == 0 else 64
     wg_q, gs = tim.quantize_int4_weight_grouped(w, g)
     for fn, twin, packed, s in ((tim.int4_matmul, tim.int4_matmul_ref, tim.pack_int4(w_q), scale),
                                 (tim.int4_matmul_grouped, tim.int4_matmul_grouped_ref,
@@ -406,7 +413,9 @@ def test_int4_plain_kernels_match_twins(cuda, m, k, n):
         assert fn.launches == before + 1
         ref = twin(x, packed, s)
         torch.testing.assert_close(out, ref, rtol=0, atol=2e-5 * ref.abs().max().item())
-        assert torch.equal(fn(x[-1:].contiguous(), packed, s)[0], out[-1])
+        for r in sorted({0, m // 2, m - 1}):
+            assert torch.equal(fn(x[r:r + 1].contiguous(), packed, s)[0], out[r])
+        assert torch.equal(fn(x, packed, s), out)
 
 
 def test_int4_plain_kernels_reject_what_they_cannot_take(cuda):

@@ -9,6 +9,8 @@ do. The kernels themselves are held against these twins on the card by
 ``tests/test_torch_cuda.py``.
 """
 
+import inspect
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -180,6 +182,158 @@ def test_wrappers_on_a_card_tensor_launch_or_raise(monkeypatch, name):
     with pytest.raises(RuntimeError, match="nvcc"):
         fn(*(torch.from_numpy(np.ascontiguousarray(a)) for a in args))
     assert fn.launches == before  # nothing launched
+
+
+def test_build_load_binds_a_library_once(monkeypatch):
+    """``_build.load`` sets each entry point's argtypes on the first load of
+    a library only; later loads (one per wrapper call) leave them alone."""
+    import ctypes
+
+    from micronet_tpu_torch.ops import _build
+
+    class Entry:
+        argtypes = restype = None
+
+    class Lib:
+        def __init__(self):
+            self.mn_f = Entry()
+
+    libs = {(): Lib(), ("W4_NO_REDUCE",): Lib()}
+    monkeypatch.setattr(_build, "_cdll", lambda name, defines=(): libs[defines])
+    sig = {"mn_f": [ctypes.c_void_p, ctypes.c_int]}
+    assert _build.load("int4_matmul", sig) is libs[()]
+    assert libs[()].mn_f.argtypes == sig["mn_f"] and libs[()].mn_f.restype is ctypes.c_int
+    libs[()].mn_f.argtypes = None
+    assert _build.load("int4_matmul", sig) is libs[()]
+    assert libs[()].mn_f.argtypes is None  # not bound again
+    assert _build.load("int4_matmul", sig, ("W4_NO_REDUCE",)) is libs[("W4_NO_REDUCE",)]
+    assert libs[("W4_NO_REDUCE",)].mn_f.argtypes == sig["mn_f"]
+
+
+def test_build_names_a_macro_build_apart():
+    """A diagnostic build (macros defined) gets a library name of its own, so
+    it never loads in place of the kernel; the plain build's name does not
+    depend on the defines argument's default."""
+    from micronet_tpu_torch.ops import _build
+
+    plain = _build._lib_path("int4_matmul")
+    assert _build._lib_path("int4_matmul", ()) == plain
+    names = {plain, _build._lib_path("int4_matmul", ("W4_NO_COMPUTE",)),
+             _build._lib_path("int4_matmul", ("W4_NO_REDUCE",))}
+    assert len(names) == 3 and all(p.parent == _build.BUILD_DIR for p in names)
+
+
+# --------------------------------------------------------------------------
+# K8/K9's card kernel: its dequantize bit tricks and its K-split, mirrored in numpy
+# --------------------------------------------------------------------------
+
+
+def _byte_perm(a, b, sel):
+    """CUDA's __byte_perm: result byte i is byte (sel >> 4i) & 7 of (b << 32 | a)."""
+    both = (b.astype(np.uint64) << np.uint64(32)) | a.astype(np.uint64)
+    out = np.zeros_like(a, dtype=np.uint32)
+    for i in range(4):
+        src = (sel >> (4 * i)) & 7
+        byte = (both >> np.uint64(8 * src)) & np.uint64(0xFF)
+        out |= byte.astype(np.uint32) << np.uint32(8 * i)
+    return out
+
+
+def _bf16_bits_to_f32(bits16):
+    return (bits16.astype(np.uint32) << np.uint32(16)).view(np.float32)
+
+
+def _round_bf16_rne(f):
+    """f32 -> the nearest bf16 (ties to even), held in f32: cvt.rn.bf16x2.f32 on
+    finite values."""
+    u = f.view(np.uint32).astype(np.uint64)
+    u = (u + np.uint64(0x7FFF) + ((u >> np.uint64(16)) & np.uint64(1))) >> np.uint64(16)
+    return _bf16_bits_to_f32(u.astype(np.uint32))
+
+
+def _all_byte_pairs():
+    """(2, 65536) int8 packed rows: every (row 0 byte, row 1 byte) pair once, in
+    every column position of a 4-byte word."""
+    p0 = np.tile(np.arange(256, dtype=np.uint32), 256)
+    p1 = np.repeat(np.arange(256, dtype=np.uint32), 256)
+    p1 = np.roll(p1, 1)  # mixes the word position of each pair
+    return np.stack([p0, p1]).astype(np.uint8).view(np.int8)
+
+
+def _words(row):
+    return np.ascontiguousarray(row).view(np.uint32)  # little-endian: column 4q + i is byte i
+
+
+def test_k8_dequant_bits_equal_unpack_int4_on_every_byte():
+    """The kernel's K8 dequantize, bit for bit: a byte permute puts columns
+    (2j, 2j + 1) of packed rows 0 and 1 side by side; for v = t, t >> 8,
+    t >> 4, t >> 12, (v & 0x000F000F) ^ 0x43084308 is two bf16 128 + (q + 8)
+    and minus 136 gives q: the same codes as unpack_int4, both nibbles."""
+    packed = _all_byte_pairs()
+    codes = tim.unpack_int4(torch.from_numpy(packed)).numpy().astype(np.float32)
+    lo_ref, hi_ref = codes[:2], codes[2:]  # rows (0, 1) of each half
+    w0, w1 = _words(packed[0]), _words(packed[1])
+    for j in range(2):  # the word's columns (0, 1) and (2, 3)
+        t = _byte_perm(w0, w1, 0x7632 if j else 0x5410)
+        for shift, half, e in ((0, lo_ref, 0), (8, lo_ref, 1), (4, hi_ref, 0), (12, hi_ref, 1)):
+            v = ((t >> np.uint32(shift)) & np.uint32(0x000F000F)) ^ np.uint32(0x43084308)
+            for r, bits in enumerate((v & np.uint32(0xFFFF), v >> np.uint32(16))):
+                q = _bf16_bits_to_f32(bits) - np.float32(136.0)  # exact in bf16 and in f32
+                np.testing.assert_array_equal(q, half[r, 2 * j + e::4])
+
+
+@pytest.mark.parametrize("lo,hi", [(-8, 2), (-40, 40), (-120, 120)])
+def test_k9_dequant_bits_equal_twin_on_every_byte(lo, hi):
+    """The kernel's K9 dequantize, bit for bit: (nibble ^ 8) permuted into
+    the mantissa of f32 2^23, minus 2^23 + 8, is q; one f32 multiply by the
+    group scale and one rounding to bf16 give the twin's
+    bf16(f32(q) * gscale) for scales of both signs across 2^lo .. 2^hi."""
+    packed = _all_byte_pairs()
+    rng = np.random.default_rng(hi)
+    n = packed.shape[1]
+    gscale = (2.0 ** rng.uniform(lo, hi, (2, n)) * rng.choice([-1, 1], (2, n))).astype(np.float32)
+    ref = tim._dequant_grouped_bf16(torch.from_numpy(packed), torch.from_numpy(gscale), 2).numpy()
+    for r in range(2):
+        w = _words(packed[r])
+        for half, v in ((0, (w & np.uint32(0x0F0F0F0F)) ^ np.uint32(0x08080808)),
+                        (1, ((w >> np.uint32(4)) & np.uint32(0x0F0F0F0F)) ^ np.uint32(0x08080808))):
+            for byte in range(4):
+                f = _byte_perm(v, np.full_like(v, 0x4B000000), 0x7650 | byte).view(np.float32)
+                q = f - np.float32(8388616.0)  # 2^23 + 8: exact
+                s = gscale[half, byte::4]
+                np.testing.assert_array_equal(_round_bf16_rne(q * s), ref[2 * half + r, byte::4])
+
+
+_8B_SHAPES = [(4096, 6144), (4096, 4096), (4096, 28672), (14336, 4096), (4096, 128256)]
+_CARD_TEST_SHAPES = [(640, 100), (200, 4), (1000, 4000), (2560, 256), (512, 64), (14336, 512)]
+
+
+@pytest.mark.parametrize("sms", [132, 114, 1])
+@pytest.mark.parametrize("k,n", _8B_SHAPES + _CARD_TEST_SHAPES)
+def test_w4_splits_take_no_m_and_cover_every_packed_row_once(k, n, sms):
+    """K8/K9's K-split is a function of K/2, N and the SM count only, so a
+    row's result cannot depend on its batch; cut as the kernel cuts it
+    (units of 64 packed rows, split s taking units [U s / S, U (s + 1) / S)),
+    every split is non-empty and every packed row falls in exactly one; a
+    split call of up to ``_W4_KEEP_ROWS`` batch rows fits the workspace the
+    wrapper keeps (2 x SMs x 128 x 16 floats)."""
+    assert list(inspect.signature(tim._w4_splits).parameters) == ["k2", "n", "sms"]
+    k2 = k // 2
+    splits = tim._w4_splits(k2, n, sms)
+    units = -(-k2 // tim._W4_UNIT)
+    assert 1 <= splits <= units
+    covered = np.zeros(k2, np.int64)
+    for s in range(splits):
+        r0 = units * s // splits * tim._W4_UNIT
+        r1 = min(units * (s + 1) // splits * tim._W4_UNIT, k2)
+        assert r0 < r1
+        covered[r0:r1] += 1
+    np.testing.assert_array_equal(covered, 1)
+    if splits > 1:
+        assert (splits * tim._W4_KEEP_ROWS * n
+                <= 2 * sms * tim._W4_BLOCK_N * tim._W4_KEEP_ROWS)
+    if sms == 132 and n == 4096:  # enough blocks for the card at N = 4096
+        assert splits * -(-n // tim._W4_BLOCK_N) >= sms
 
 
 # --------------------------------------------------------------------------
