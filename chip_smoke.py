@@ -13,7 +13,12 @@ Phases, each fatal on failure (non-zero exit, no final line):
    its time (CUDA events), the twin's, one PyTorch library call's
    (timed here only; the port never calls it) and the least time the
    card could take (bytes at 3.35 TB/s, or bf16 operations at
-   989 TFLOP/s);
+   989 TFLOP/s). K3 runs at M = 1, 8 and 128 (regime A, decode) and at
+   M = 6,000 (regime B, the long prompt's prefill; held against the twin
+   on 64 sampled rows), at M = 8 and 6,000 also by its device time
+   (``torch.profiler``) beside ``torch.matmul``'s; its kernels-line row is a
+   decode step's 129 calls at M = 8, with the 129 calls at M = 6,000 as
+   ``prefill_*``;
 4. reference: a small Llama with head_dim 128 served on the card and on
    the CPU (where the wrappers run their twins), logits compared;
 5. serve (slice 1's main path): ``Llama(llama3_8b(2048), w4_group=128)`` with
@@ -51,7 +56,8 @@ Phases, each fatal on failure (non-zero exit, no final line):
    page_size=16)`` (K6) with a pool smaller than the first eight requests
    reserve (admission must defer), then the 6,000-token request alone
    through ``Llama.generate`` (K5b): equal tokens everywhere, every page
-   back, exact launch counts;
+   back, exact launch counts; each loop's prefill seconds, the 6,000-token
+   prompt's own among them;
 12. wbwtab kernels: K2 (``binary_act_matmul``) against its twin, bit for
    bit, at NIN-GC's largest ternary 1x1 conv as a dense GEMM (batch 1024:
    M = 65,536, K = N = 1,024), a ragged call and a call with exact zeros,
@@ -102,7 +108,9 @@ GROUP = 128
 # with how many times one decode step calls it
 K3_SHAPES = [((4096, 6144), 32), ((4096, 4096), 32), ((4096, 28672), 32),
              ((14336, 4096), 32), ((4096, 128256), 1)]
-K3_MS = (1, 8, 128)
+K3_MS = (1, 8, 128)  # regime A (decode)
+K3_PREFILL_M = 6000  # regime B: the long prompt of phase 11 (LONG_PROMPTS[0])
+K3_TWIN_COLS = 16384  # the twin on sampled rows, this many columns at a time
 ATT_G, ATT_R, ATT_D, ATT_S = 64, 4, 128, 2048  # 8 slots x 8 KV heads
 # exact products, f32 sums in another order over up to 14336 terms
 K3_REL_TOL = 2e-5
@@ -205,6 +213,32 @@ def time_ms(fn, args_list, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+# device_ms readings taken by queued_ms after the profiler lost events five times
+DEVICE_MS_FALLBACKS = []
+
+
+def queued_ms(fn, args_list, iters: int) -> float:
+    """Mean ms per call of ``iters`` calls queued behind a sleep kernel
+    that outlasts their enqueueing, timed with CUDA events from the sleep's
+    end: the card runs them back to back and the host does not pace them
+    (the card's gaps between kernels are included)."""
+    fn(*args_list[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(iters):
+        fn(*args_list[i % len(args_list)])
+    enqueue_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(4e9 * enqueue_s) + 1_000_000)  # about twice it at 2 GHz
+    start.record()
+    for i in range(iters):
+        fn(*args_list[i % len(args_list)])
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def device_ms(fn, args_list, iters: int) -> float:
     """Mean device time (ms) of the kernels one ``fn(*args)`` launches,
     from ``torch.profiler`` over ``iters`` calls: no host time, unlike
@@ -212,7 +246,8 @@ def device_ms(fn, args_list, iters: int) -> float:
     where a call's host work outlasts its kernels. Every call launches at
     least one kernel, so a trace holding fewer kernels than calls lost
     events (seen on an H100: readings of 0 and under the bound) and is
-    taken again."""
+    taken again; after five such traces the reading comes from
+    :func:`queued_ms` and is listed in ``DEVICE_MS_FALLBACKS``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -226,7 +261,11 @@ def device_ms(fn, args_list, iters: int) -> float:
         kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
         if sum(e.count for e in kernels) >= iters:
             return sum(e.self_device_time_total for e in kernels) / 1e3 / iters
-    fail(f"torch.profiler recorded fewer kernels than the {iters} calls in five traces")
+    name = getattr(fn, "__name__", str(fn))
+    log(f"torch.profiler recorded fewer kernels than the {iters} calls of {name} in five "
+        f"traces: device time from calls queued behind a sleep instead")
+    DEVICE_MS_FALLBACKS.append(name)
+    return queued_ms(fn, args_list, iters)
 
 
 def copies_for(nbytes: int) -> int:
@@ -236,7 +275,22 @@ def copies_for(nbytes: int) -> int:
 # ---------------------------------------------------------------- phase 3
 
 
+def _k3_bound(m, k, n):
+    """K3's least time (ms) for one call and what sets it: x read, the packed
+    weights and scales read, the output written once; 2MKN bf16 operations."""
+    nbytes = m * k * 4 + k // 2 * n + k // GROUP * n * 4 + m * n * 4
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 2 * m * k * n / BF16_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
 def check_k3(dev, gen, report):
+    """K3 at the five W4 shapes of one Llama-3-8B forward: M = 1, 8 and 128
+    (regime A, decode) against the whole twin, weights cold in L2; M = 6,000
+    (regime B, the long prompt's prefill) against the twin on a sample of
+    rows (the first, the last and 62 drawn from ``gen``) in column chunks,
+    since the whole twin would hold (K/g, M, N) f32. Each beside
+    ``torch.matmul`` on the dequantized bf16 weight, by events and by device
+    time."""
     from micronet_tpu_torch.ops import int4_matmul as im
 
     cases = {}
@@ -252,37 +306,77 @@ def check_k3(dev, gen, report):
         # the library yardstick: one bf16 matmul on the dequantized weight
         w_bf16 = [(im.unpack_int4_hl8(p).float() * im.expand_gscale(g, GROUP))
                   .to(torch.bfloat16) for p, g in weights[: copies_for(2 * k * n)]]
-        for m in K3_MS:
+        for m in K3_MS + (K3_PREFILL_M,):
             x = torch.randn((m, k), device=dev, generator=gen)
             out = im.int4_matmul_grouped_hl8(x, *weights[0])
-            ref = im.int4_matmul_grouped_hl8_ref(x, *weights[0])
+            if m == K3_PREFILL_M:
+                rows = torch.cat([torch.tensor([0, m - 1], device=dev),
+                                  torch.randint(1, m - 1, (62,), device=dev, generator=gen)])
+                err = scale = 0.0
+                for c0 in range(0, n, K3_TWIN_COLS):
+                    c1 = min(n, c0 + K3_TWIN_COLS)
+                    ref = im.int4_matmul_grouped_hl8_ref(
+                        x[rows], weights[0][0][:, c0:c1].contiguous(),
+                        weights[0][1][:, c0:c1].contiguous())
+                    err = max(err, (out[rows, c0:c1] - ref).abs().max().item())
+                    scale = max(scale, ref.abs().max().item())
+                    del ref
+            else:
+                ref = im.int4_matmul_grouped_hl8_ref(x, *weights[0])
+                err = (out - ref).abs().max().item()
+                scale = ref.abs().max().item()
             torch.cuda.synchronize()
-            err = (out - ref).abs().max().item()
-            scale = ref.abs().max().item()
             if not (torch.isfinite(out).all() and err <= K3_REL_TOL * scale):
                 fail(f"K3 M={m} K={k} N={n}: max|err| {err:.3e} > {K3_REL_TOL} * {scale:.3e}")
+            del out
             xb = x.to(torch.bfloat16)
-            ms = time_ms(im.int4_matmul_grouped_hl8, [(x, p, g) for p, g in weights], 30)
-            plain = time_ms(im.int4_matmul_grouped_hl8_ref, [(x, p, g) for p, g in weights], 5, 1)
-            lib = time_ms(torch.matmul, [(xb, w) for w in w_bf16], 30)
-            nbytes = m * k * 4 + packed_bytes + m * n * 4
-            ops = 2 * m * k * n
-            bound = max(nbytes / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S) * 1e3
+            if m == K3_PREFILL_M:  # long calls: one copy of the weights, a few calls
+                args, lib_args, iters = [(x, *weights[0])], [(xb, w_bf16[0])], 3
+                plain = None
+            else:
+                args, lib_args, iters = [(x, p, g) for p, g in weights], [(xb, w) for w in w_bf16], 30
+                plain = time_ms(im.int4_matmul_grouped_hl8_ref, args, 5, 1)
+            ms = time_ms(im.int4_matmul_grouped_hl8, args, iters)
+            lib = time_ms(torch.matmul, lib_args, iters)
+            dev_ms = lib_dev_ms = None  # traced only for the decode step and the prefill
+            if m in (8, K3_PREFILL_M):
+                dev_ms = device_ms(im.int4_matmul_grouped_hl8, args, iters)
+                lib_dev_ms = device_ms(torch.matmul, lib_args, iters)
+            bound, bound_by = _k3_bound(m, k, n)
             cases[(m, k, n)] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound,
-                                    bound_by="bytes" if nbytes / HBM_BYTES_PER_S >= ops / BF16_OPS_PER_S else "operations",
-                                    max_abs_err=err, ref_max=scale, per_step=per_step)
-            log(f"K3 M={m:4d} K={k:6d} N={n:6d}: err {err:.3e} (tol {K3_REL_TOL * scale:.3e}) "
-                f"kernel {ms:.4f} ms, plain {plain:.4f} ms, torch.matmul bf16 {lib:.4f} ms, "
-                f"bound {bound:.4f} ms ({cases[(m, k, n)]['bound_by']})")
+                                    bound_by=bound_by, device_ms=dev_ms,
+                                    library_device_ms=lib_dev_ms, max_abs_err=err, ref_max=scale,
+                                    per_step=per_step, regime=im._k3_regime(m, GROUP))
+            dev_txt = "" if dev_ms is None else f" (device {dev_ms:.4f})"
+            lib_txt = "" if lib_dev_ms is None else f" (device {lib_dev_ms:.4f})"
+            log(f"K3 M={m:4d} K={k:6d} N={n:6d} (regime {im._k3_regime(m, GROUP)}): err "
+                f"{err:.3e} (tol {K3_REL_TOL * scale:.3e}) kernel {ms:.4f} ms{dev_txt}, plain "
+                f"{'-' if plain is None else f'{plain:.4f}'} ms, torch.matmul bf16 {lib:.4f} ms"
+                f"{lib_txt}, bound {bound:.4f} ms ({bound_by}, {bound / (dev_ms or ms):.1%} of it)")
+            del x, xb
         del weights, w_bf16
         torch.cuda.empty_cache()
     report["k3_cases"] = [dict(m=m, k=k, n=n, **v) for (m, k, n), v in cases.items()]
-    # the kernels line reports one decode step at M = 8 (129 calls)
-    step = [v for (m, _, _), v in cases.items() if m == 8]
-    summed = {key: sum(v[key] * v["per_step"] for v in step)
-              for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
-    return dict(summed, max_abs_err=max(v["max_abs_err"] for v in cases.values()),
-                bound_by="bytes" if all(v["bound_by"] == "bytes" for v in step) else "operations")
+
+    def forward(m, keys):  # the 129 calls of one forward at M = m
+        return {key: sum(v[key] * v["per_step"] for (mm, _, _), v in cases.items() if mm == m)
+                for key in keys}
+
+    # the kernels line: one decode step at M = 8; the prefill of the long prompt beside it
+    row = dict(forward(8, ("ms", "plain_ms", "library_ms", "bound_ms", "device_ms",
+                           "library_device_ms")),
+               max_abs_err=max(v["max_abs_err"] for v in cases.values()),
+               bound_by="bytes" if all(v["bound_by"] == "bytes" for (m, _, _), v in cases.items()
+                                       if m == 8) else "operations")
+    pre = forward(K3_PREFILL_M, ("ms", "bound_ms", "device_ms", "library_device_ms"))
+    row.update({f"prefill_{key}": v for key, v in pre.items()},
+               prefill_m=K3_PREFILL_M, prefill_bound_share=pre["bound_ms"] / pre["device_ms"])
+    log(f"K3 forward at M=8: device {row['device_ms']:.3f} ms, torch.matmul "
+        f"{row['library_device_ms']:.3f} ms, bound {row['bound_ms']:.3f} ms; at M="
+        f"{K3_PREFILL_M}: device {pre['device_ms']:.2f} ms, torch.matmul "
+        f"{pre['library_device_ms']:.2f} ms, bound {pre['bound_ms']:.2f} ms "
+        f"({row['prefill_bound_share']:.1%} of it)")
+    return row
 
 
 def check_attention(dev, gen, report):
@@ -412,7 +506,7 @@ class _Timed:
 
     def __init__(self, model):
         self._m = model
-        self.decode_s, self.prefill_s = [], []
+        self.decode_s, self.prefill_s, self.prefill_tokens = [], [], []
 
     def __getattr__(self, name):
         return getattr(self._m, name)
@@ -425,7 +519,8 @@ class _Timed:
         sink.append(time.perf_counter() - t0)
         return out
 
-    def forward(self, *a):
+    def forward(self, *a):  # the loop's prefills: a[0] is the prompt
+        self.prefill_tokens.append(int(a[0].shape[0]))
         return self._time(self._m.forward, self.prefill_s, *a)
 
     def decode_batch(self, *a):
@@ -960,8 +1055,10 @@ def _loop_stats(timed, wall, peak, kv_bytes, deferred):
     tokens = N_REQUESTS * (NEW_TOKENS - 1)  # every token after a request's first
     decode_s = sum(timed.decode_s)
     step_ms = sorted(1e3 * x for x in timed.decode_s)
+    long_s = [t for n, t in zip(timed.prefill_tokens, timed.prefill_s) if n == LONG_PROMPTS[0]]
     return dict(wall_s=wall, decode_steps=len(step_ms), prefills=len(timed.prefill_s),
                 prefill_s=sum(timed.prefill_s), prefill_max_s=max(timed.prefill_s),
+                prefill_long_s=long_s[0] if long_s else None,
                 decode_s=decode_s, decode_tok_per_s=tokens / decode_s,
                 step_ms_median=step_ms[len(step_ms) // 2], step_ms_max=step_ms[-1],
                 kv_bytes=kv_bytes, peak_gb=peak / 1e9, deferred_admissions=deferred)
@@ -1044,7 +1141,8 @@ def serve_long(dev, seed, card, report, profile_dir=None):
                                 launches=launches)
     for mode, st in (("dense", dense), ("paged", paged)):
         log(f"serve_long {mode}: {st['decode_steps']} decode steps, {st['prefills']} prefills "
-            f"({st['prefill_s']:.2f} s, longest {st['prefill_max_s']:.2f} s); decode "
+            f"({st['prefill_s']:.2f} s, longest {st['prefill_max_s']:.2f} s, the "
+            f"{LONG_PROMPTS[0]}-token prompt {st['prefill_long_s']:.3f} s); decode "
             f"{st['decode_tok_per_s']:.1f} tok/s, step median {st['step_ms_median']:.2f} ms, "
             f"max {st['step_ms_max']:.2f} ms; KV {st['kv_bytes'] / 1e9:.3f} GB; peak "
             f"{st['peak_gb']:.2f} GB; {st['deferred_admissions']} deferred admissions; "
@@ -1434,6 +1532,7 @@ def main() -> int:
              **wo["int4_matmul_grouped"]),
     ]
     report["kernels"] = rows
+    report["device_ms_fallbacks"] = DEVICE_MS_FALLBACKS
     report["seconds"] = time.perf_counter() - t_start
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     log(f"total {report['seconds']:.1f} s")

@@ -11,20 +11,63 @@
 // its high nibble, stored as the hl8 byte b = 16*q_hi + (q_lo + 8). Packed group
 // gi (rows gi*g .. gi*g+g-1) feeds scale row gi (low half) and g1 + gi (high half),
 // g1 = (K/2)/g. The v5e three-dot identity and float-floor unpack are not carried
-// over: Hopper unpacks with integer ops, q_hi = b >> 4 (arithmetic shift) and
-// q_lo = (b & 0xF) - 8.
+// over. The codes enter the tensor cores exact (bf16(x) * a 4-bit code is exact in
+// f32); each group's partial dot, low half and high half apart, is multiplied by its
+// column scale in f32 and added to the total (fma), so no weight is rounded by its
+// scale. (K9's trick of pre-scaled bf16 weights would round each weight by up to 2^-8.)
 //
-// What bounds it: at decode (M <= 8) the weight bytes, (K/2)*N + 4*(K/g)*N per call,
-// about 4 GB per Llama-3-8B step. The design for that: each thread reads 4 packed
-// bytes of one row (one 32-bit load; a warp reads 128 contiguous bytes), loops down
-// the K/2 rows of its K-split, and keeps every M row of its tile in registers, so a
-// weight byte is read from device memory once per M tile. A K-split across blocks
-// (chosen from K and N only) gives the card enough blocks at N = 4096; a second
-// small kernel sums the splits in a fixed order. Products bf16(x) * code are exact in
-// f32, and each output element is summed in an order that does not depend on M, so
-// a row's result does not depend on what shares its batch (the serving loop's
-// isolation contract). Arithmetic is f32 FMA on the CUDA cores; at M = 8 that, not
-// the bytes, is the limit of this first version (tensor cores are later work).
+// Dequantize, both regimes: with the byte of packed row r at bits 0-7 and the byte of
+// another row at bits 16-23 of v, (v & 0x000F000F) | 0x43004300 is two bf16 128 + u_lo,
+// u_lo = q_lo + 8 (the hl8 low nibble is already offset), and ((v >> 4) & 0x000F000F) ^
+// 0x43084308 is two bf16 128 + (q_hi + 8) (the high nibble is two's complement); one
+// bf16x2 fma subtracts 136 from both: the codes exactly. A zero byte is q_lo = -8, not 0,
+// so no edge relies on zero weight bytes: K is padded with x = 0, N edges are masked.
+//
+// K3 runs in two regimes, chosen by the wrapper from M and the group alone
+// (ops/int4_matmul.py::_k3_regime):
+//
+// Regime A, decode (M <= 128, or a group that is not a multiple of 16 rows, at any M): a
+// mode of the w4 kernel below (K8/K9's). What bounds it is the weight bytes, (K/2)*N +
+// 4*(K/g)*N per call (about 4 GB per Llama-3-8B decode step). The w4 mainloop streams them
+// through a cp.async ring onto bf16 mma.sync with the batch as the 8-column operand, splits
+// K across blocks from K, N and the SM count only (never M) and sums the splits in the
+// block that arrives last. Per group: each warp accumulates its k-tiles of the current
+// group into a temporary fragment (low and high half apart) and, where its group ends,
+// adds tmp * scale[column] to its total. A group that is not a multiple of 16 rows may cut
+// a k-tile: the tile then runs one masked MMA per group it touches (x rows outside the
+// group zeroed in the operand), which is slower but takes any group dividing K/2.
+//
+// Regime B, prefill (M > 128 and a group that is a multiple of 16 rows): a tiled GEMM on
+// wgmma. The operations bound it (2*M*K*N at 989 TFLOP/s), so the design feeds wgmma and
+// dequantizes each weight once per 128-row batch tile:
+// - A pre-pass writes x as bf16 (RN) in two planes (low half, high half), each (Mp, K/2)
+//   with Mp = M rounded up to 128 and zero rows past M: one read and one write of x.
+// - A block owns 128 batch rows x 128 columns. The weights are wgmma's register operand: two
+//   consumer warpgroups of 64 columns each dequantize their packed bytes straight into the A
+//   fragment (no bf16 weight tile in shared memory) and run m64n128k16 with the 128 batch
+//   rows of x, from shared memory (K-major, 128-byte swizzle), as N.
+// - The K loop runs per (group, half): for group gi, the low half's packed rows against x's
+//   low plane, then the same packed rows' high nibbles against the high plane, in stages of
+//   at most 128 packed rows that never cross a group. A producer warp brings each stage (the
+//   x tile, the packed tile and the scale row) into a ring of four slots by TMA, guarded by
+//   full/empty mbarriers; the consumer warpgroups never wait on each other, so one's
+//   fragment building and promotion hide behind the other's wgmmas. Each consumer reads a
+//   step's packed bytes one step ahead, so a wgmma is never held up by a shared-memory load.
+// - Each warpgroup accumulates a (group, half) into a temporary set of 64 f32 registers
+//   (its first wgmma overwrites it) and, where the (group, half) ends, adds tmp *
+//   scale[column] into its total: the DeepGEMM-style promotion, in f32.
+// - Blocks are rasterised in bands of 8 batch tiles, so a wave of blocks shares its x and
+//   weight tiles in L2. No split-K: every output element is written once.
+// What holds it back on an H100 (PERF.md, PR 6): each warpgroup's chain of fragment building
+// and wgmma issue, and the L2 traffic of 128 x 128 tiles (x is read once per column tile);
+// the two accumulator sets (total and tmp, 128 registers a thread) keep the tile at that size.
+
+// Both regimes: every output element is summed in an order fixed by K, N, the group and
+// (regime A) the card's SM count; no float atomics, so two calls give the same bits, and an
+// MMA output element depends only on its own operand row and column, so a row's result does
+// not depend on the rows that share its call (regime A), nor on them or on M among calls of
+// regime B. The two regimes sum in different orders: the same row agrees across the
+// boundary only within the tolerance.
 //
 // K8 and K9 replace micronet_tpu/ops/int4_matmul.py::int4_matmul and ::int4_matmul_grouped
 // (Pallas bodies _kernel and _kernel_grouped) over the plain packing (pack_int4): packed
@@ -38,8 +81,8 @@
 //       along K (row r of the low half uses scale row r / g, of the high half K/(2g) + r / g;
 //       g must divide K/2). Every product is exact in f32 (8-bit x 8-bit mantissas).
 //
-// What bounds K8/K9: at decode (M <= 8) the weight bytes, (K/2)*N (+ the scales) per call.
-// Their design (the w4 kernel below):
+// What bounds K8/K9 (and K3's regime A): at decode (M <= 8) the weight bytes, (K/2)*N (+ the
+// scales) per call. Their design (the w4 kernel below):
 // - The product runs on the tensor cores, mma.sync m16n8k16 bf16 x bf16 -> f32, with A and B
 //   swapped: 16 weight columns form the 16-row operand, x^T (8 batch rows, zero-padded) the
 //   n = 8 operand. A block holds 8 or 16 batch rows (MB = 1 or 2 n-tiles); larger M takes
@@ -75,134 +118,14 @@
 // - Diagnostic builds (tools/w4_variants.py, through ops/_build.py's defines): W4_NO_COMPUTE
 //   keeps the copies and the split sum but no warp computes; W4_NO_REDUCE skips the split sum.
 
+#include <cuda.h>  // CUtensorMap and its enums (the encoder is fetched at run time)
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kCols = 4;                     // columns per thread: one 32-bit load
-constexpr int kBlockN = kThreads * kCols;    // 512 columns per block
-constexpr int kMaxGroup = 256;
-
-__device__ __forceinline__ float bf16_round(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-// grid: x = M tile (fastest, so blocks sharing a weight tile run together and hit
-// L2), y = column block, z = K split.
-template <int MT>
-__global__ void __launch_bounds__(kThreads)
-int4_hl8_kernel(const float* __restrict__ x, const int8_t* __restrict__ packed,
-                const float* __restrict__ gscale, float* __restrict__ dst,
-                int M, int K, int N, int group, int splits) {
-  const int k2 = K / 2;
-  const int g1 = k2 / group;
-  const int m0 = blockIdx.x * MT;
-  const int n0 = (blockIdx.y * kThreads + threadIdx.x) * kCols;
-  const int split = blockIdx.z;
-  const int gi_begin = (int)((long long)g1 * split / splits);
-  const int gi_end = (int)((long long)g1 * (split + 1) / splits);
-  const bool col_ok = n0 < N;  // the wrapper checks N % 4 == 0
-
-  __shared__ float xs_lo[MT][kMaxGroup];
-  __shared__ float xs_hi[MT][kMaxGroup];
-
-  float acc[MT][kCols];
-#pragma unroll
-  for (int m = 0; m < MT; ++m)
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) acc[m][c] = 0.f;
-
-  for (int gi = gi_begin; gi < gi_end; ++gi) {
-    const int r0 = gi * group;
-    __syncthreads();  // previous group's x tile fully read
-    for (int i = threadIdx.x; i < MT * group; i += kThreads) {
-      const int m = i / group, j = i - (i / group) * group;
-      float lo = 0.f, hi = 0.f;
-      if (m0 + m < M) {
-        const float* xr = x + (size_t)(m0 + m) * K;
-        lo = bf16_round(xr[r0 + j]);
-        hi = bf16_round(xr[k2 + r0 + j]);
-      }
-      xs_lo[m][j] = lo;
-      xs_hi[m][j] = hi;
-    }
-    __syncthreads();
-    if (!col_ok) continue;  // still joins every __syncthreads above
-
-    float plo[MT][kCols], phi[MT][kCols];
-#pragma unroll
-    for (int m = 0; m < MT; ++m)
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) plo[m][c] = phi[m][c] = 0.f;
-
-    const int8_t* wp = packed + (size_t)r0 * N + n0;
-#pragma unroll 4
-    for (int j = 0; j < group; ++j) {
-      const int w = __ldg(reinterpret_cast<const int*>(wp + (size_t)j * N));
-      float ql[kCols], qh[kCols];
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) {
-        const int b = (int)(int8_t)((w >> (8 * c)) & 0xFF);  // signed hl8 byte
-        qh[c] = (float)(b >> 4);
-        ql[c] = (float)((b & 0xF) - 8);
-      }
-#pragma unroll
-      for (int m = 0; m < MT; ++m) {
-        const float xl = xs_lo[m][j], xh = xs_hi[m][j];
-#pragma unroll
-        for (int c = 0; c < kCols; ++c) {
-          // exact products (8-bit x 4-bit mantissas): FMA == mul + add here
-          plo[m][c] = fmaf(xl, ql[c], plo[m][c]);
-          phi[m][c] = fmaf(xh, qh[c], phi[m][c]);
-        }
-      }
-    }
-    const float4 slo = __ldg(reinterpret_cast<const float4*>(gscale + (size_t)gi * N + n0));
-    const float4 shi = __ldg(reinterpret_cast<const float4*>(gscale + (size_t)(g1 + gi) * N + n0));
-    const float sl[kCols] = {slo.x, slo.y, slo.z, slo.w};
-    const float sh[kCols] = {shi.x, shi.y, shi.z, shi.w};
-#pragma unroll
-    for (int m = 0; m < MT; ++m)
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) {
-        // rounded mul, then add: the oracle's acc + p_lo * s_lo + p_hi * s_hi order
-        acc[m][c] = __fadd_rn(acc[m][c], __fmul_rn(plo[m][c], sl[c]));
-        acc[m][c] = __fadd_rn(acc[m][c], __fmul_rn(phi[m][c], sh[c]));
-      }
-  }
-  if (!col_ok) return;
-  float* base = dst + (size_t)split * M * N;
-#pragma unroll
-  for (int m = 0; m < MT; ++m) {
-    if (m0 + m < M) {
-      *reinterpret_cast<float4*>(base + (size_t)(m0 + m) * N + n0) =
-          make_float4(acc[m][0], acc[m][1], acc[m][2], acc[m][3]);
-    }
-  }
-}
-
-// out[i] = ws[0][i] + ws[1][i] + ... in split order (deterministic)
-__global__ void splitk_sum_kernel(const float* __restrict__ ws, float* __restrict__ out,
-                                  int splits, long long mn) {
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < mn;
-       i += (long long)gridDim.x * blockDim.x) {
-    float s = ws[i];
-    for (int k = 1; k < splits; ++k) s = __fadd_rn(s, ws[k * mn + i]);
-    out[i] = s;
-  }
-}
-
-int splitk_sum(const float* ws, float* out, int splits, int M, int N, cudaStream_t stream) {
-  const long long mn = (long long)M * N;
-  const int blocks = (int)((mn + 255) / 256 < 4096 ? (mn + 255) / 256 : 4096);
-  splitk_sum_kernel<<<blocks, 256, 0, stream>>>(ws, out, splits, mn);
-  return (int)cudaGetLastError();
-}
-
-// ---------------------------------------------------------------- K8 and K9: the w4 kernel
+// ---------------------------------------------------------------- the w4 kernel (K8, K9, K3 A)
 
 constexpr int kW4Threads = 256;               // 8 warps: 4 k-slices x 2 column halves
 constexpr int kW4BlockN = 128;                // columns per block
@@ -223,8 +146,10 @@ static_assert(8 * 64 * 8 * 4 <= w4_stages(1) * w4_slot_bytes(1), "ring too small
 static_assert(8 * 64 * 16 * 4 <= w4_stages(2) * w4_slot_bytes(2), "ring too small");
 
 // scales: K8's per column; K9's per group, a group a multiple of 16 rows (one k-tile in one
-// group) or any group (each row's scale read where it is used)
-enum W4Mode { kW4Col = 0, kW4Group = 1, kW4GroupAny = 2 };
+// group) or any group (each row's scale read where it is used); K3's per group applied to
+// each group's partial dot, a group a multiple of 16 rows or any group (a k-tile cut by a
+// group boundary runs one masked MMA per group it touches)
+enum W4Mode { kW4Col = 0, kW4Group = 1, kW4GroupAny = 2, kW4Hl8 = 3, kW4Hl8Any = 4 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -256,14 +181,23 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// K8: the signed nibbles at bits 0..3 and 16..19 of v as two exact bf16 codes:
-// 0x4300 | (u ^ 8) is bf16 128 + (q + 8); minus 136 (0xC308) is q
-__device__ __forceinline__ uint32_t dq_bf16x2(uint32_t v) {
-  const uint32_t biased = (v & 0x000F000Fu) ^ 0x43084308u;
+// two bf16 128 + c (c < 16 at bits 0..3 and 16..19 of the argument) minus 136
+__device__ __forceinline__ uint32_t minus136_bf16x2(uint32_t biased) {
   uint32_t d;
   asm("fma.rn.bf16x2 %0, %1, %2, %3;\n"
       : "=r"(d) : "r"(biased), "r"(0x3F803F80u), "r"(0xC308C308u));
   return d;
+}
+
+// K8 (and the hl8 high nibble): the two's complement nibbles at bits 0..3 and 16..19 of v as
+// two exact bf16 codes: 0x4300 | (u ^ 8) is bf16 128 + (q + 8); minus 136 (0xC308) is q
+__device__ __forceinline__ uint32_t dq_bf16x2(uint32_t v) {
+  return minus136_bf16x2((v & 0x000F000Fu) ^ 0x43084308u);
+}
+
+// the hl8 low nibble, already q + 8: 0x4300 | u is bf16 128 + (q + 8); minus 136 is q
+__device__ __forceinline__ uint32_t dq_hl8_lo_bf16x2(uint32_t v) {
+  return minus136_bf16x2((v & 0x000F000Fu) | 0x43004300u);
 }
 
 // K9: byte kByte of v holds u ^ 8 (u a nibble); 0x4B0000vv is f32 2^23 + (q + 8), so
@@ -305,6 +239,7 @@ w4_kernel(const float* __restrict__ x, const int8_t* __restrict__ packed,
   constexpr int kRows = 8 * MB;
   constexpr int kStages = w4_stages(MB);
   constexpr int kSlot = w4_slot_bytes(MB);
+  constexpr bool kHl8 = kMode == kW4Hl8 || kMode == kW4Hl8Any;
   extern __shared__ __align__(16) uint8_t smem[];
   __shared__ int last_block;
   const int k2 = K / 2;
@@ -366,9 +301,33 @@ w4_kernel(const float* __restrict__ x, const int8_t* __restrict__ packed,
   const int kw = warp % kW4KWarps, cw = warp / kW4KWarps;
   const int my_col = col0 + cw * 64 + 8 * g;  // the first of this thread's 8 columns
   const int g1 = kMode == kW4Col ? 0 : k2 / group;
-  float acc[MB][4][2][4] = {};  // [batch n-tile][column n-tile][low, high half][fragment]
-  float sl[8], sh[8];           // K9: this thread's columns' scales of the current group
+  // [batch n-tile][column n-tile][low, high half][fragment]; K3: the current group's partials
+  float acc[MB][4][2][4] = {};
+  float tot[MB][4][4] = {};  // K3: the promoted total, [batch][column n-tile][fragment]
+  float sl[8], sh[8];  // K9, K3: this thread's columns' scales of the current group
   int next_group_row = 0;
+  int cur_group = -1;  // K3: the group acc holds (warp-uniform)
+
+  // K3: acc into tot, each half times its column's scale (fragment e is column 8g + 2j + e / 2)
+  auto promote = [&]() {
+#pragma unroll
+    for (int b = 0; b < MB; ++b)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          tot[b][j][e] = __fmaf_rn(acc[b][j][0][e], sl[2 * j + e / 2], tot[b][j][e]);
+          tot[b][j][e] = __fmaf_rn(acc[b][j][1][e], sh[2 * j + e / 2], tot[b][j][e]);
+          acc[b][j][0][e] = acc[b][j][1][e] = 0.f;
+        }
+  };
+  auto open_group = [&](int gi) {
+    if (gi == cur_group) return;
+    if (cur_group >= 0) promote();
+    cur_group = gi;
+    load8(sl, scale + (size_t)gi * N + my_col, my_col, N);
+    load8(sh, scale + (size_t)(g1 + gi) * N + my_col, my_col, N);
+  };
 
   for (int st = 0; st < nst; ++st) {
     cp_async_wait<kStages - 2>();
@@ -397,24 +356,48 @@ w4_kernel(const float* __restrict__ x, const int8_t* __restrict__ packed,
       bh[b][0] = pack_bf16x2(xh[0], xh[4]);
       bh[b][1] = pack_bf16x2(xh[8], xh[12]);
     }
-    if (kMode == kW4Col) {
+    if (kMode == kW4Col || kHl8) {
+      // the tile's codes against x fragments masked by mk0 (rows t, t + 4) and mk1 (rows
+      // t + 8, t + 12): K3's masked MMA zeroes x rows outside a group; all ones elsewhere
+      auto mma_tile = [&](uint32_t mk0, uint32_t mk1) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        // bytes of columns 2j, 2j+1 of rows (0, 1) and (2, 3), side by side
-        const uint32_t sel = (j & 1) ? 0x7632u : 0x5410u;
-        const uint32_t t01 =
-            __byte_perm(j < 2 ? wr[0].x : wr[0].y, j < 2 ? wr[1].x : wr[1].y, sel);
-        const uint32_t t23 =
-            __byte_perm(j < 2 ? wr[2].x : wr[2].y, j < 2 ? wr[3].x : wr[3].y, sel);
-        const uint32_t alo[4] = {dq_bf16x2(t01), dq_bf16x2(t01 >> 8), dq_bf16x2(t23),
-                                 dq_bf16x2(t23 >> 8)};
-        const uint32_t ahi[4] = {dq_bf16x2(t01 >> 4), dq_bf16x2(t01 >> 12), dq_bf16x2(t23 >> 4),
-                                 dq_bf16x2(t23 >> 12)};
+        for (int j = 0; j < 4; ++j) {
+          // bytes of columns 2j, 2j+1 of rows (0, 1) and (2, 3), side by side
+          const uint32_t sel = (j & 1) ? 0x7632u : 0x5410u;
+          const uint32_t t01 =
+              __byte_perm(j < 2 ? wr[0].x : wr[0].y, j < 2 ? wr[1].x : wr[1].y, sel);
+          const uint32_t t23 =
+              __byte_perm(j < 2 ? wr[2].x : wr[2].y, j < 2 ? wr[3].x : wr[3].y, sel);
+          uint32_t alo[4];
+          if (kHl8) {
+            alo[0] = dq_hl8_lo_bf16x2(t01); alo[1] = dq_hl8_lo_bf16x2(t01 >> 8);
+            alo[2] = dq_hl8_lo_bf16x2(t23); alo[3] = dq_hl8_lo_bf16x2(t23 >> 8);
+          } else {
+            alo[0] = dq_bf16x2(t01); alo[1] = dq_bf16x2(t01 >> 8);
+            alo[2] = dq_bf16x2(t23); alo[3] = dq_bf16x2(t23 >> 8);
+          }
+          const uint32_t ahi[4] = {dq_bf16x2(t01 >> 4), dq_bf16x2(t01 >> 12),
+                                   dq_bf16x2(t23 >> 4), dq_bf16x2(t23 >> 12)};
 #pragma unroll
-        for (int b = 0; b < MB; ++b) {
-          mma_bf16(acc[b][j][0], alo, bl[b][0], bl[b][1]);
-          mma_bf16(acc[b][j][1], ahi, bh[b][0], bh[b][1]);
+          for (int b = 0; b < MB; ++b) {
+            mma_bf16(acc[b][j][0], alo, bl[b][0] & mk0, bl[b][1] & mk1);
+            mma_bf16(acc[b][j][1], ahi, bh[b][0] & mk0, bh[b][1] & mk1);
+          }
         }
+      };
+      if (kMode == kW4Hl8Any) {
+        // every group the tile touches, in order: rows [gi * group, (gi + 1) * group)
+        const int g_last = min(kb + 15, k2 - 1) / group;
+        for (int gi = kb / group; gi <= g_last; ++gi) {
+          open_group(gi);
+          const int lo = gi * group - kb, hi = lo + group;  // the group's rows, from kb
+          const auto in = [&](int r) { return r >= lo && r < hi; };
+          mma_tile((in(t) ? 0xFFFFu : 0u) | (in(t + 4) ? 0xFFFF0000u : 0u),
+                   (in(t + 8) ? 0xFFFFu : 0u) | (in(t + 12) ? 0xFFFF0000u : 0u));
+        }
+      } else {
+        if (kMode == kW4Hl8) open_group(kb / group);  // the tile lies in one group
+        mma_tile(0xFFFFFFFFu, 0xFFFFFFFFu);
       }
     } else {
       const float* srow[4] = {nullptr, nullptr, nullptr, nullptr};  // kW4GroupAny: row i's
@@ -471,11 +454,12 @@ w4_kernel(const float* __restrict__ x, const int8_t* __restrict__ packed,
       }
     }
   }
+  if (kHl8 && cur_group >= 0) promote();
   cp_async_wait<0>();
   __syncthreads();  // the ring is free: it holds the k-slices' partial tiles now
 
-  // each warp's low + high sums; fragment c[e2] is column 8g + 2j, batch row 2t + e2, and
-  // c[2 + e2] column 8g + 2j + 1
+  // each warp's sums (K8/K9: low + high; K3: its promoted total); fragment c[e2] is column
+  // 8g + 2j, batch row 2t + e2, and c[2 + e2] column 8g + 2j + 1
   float* red = reinterpret_cast<float*>(smem);  // [kw][cw][kRows][64]
 #pragma unroll
   for (int b = 0; b < MB; ++b)
@@ -484,8 +468,13 @@ w4_kernel(const float* __restrict__ x, const int8_t* __restrict__ packed,
       float v[8];
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        v[2 * j] = __fadd_rn(acc[b][j][0][e2], acc[b][j][1][e2]);
-        v[2 * j + 1] = __fadd_rn(acc[b][j][0][2 + e2], acc[b][j][1][2 + e2]);
+        if (kHl8) {
+          v[2 * j] = tot[b][j][e2];
+          v[2 * j + 1] = tot[b][j][2 + e2];
+        } else {
+          v[2 * j] = __fadd_rn(acc[b][j][0][e2], acc[b][j][1][e2]);
+          v[2 * j + 1] = __fadd_rn(acc[b][j][0][2 + e2], acc[b][j][1][2 + e2]);
+        }
       }
       float* dst = red + ((kw * kW4ColWarps + cw) * kRows + 8 * b + 2 * t + e2) * 64 + 8 * g;
       reinterpret_cast<float4*>(dst)[0] = make_float4(v[0], v[1], v[2], v[3]);
@@ -542,20 +531,29 @@ w4_kernel(const float* __restrict__ x, const int8_t* __restrict__ packed,
   if (tid == 0) counters[tile] = 0;  // ready for the next call on this stream
 }
 
+// raise a kernel's dynamic shared-memory limit, once per device (allowed: the caller's flags,
+// one set per kernel instantiation)
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kern, int bytes, bool (&allowed)[64]) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= 64 || !allowed[dev]) {
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e != cudaSuccess) return e;
+    if (dev < 64) allowed[dev] = true;
+  }
+  return cudaSuccess;
+}
+
 template <int MB, int kMode, bool kVec16>
 int w4_launch(const void* x, const void* packed, const void* scale, void* out, void* ws,
               void* counters, int M, int K, int N, int group, int splits, cudaStream_t st) {
   constexpr int kSmem = w4_stages(MB) * w4_slot_bytes(MB);
   auto kern = w4_kernel<MB, kMode, kVec16>;
-  static bool allowed[64] = {};  // the shared-memory limit raised, per device
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
+  static bool allowed[64] = {};
+  cudaError_t e = allow_smem(kern, kSmem, allowed);
   if (e != cudaSuccess) return (int)e;
-  if (dev >= 64 || !allowed[dev]) {
-    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
-    if (e != cudaSuccess) return (int)e;
-    if (dev < 64) allowed[dev] = true;
-  }
   const dim3 grid((M + 8 * MB - 1) / (8 * MB), (N + kW4BlockN - 1) / kW4BlockN, splits);
   kern<<<grid, kW4Threads, kSmem, st>>>(
       static_cast<const float*>(x), static_cast<const int8_t*>(packed),
@@ -588,37 +586,420 @@ int w4_dispatch(const void* x, const void* packed, const void* scale, void* out,
                                             splits, st);
 }
 
-template <int MT>
-void launch(const float* x, const int8_t* packed, const float* gscale, float* dst,
-            int M, int K, int N, int group, int splits, cudaStream_t stream) {
-  dim3 grid((M + MT - 1) / MT, (N + kBlockN - 1) / kBlockN, splits);
-  int4_hl8_kernel<MT><<<grid, kThreads, 0, stream>>>(x, packed, gscale, dst, M, K, N,
-                                                      group, splits);
+// ---------------------------------------------------------------- K3 regime B: the wgmma GEMM
+
+constexpr int kGbM = 128;        // batch rows a block: N of m64n128k16
+constexpr int kGbN = 128;        // columns a block: two warpgroups' 64 A rows
+constexpr int kGbK = 128;        // packed rows a stage at most (two 128-byte swizzle atoms of x)
+constexpr int kGbStages = 4;     // ring slots
+constexpr int kGbRaster = 8;     // batch tiles in a band of the block order
+constexpr int kGbXBytes = kGbM * kGbK * 2;  // a stage's x tile, bf16, [atom][row][128 bytes]
+constexpr int kGbWBytes = kGbK * kGbN;      // its packed tile, [row][128 bytes]
+constexpr int kGbSBytes = kGbN * 4;         // its scale row
+constexpr int kGbSlot = (kGbXBytes + kGbWBytes + kGbSBytes + 1023) / 1024 * 1024;
+constexpr int kGbSmem = 1024 + kGbStages * kGbSlot + 2 * kGbStages * 8;  // + alignment, barriers
+static_assert(kGbSmem <= 232448, "regime B's shared memory exceeds a block's");
+constexpr int kGbConsumers = 2 * 128;           // two warpgroups: wgmma
+constexpr int kGbThreads = kGbConsumers + 32;   // and one producer warp: the loads
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int kPending>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(kPending) : "memory");
+}
+// keeps the compiler from moving accesses of an accumulator across a wgmma fence or wait
+__device__ __forceinline__ void reg_fence(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+// the descriptor of a K-major bf16 tile with the 128-byte swizzle: rows of 128 bytes (64
+// values of K), 8-row groups 1024 bytes apart; the tile's base 1024-byte aligned, a k16 step
+// 32 bytes further on
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
+}
+
+// d (64 f32 a thread) = [d +] A (64 x 16 bf16, in registers: this thread's fragment a) * B
+// (16 x 128, K-major, 128-byte swizzle, from shared memory through its descriptor)
+__device__ __forceinline__ void wgmma_rs_m64n128k16(float (&d)[64], const uint32_t (&a)[4],
+                                                    uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+// x (M, K) f32 -> xb (2, Mp, K/2) bf16 (RN): plane h holds x[:, h*K/2 : (h+1)*K/2], rows past
+// M zero. K/2 % 8 == 0; each thread writes 8 values (16 bytes) at a time.
+__global__ void hl8_x_bf16_kernel(const float* __restrict__ x, __nv_bfloat16* __restrict__ xb,
+                                  int M, int Mp, int K) {
+  const int k2 = K / 2, cpr = k2 / 8;
+  const long long total = 2LL * Mp * cpr;
+  const bool vec = (reinterpret_cast<uintptr_t>(x) & 15) == 0 && K % 4 == 0;
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < total;
+       i += (long long)gridDim.x * blockDim.x) {
+    const int c = (int)(i % cpr);
+    const long long hm = i / cpr;
+    const int m = (int)(hm % Mp), h = (int)(hm / Mp);
+    float v[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    if (m < M) {
+      const float* src = x + (size_t)m * K + (size_t)h * k2 + 8 * c;
+      if (vec) {
+        const float4 a = __ldg(reinterpret_cast<const float4*>(src));
+        const float4 b = __ldg(reinterpret_cast<const float4*>(src + 4));
+        v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+        v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+      } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) v[e] = __ldg(src + e);
+      }
+    }
+    *reinterpret_cast<uint4*>(xb + hm * k2 + 8 * c) =
+        make_uint4(pack_bf16x2(v[0], v[1]), pack_bf16x2(v[2], v[3]), pack_bf16x2(v[4], v[5]),
+                   pack_bf16x2(v[6], v[7]));
+  }
+}
+
+// ---- mbarrier and TMA primitives
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(smem_addr(bar)) : "memory");
+}
+// the barrier counts one arrival once all of this thread's earlier cp.async copies have landed
+__device__ __forceinline__ void cp_async_mbar_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" :: "r"(smem_addr(bar))
+               : "memory");
+}
+// wait for the phase of parity `parity` to complete; a phase that never completes traps
+// (after about 2^35 cycles) instead of hanging the card
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  const long long t0 = clock64();
+  while (!done) {
+    if (clock64() - t0 > (1LL << 35)) __trap();
+    asm volatile("{\n.reg .pred p;\n"
+                 "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+                 "selp.u32 %0, 1, 0, p;\n}\n"
+                 : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
+  }
+}
+// a 2-D TMA tile load into this CTA's shared memory, counted by `bar`
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
+                                         int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n"
+      :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
+         "r"(c1) : "memory");
+}
+
+// (group, half, sub-stage) of consecutive stages, without divisions: the sub-stages of a
+// group's low half, then of its high half, then the next group
+struct StageWalk {
+  int gi = 0, h = 0, s = 0;
+  __device__ __forceinline__ void next(int nsub) {
+    if (++s == nsub) {
+      s = 0;
+      if (++h == 2) { h = 0; ++gi; }
+    }
+  }
+};
+
+// One block: 128 batch rows x 128 columns of out, over all of K, in stages of at most kGbK
+// packed rows of one (group, half). Warps 0-7 are two consumer warpgroups: warpgroup c owns
+// the columns 64c..64c+63 as wgmma's register operand A (warp w: columns 16w + 2g and
+// 16w + 2g + 1 as A rows g and g + 8, g = lane / 4), the 128 batch rows as N, x from shared
+// memory (the B operand). Warp 8 is the producer: per stage, lane 0 brings the x tile, the
+// packed tile (128-byte swizzle: chunk c of row r at c ^ (r % 8)) and the scale row by TMA
+// (where N % 16 != 0 the packed tile and scales come by cp.async from all 32 lanes). Slot s is
+// guarded by full[s] (lane 0's expect_tx arrival and the bytes, with the lanes' cp.async
+// arrivals on that path) and empty[s] (an arrival from every consumer thread once its wgmmas on
+// the slot are done). The warpgroups never wait on each other, so one's fragment building,
+// promotion and waits hide behind the other's wgmmas.
+template <bool kVec16>
+__global__ void __launch_bounds__(kGbThreads, 1)
+hl8_gemm_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap wmap,
+                const __grid_constant__ CUtensorMap smap, const int8_t* __restrict__ packed,
+                const float* __restrict__ scale, float* __restrict__ out, int M, int Mp, int K,
+                int N, int group) {
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  uint8_t* ring = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kGbStages * kGbSlot);
+  uint64_t* empty = full + kGbStages;
+  const int k2 = K / 2, g1 = k2 / group;
+  const int nsub = (group + kGbK - 1) / kGbK, nv = g1 * 2 * nsub;
+  // the block's tile: bands of kGbRaster batch tiles, column tiles across a band
+  const int num_m = Mp / kGbM, num_n = (N + kGbN - 1) / kGbN;
+  const int band = blockIdx.x / (kGbRaster * num_n);
+  const int first_m = band * kGbRaster;
+  const int band_m = min(num_m - first_m, kGbRaster);
+  const int in_band = blockIdx.x % (kGbRaster * num_n);
+  const int m0 = (first_m + in_band % band_m) * kGbM, n0 = in_band / band_m * kGbN;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+
+  if (tid == 0) {
+    for (int s = 0; s < kGbStages; ++s) {
+      mbar_init(full + s, kVec16 ? 1 : 33);  // lane 0's expect_tx (and 32 cp.async arrivals)
+      mbar_init(empty + s, kGbConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == kGbConsumers / 32) {  // the producer warp
+    StageWalk w;
+    for (int v = 0; v < nv; ++v, w.next(nsub)) {
+      const int slot_i = v % kGbStages;
+      if (v >= kGbStages) mbar_wait(empty + slot_i, (v / kGbStages - 1) & 1);
+      uint8_t* slot = ring + slot_i * kGbSlot;
+      uint8_t* wd = slot + kGbXBytes;
+      const int r0 = w.gi * group + w.s * kGbK;
+      const int srow = w.h ? g1 + w.gi : w.gi;
+      if (lane == 0) {  // rows past the stage, K/2 or N arrive too (zeros past the edges)
+        mbar_expect_tx(full + slot_i, kVec16 ? kGbXBytes + kGbWBytes + kGbSBytes : kGbXBytes);
+#pragma unroll
+        for (int a = 0; a < kGbK / 64; ++a)
+          tma_load(slot + a * kGbM * 128, &xmap, full + slot_i, r0 + 64 * a, w.h * Mp + m0);
+        if (kVec16) {
+          tma_load(wd, &wmap, full + slot_i, n0, r0);
+          tma_load(wd + kGbWBytes, &smap, full + slot_i, n0, srow);
+        }
+      }
+      if (kVec16) continue;
+      const int rows = min(kGbK, group - w.s * kGbK);
+      const int8_t* wp = packed + (size_t)r0 * N + n0;
+      for (int idx = lane; idx < kGbK * 32; idx += 32) {
+        const int r = idx >> 5, c = (idx & 31) * 4;
+        const bool ok = r < rows && n0 + c < N;
+        cp_async4(wd + r * kGbN + ((((c >> 4) ^ (r & 7)) << 4) | (c & 15)),
+                  ok ? wp + (size_t)r * N + c : packed, ok ? 4 : 0);
+      }
+      const bool ok = n0 + 4 * lane < N;  // the scale row, zeros past N
+      cp_async16(wd + kGbWBytes + 16 * lane, ok ? scale + (size_t)srow * N + n0 + 4 * lane : scale,
+                 ok ? 16 : 0);
+      cp_async_mbar_arrive(full + slot_i);
+    }
+    return;
+  }
+
+  const int wg = warp >> 2, g = lane >> 2, t = lane & 3;
+  const int c0 = wg * 64 + (warp & 3) * 16 + 2 * g;  // this thread's columns c0, c0 + 1
+  // the packed bytes of k16 step i this thread's fragment needs: columns (c0, c0 + 1) of rows
+  // 2t, 2t + 1, 2t + 8, 2t + 9 of the step (four 16-bit reads, four chunk slots: no conflict)
+  auto raw = [&](uint32_t (&u)[4], const uint8_t* wsm, int i) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int r = 16 * i + 2 * t + (q & 1) + 8 * (q >> 1);
+      u[q] = *reinterpret_cast<const uint16_t*>(wsm + r * kGbN + (((c0 >> 4) ^ (r & 7)) << 4) +
+                                                (c0 & 15));
+    }
+  };
+  // ... dequantized into the fragment: A rows g, g + 8 = columns c0, c0 + 1; k pairs
+  // (2t, 2t + 1) and (2t + 8, 2t + 9)
+  auto fragment = [&](uint32_t (&a)[4], const uint32_t (&u)[4], int h) {
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      const uint32_t v0 = __byte_perm(u[2 * p], u[2 * p + 1], 0x4400);  // column c0
+      const uint32_t v1 = __byte_perm(u[2 * p], u[2 * p + 1], 0x5511);  // column c0 + 1
+      a[2 * p] = h ? dq_bf16x2(v0 >> 4) : dq_hl8_lo_bf16x2(v0);
+      a[2 * p + 1] = h ? dq_bf16x2(v1 >> 4) : dq_hl8_lo_bf16x2(v1);
+    }
+  };
+  float acc[64], tmp[64];  // the total; the current (group, half)'s partials
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = tmp[i] = 0.f;
+
+  StageWalk w;
+  for (int v = 0; v < nv; ++v, w.next(nsub)) {
+    const int slot_i = v % kGbStages;
+    const uint8_t* slot = ring + slot_i * kGbSlot;
+    const bool first = w.s == 0, last = w.s == nsub - 1;
+    const int steps = min(kGbK, group - w.s * kGbK) / 16;
+    mbar_wait(full + slot_i, (v / kGbStages) & 1);
+    const uint32_t b = smem_addr(slot);
+    // the k16 steps: the wgmma of step i runs while the fragment of step i + 1 is built from
+    // bytes read during step i - 1; a (group, half)'s first wgmma overwrites tmp
+    uint32_t a[2][4], u[4];
+    raw(u, slot + kGbXBytes, 0);
+    fragment(a[0], u, w.h);
+    if (steps > 1) raw(u, slot + kGbXBytes, 1);
+#pragma unroll
+    for (int i = 0; i < kGbK / 16; ++i) {
+      if (i >= steps) break;
+      reg_fence(tmp);
+      wgmma_fence();
+      wgmma_rs_m64n128k16(tmp, a[i & 1], sw128_desc(b + (i >> 2) * kGbM * 128 + 32 * (i & 3)),
+                          i > 0 || !first);
+      wgmma_commit();
+      reg_fence(tmp);
+      if (i + 1 < steps) {
+        wgmma_wait<1>();  // step i - 1 done: its fragment registers are free
+        fragment(a[(i + 1) & 1], u, w.h);
+        if (i + 2 < steps) raw(u, slot + kGbXBytes, i + 2);  // lands while step i runs
+      }
+    }
+    wgmma_wait<0>();
+    reg_fence(tmp);
+    if (last) {  // the (group, half) ends: tmp into acc, times its scale at this thread's columns
+      const float2 sc = *reinterpret_cast<const float2*>(slot + kGbXBytes + kGbWBytes + 4 * c0);
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        acc[4 * j] = __fmaf_rn(tmp[4 * j], sc.x, acc[4 * j]);
+        acc[4 * j + 1] = __fmaf_rn(tmp[4 * j + 1], sc.x, acc[4 * j + 1]);
+        acc[4 * j + 2] = __fmaf_rn(tmp[4 * j + 2], sc.y, acc[4 * j + 2]);
+        acc[4 * j + 3] = __fmaf_rn(tmp[4 * j + 3], sc.y, acc[4 * j + 3]);
+      }
+    }
+    mbar_arrive(empty + slot_i);  // this thread is done with the slot
+  }
+
+  // fragment 4j + e: weight column c0 + e / 2, batch row 8j + 2t + e % 2
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int n = n0 + c0;
+    const int m = m0 + 8 * j + 2 * t;
+    if (n >= N) continue;
+    if (m < M)
+      *reinterpret_cast<float2*>(out + (size_t)m * N + n) = make_float2(acc[4 * j], acc[4 * j + 2]);
+    if (m + 1 < M)
+      *reinterpret_cast<float2*>(out + (size_t)(m + 1) * N + n) =
+          make_float2(acc[4 * j + 1], acc[4 * j + 3]);
+  }
+}
+
+// cuTensorMapEncodeTiled, from the driver through the runtime (no link against libcuda)
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) ==
+            cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// the tensor maps of the x planes (2 * Mp rows of K/2 bf16; a box of 64 values, one swizzle
+// atom, x 128 rows), of packed ((K/2, N) bytes; a box of 128 columns x kGbK rows, 128-byte
+// swizzle) and of gscale ((K/group, N) f32; a box of 128 columns x 1 row), then the GEMM. TMA
+// needs 16-byte row strides: packed's and gscale's maps only where N % 16 == 0 (kVec16)
+template <bool kVec16>
+int hl8_gemm_launch(const __nv_bfloat16* xb, const int8_t* packed, const float* scale, float* out,
+                    int M, int Mp, int K, int N, int group, int tiles, cudaStream_t st) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  const int k2 = K / 2;
+  const cuuint32_t elem[2] = {1, 1};
+  CUtensorMap xmap, wmap, smap;
+  const cuuint64_t xdims[2] = {(cuuint64_t)k2, (cuuint64_t)2 * Mp};
+  const cuuint64_t xstrides[1] = {(cuuint64_t)k2 * 2};
+  const cuuint32_t xbox[2] = {64, kGbM};
+  if (encode(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<__nv_bfloat16*>(xb), xdims,
+             xstrides, xbox, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return (int)cudaErrorInvalidValue;
+  wmap = smap = xmap;  // unused without kVec16
+  if (kVec16) {
+    const cuuint64_t wdims[2] = {(cuuint64_t)N, (cuuint64_t)k2};
+    const cuuint64_t wstrides[1] = {(cuuint64_t)N};
+    const cuuint32_t wbox[2] = {kGbN, kGbK};
+    const cuuint64_t sdims[2] = {(cuuint64_t)N, (cuuint64_t)(K / group)};
+    const cuuint64_t sstrides[1] = {(cuuint64_t)N * 4};
+    const cuuint32_t sbox[2] = {kGbN, 1};
+    if (encode(&wmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<int8_t*>(packed), wdims,
+               wstrides, wbox, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+               CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) !=
+            CUDA_SUCCESS ||
+        encode(&smap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(scale), sdims,
+               sstrides, sbox, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+               CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+      return (int)cudaErrorInvalidValue;
+  }
+  auto kern = hl8_gemm_kernel<kVec16>;
+  static bool allowed[64] = {};
+  cudaError_t e = allow_smem(kern, kGbSmem, allowed);
+  if (e != cudaSuccess) return (int)e;
+  kern<<<tiles, kGbThreads, kGbSmem, st>>>(xmap, wmap, smap, packed, scale, out, M, Mp, K, N,
+                                           group);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// x (M, K) f32, packed (K/2, N) int8 hl8, gscale (K/group, N) f32, out (M, N) f32.
-// With splits > 1, ws is a (splits, M, N) f32 scratch; with splits == 1 it is unused.
-extern "C" int mn_int4_matmul_grouped_hl8(const void* x, const void* packed,
-                                          const void* gscale, void* out, void* ws,
-                                          int M, int K, int N, int group, int splits,
-                                          void* stream) {
-  if (M <= 0 || K <= 0 || N <= 0 || N % kCols || group <= 0 || group > kMaxGroup ||
-      (K / 2) % group || splits < 1 || splits > (K / 2) / group)
+// K3, regime A (ops/int4_matmul.py::_k3_regime): x (M, K) f32, packed (K/2, N) int8 hl8,
+// gscale (K/group, N) f32 (16-byte aligned), out (M, N) f32; group divides K/2. splits and
+// mb and the workspace conventions as K8's (below).
+extern "C" int mn_int4_matmul_grouped_hl8(const void* x, const void* packed, const void* gscale,
+                                          void* out, void* ws, void* counters, int M, int K,
+                                          int N, int group, int splits, int mb, void* stream) {
+  if (group > 0 && group % 16 == 0)
+    return w4_dispatch<kW4Hl8>(x, packed, gscale, out, ws, counters, M, K, N, group, splits, mb,
+                               stream);
+  return w4_dispatch<kW4Hl8Any>(x, packed, gscale, out, ws, counters, M, K, N, group, splits,
+                                mb, stream);
+}
+
+// K3, regime B: as regime A, with group % 16 == 0; xb is a scratch of 2 * Mp * K/2 bf16, Mp =
+// M rounded up to 128. Two launches: the bf16 pre-pass of x, then the GEMM.
+extern "C" int mn_int4_matmul_grouped_hl8_gemm(const void* x, const void* packed,
+                                               const void* gscale, void* out, void* xb, int M,
+                                               int K, int N, int group, void* stream) {
+  const int k2 = K / 2;
+  const int Mp = (M + kGbM - 1) / kGbM * kGbM;
+  const long long tiles = (long long)(Mp / kGbM) * ((N + kGbN - 1) / kGbN);
+  if (M <= 0 || K <= 0 || K % 2 || N <= 0 || N % 4 || group <= 0 || group % 16 ||
+      k2 % group || tiles > 0x7FFFFFFF || xb == nullptr ||
+      reinterpret_cast<uintptr_t>(xb) % 16 || reinterpret_cast<uintptr_t>(gscale) % 16)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  float* dst = splits > 1 ? static_cast<float*>(ws) : static_cast<float*>(out);
-  const float* xf = static_cast<const float*>(x);
+  __nv_bfloat16* xbf = static_cast<__nv_bfloat16*>(xb);
+  const long long chunks = 2LL * Mp * (k2 / 8);
+  const int blocks = (int)((chunks + 255) / 256 < 4096 ? (chunks + 255) / 256 : 4096);
+  hl8_x_bf16_kernel<<<blocks, 256, 0, st>>>(static_cast<const float*>(x), xbf, M, Mp, K);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
   const int8_t* wp = static_cast<const int8_t*>(packed);
   const float* gs = static_cast<const float*>(gscale);
-  if (M == 1) launch<1>(xf, wp, gs, dst, M, K, N, group, splits, st);
-  else if (M == 2) launch<2>(xf, wp, gs, dst, M, K, N, group, splits, st);
-  else if (M <= 4) launch<4>(xf, wp, gs, dst, M, K, N, group, splits, st);
-  else launch<8>(xf, wp, gs, dst, M, K, N, group, splits, st);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || splits == 1) return (int)err;
-  return splitk_sum(static_cast<const float*>(ws), static_cast<float*>(out), splits, M, N, st);
+  float* o = static_cast<float*>(out);
+  if (N % 16 == 0 && reinterpret_cast<uintptr_t>(packed) % 16 == 0)
+    return hl8_gemm_launch<true>(xbf, wp, gs, o, M, Mp, K, N, group, (int)tiles, st);
+  return hl8_gemm_launch<false>(xbf, wp, gs, o, M, Mp, K, N, group, (int)tiles, st);
 }
 
 // K8: x (M, K) f32, packed (K/2, N) int8 (pack_int4), scale (N,) f32, out (M, N) f32.

@@ -3,7 +3,9 @@
 twin:
 
 - K3 :func:`int4_matmul_grouped_hl8`, the serving format: group scales
-  (K/g, N) over the hl8 byte layout, each group's partial dot scaled;
+  (K/g, N) over the hl8 byte layout, each group's partial dot scaled; on
+  the card in two regimes chosen by :func:`_k3_regime` from M and the
+  group (decode: the w4 kernel; prefill: a wgmma GEMM);
 - K8 :func:`int4_matmul`: the plain packing with per-column scales,
   applied in the epilogue;
 - K9 :func:`int4_matmul_grouped`: the plain packing with group scales,
@@ -183,28 +185,30 @@ def int4_matmul_grouped_hl8_ref(
 
 
 _LIB_SIGNATURES = {
-    "mn_int4_matmul_grouped_hl8": [ctypes.c_void_p] * 5
-    + [ctypes.c_int] * 5
+    "mn_int4_matmul_grouped_hl8": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+    "mn_int4_matmul_grouped_hl8_gemm": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
     + [ctypes.c_void_p],
     "mn_int4_matmul": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
     "mn_int4_matmul_grouped": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
 }
-_BLOCK_N = 512  # columns per block in csrc/int4_matmul.cu (kBlockN)
-_MAX_GROUP = 256  # csrc/int4_matmul.cu kMaxGroup
-# K8/K9's w4 kernel (csrc/int4_matmul.cu): kW4BlockN columns a block, K split in units of
-# kW4StageRows packed rows
+# the w4 kernel (csrc/int4_matmul.cu: K8, K9, K3's regime A): kW4BlockN columns a block, K
+# split in units of kW4StageRows packed rows
 _W4_BLOCK_N = 128
 _W4_UNIT = 64
+# K3's regimes (csrc/int4_matmul.cu): up to _K3_DECODE_ROWS batch rows, or with a group that is
+# not a multiple of 16 rows, the w4 kernel (regime A); past it the wgmma GEMM (regime B), whose
+# blocks take _GEMM_ROWS batch rows
+_K3_DECODE_ROWS = 128
+_GEMM_ROWS = 128
 
 
-def _k_splits(units: int, n: int, device: torch.device) -> int:
-    """K-split count, chosen from K, N and the card only (never from M),
-    so a row's result does not depend on the batch it shares: enough
-    blocks to give every SM two, at most one split per unit of K (a
-    packed group)."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    col_blocks = -(-n // _BLOCK_N)
-    return max(1, min(units, -(-2 * sms // col_blocks)))
+def _k3_regime(m: int, group: int) -> str:
+    """K3's regime from the batch rows and the group alone (never x, N or
+    the card): "A" (decode, the w4 kernel) for M <= 128 or a group that is
+    not a multiple of 16 rows, else "B" (prefill, the wgmma GEMM). A row's
+    result is the same bits whatever shares its call within a regime; across
+    the boundary it agrees within the tolerance only."""
+    return "A" if m <= _K3_DECODE_ROWS or group % 16 else "B"
 
 
 def int4_matmul_grouped_hl8(
@@ -213,10 +217,10 @@ def int4_matmul_grouped_hl8(
     """x (M, K) f32 @ hl8-packed int4 w (K/2, N) with (K/g, N) group
     scales -> (M, N) f32.
 
-    On a CUDA tensor this launches the hand-written kernel
-    (``csrc/int4_matmul.cu``) or raises; on a CPU tensor it runs the
-    plain twin :func:`int4_matmul_grouped_hl8_ref`. The group must divide
-    K/2, so that each nibble half covers whole groups."""
+    On a CUDA tensor this launches the hand-written kernel of the regime
+    :func:`_k3_regime` picks (``csrc/int4_matmul.cu``) or raises; on a CPU
+    tensor it runs the plain twin :func:`int4_matmul_grouped_hl8_ref`. The
+    group must divide K/2, so that each nibble half covers whole groups."""
     m, k = x.shape
     k2, n = packed.shape
     groups = gscale.shape[0]
@@ -228,24 +232,10 @@ def int4_matmul_grouped_hl8(
         raise ValueError(f"group {group} must divide K/2={k2}")
     if not on_cuda(x):
         return int4_matmul_grouped_hl8_ref(x, packed, gscale)
-    dev = x.device
-    _build.check_operand("x", x, torch.float32, dev)
-    _build.check_operand("packed", packed, torch.int8, dev)
-    _build.check_operand("gscale", gscale, torch.float32, dev, align=16)
-    if n % 4 or group > _MAX_GROUP or m == 0:
-        raise ValueError(f"kernel needs N % 4 == 0, group <= {_MAX_GROUP}, "
-                         f"M > 0 (N={n}, group={group}, M={m})")
-    splits = _k_splits(k2 // group, n, dev)
-    out = torch.empty((m, n), dtype=torch.float32, device=dev)
-    ws = (torch.empty((splits, m, n), dtype=torch.float32, device=dev)
-          if splits > 1 else out)
-    lib = _build.load("int4_matmul", _LIB_SIGNATURES)
-    rc = lib.mn_int4_matmul_grouped_hl8(
-        x.data_ptr(), packed.data_ptr(), gscale.data_ptr(), out.data_ptr(),
-        ws.data_ptr(), m, k, n, group, splits,
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    _build.check(rc, "int4_matmul_grouped_hl8")
+    if _k3_regime(m, group) == "A":
+        out = _plain_call("mn_int4_matmul_grouped_hl8", x, packed, gscale, group)
+    else:
+        out = _gemm_call(x, packed, gscale, group)
     int4_matmul_grouped_hl8.launches += 1
     return out
 
@@ -301,10 +291,10 @@ def int4_matmul_grouped_ref(x: torch.Tensor, packed: torch.Tensor,
 
 @functools.lru_cache(maxsize=None)
 def _w4_splits(k2: int, n: int, sms: int) -> int:
-    """K8/K9's K-split count, from K/2, N and the card's SM count only
-    (never from M, so a row's result does not depend on the batch it
-    shares): about two blocks of 128 columns per SM, at most one split per
-    unit of 64 packed rows."""
+    """The w4 kernel's K-split count (K8, K9, K3's regime A), from K/2, N
+    and the card's SM count only (never from M, so a row's result does not
+    depend on the batch it shares): about two blocks of 128 columns per SM,
+    at most one split per unit of 64 packed rows."""
     units = -(-k2 // _W4_UNIT)
     return max(1, min(units, 2 * sms // -(-n // _W4_BLOCK_N)))
 
@@ -337,19 +327,26 @@ def _w4_workspace(dev: torch.device, stream: int, sms: int) -> torch.Tensor:
     return ws
 
 
-def _plain_call(fn: str, x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
-                group: int, lib=None) -> torch.Tensor:
-    """Launch K8 (``group`` 0) or K9 on the card, from ``lib`` (default:
-    this checkout's build of ``csrc/int4_matmul.cu``); raises on what the
-    kernel does not take."""
-    m, k = x.shape
-    n = packed.shape[1]
+def _check_operands(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor) -> None:
+    """Raise on what the kernels of ``csrc/int4_matmul.cu`` do not take."""
+    m, n = x.shape[0], packed.shape[1]
     dev = x.device
     _build.check_operand("x", x, torch.float32, dev)
     _build.check_operand("packed", packed, torch.int8, dev)
     _build.check_operand("scale", scale, torch.float32, dev, align=16)
     if n % 4 or m == 0:
         raise ValueError(f"kernel needs N % 4 == 0 and M > 0 (N={n}, M={m})")
+
+
+def _plain_call(fn: str, x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
+                group: int, lib=None) -> torch.Tensor:
+    """Launch the w4 kernel on the card: K8 (``group`` 0), K9 or K3's
+    regime A, from ``lib`` (default: this checkout's build of
+    ``csrc/int4_matmul.cu``); raises on what the kernel does not take."""
+    m, k = x.shape
+    n = packed.shape[1]
+    dev = x.device
+    _check_operands(x, packed, scale)
     # built on first use, before anything asks the card
     launch = getattr(lib or _build.load("int4_matmul", _LIB_SIGNATURES), fn)
     sms = _build.sm_count(dev)
@@ -368,6 +365,24 @@ def _plain_call(fn: str, x: torch.Tensor, packed: torch.Tensor, scale: torch.Ten
             None if counters is None else counters.data_ptr(), m, k, n)
     rc = launch(*args, group, splits, mb, stream) if group else launch(*args, splits, mb, stream)
     _build.check(rc, fn[3:])
+    return out
+
+
+def _gemm_call(x: torch.Tensor, packed: torch.Tensor, gscale: torch.Tensor,
+               group: int) -> torch.Tensor:
+    """Launch K3's regime B on the card: the bf16 pre-pass of x into a
+    scratch of two (Mp, K/2) planes, Mp = M rounded up to ``_GEMM_ROWS``,
+    then the wgmma GEMM; raises on what the kernel does not take."""
+    m, k = x.shape
+    n = packed.shape[1]
+    _check_operands(x, packed, gscale)
+    launch = _build.load("int4_matmul", _LIB_SIGNATURES).mn_int4_matmul_grouped_hl8_gemm
+    mp = -(-m // _GEMM_ROWS) * _GEMM_ROWS
+    xb = torch.empty(2 * mp * (k // 2), dtype=torch.bfloat16, device=x.device)
+    out = x.new_empty((m, n))
+    rc = launch(x.data_ptr(), packed.data_ptr(), gscale.data_ptr(), out.data_ptr(),
+                xb.data_ptr(), m, k, n, group, torch._C._cuda_getCurrentRawStream(x.device.index))
+    _build.check(rc, "int4_matmul_grouped_hl8_gemm")
     return out
 
 

@@ -58,6 +58,53 @@ def test_int4_hl8_kernel_matches_twin(cuda, m, k, n, g):
     assert torch.equal(alone[0], out[0])
 
 
+# (K, N, group) for K3's two regimes: N = 768 and N = 100 (ragged column tiles; 100 and 136
+# not multiples of 16, so 4-byte copies); K/2 = 336 in stages of 48 rows (a group shorter
+# than regime B's 64-row stage) and a 256-row group (four stages); groups 32 to 256; a group of
+# 50 rows, not a multiple of 16, with K/2 = 500 not a multiple of a 16-row k-tile (regime A at
+# every M, groups cutting k-tiles)
+_K3_SHAPES = [(1024, 768, 128), (512, 100, 64), (640, 256, 32), (672, 136, 48),
+              (1024, 512, 256), (1000, 400, 50)]
+
+
+@pytest.mark.parametrize("m", [1, 8, 16, 17, 33, 128, 129, 300, 1024])
+@pytest.mark.parametrize("k,n,g", _K3_SHAPES)
+def test_int4_hl8_kernel_regimes_match_twin(cuda, m, k, n, g):
+    """K3 in the regime its M and group choose, against its twin within
+    2e-5 x max|twin|, and two calls equal bit for bit. Regime A (M <= 128,
+    or a group that is not a multiple of 16): the first, a middle and the
+    last row alone equal the batch's rows bit for bit. Regime B: the same
+    rows at other positions and at another M > 128 are equal bit for bit,
+    and a row alone (regime A) agrees within the tolerance."""
+    gen = _gen(1000 + m + k + n + g)
+    w = torch.randn((k, n), device=cuda, generator=gen) * 0.05
+    w_q, gs = tim.quantize_int4_weight_grouped(w, g)
+    packed = tim.pack_int4_hl8(w_q)
+    x = torch.randn((m, k), device=cuda, generator=gen)
+    before = tim.int4_matmul_grouped_hl8.launches
+    out = tim.int4_matmul_grouped_hl8(x, packed, gs)
+    torch.cuda.synchronize()
+    assert tim.int4_matmul_grouped_hl8.launches == before + 1
+    ref = tim.int4_matmul_grouped_hl8_ref(x, packed, gs)
+    tol = 2e-5 * ref.abs().max().item()
+    torch.testing.assert_close(out, ref, rtol=0, atol=tol)
+    assert torch.equal(tim.int4_matmul_grouped_hl8(x, packed, gs), out)
+    rows = sorted({0, m // 2, m - 1})
+    alone = [tim.int4_matmul_grouped_hl8(x[r:r + 1].contiguous(), packed, gs)[0] for r in rows]
+    if tim._k3_regime(m, g) == "A":
+        for r, a in zip(rows, alone):
+            assert torch.equal(a, out[r])
+        return
+    for r, a in zip(rows, alone):
+        torch.testing.assert_close(a, out[r], rtol=0, atol=tol)
+    shift = m // 3 + 1  # every row at another position (and another 128-row tile)
+    rolled = tim.int4_matmul_grouped_hl8(torch.roll(x, shift, 0).contiguous(), packed, gs)
+    assert torch.equal(torch.roll(rolled, -shift, 0), out)
+    m2 = max(129, m // 2 + 1)  # another M of regime B, holding rows 0 and m // 2
+    part = tim.int4_matmul_grouped_hl8(x[:m2].contiguous(), packed, gs)
+    assert torch.equal(part, out[:m2])
+
+
 def test_int4_hl8_kernel_rejects_what_it_cannot_take(cuda):
     x = torch.randn((2, 256), device=cuda)
     packed = torch.zeros((128, 6), dtype=torch.int8, device=cuda)  # N % 4 != 0

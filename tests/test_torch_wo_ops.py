@@ -306,12 +306,15 @@ def test_k9_dequant_bits_equal_twin_on_every_byte(lo, hi):
 
 _8B_SHAPES = [(4096, 6144), (4096, 4096), (4096, 28672), (14336, 4096), (4096, 128256)]
 _CARD_TEST_SHAPES = [(640, 100), (200, 4), (1000, 4000), (2560, 256), (512, 64), (14336, 512)]
+# K3's regime A takes the same split rule (its groups, 32 to 256 and 50, divide K/2 and may be cut
+# by a split boundary): the shapes of its card test that K8/K9's do not have
+_K3_CARD_TEST_SHAPES = [(1024, 768), (512, 100), (672, 136), (1024, 512), (1000, 400)]
 
 
 @pytest.mark.parametrize("sms", [132, 114, 1])
-@pytest.mark.parametrize("k,n", _8B_SHAPES + _CARD_TEST_SHAPES)
+@pytest.mark.parametrize("k,n", _8B_SHAPES + _CARD_TEST_SHAPES + _K3_CARD_TEST_SHAPES)
 def test_w4_splits_take_no_m_and_cover_every_packed_row_once(k, n, sms):
-    """K8/K9's K-split is a function of K/2, N and the SM count only, so a
+    """The w4 kernel's (K8, K9, K3's regime A) K-split is a function of K/2, N and the SM count only, so a
     row's result cannot depend on its batch; cut as the kernel cuts it
     (units of 64 packed rows, split s taking units [U s / S, U (s + 1) / S)),
     every split is non-empty and every packed row falls in exactly one; a
