@@ -15,10 +15,9 @@ Phases, each fatal on failure (non-zero exit, no final line):
    card could take (bytes at 3.35 TB/s, or bf16 operations at
    989 TFLOP/s). K3 runs at M = 1, 8 and 128 (regime A, decode) and at
    M = 6,000 (regime B, the long prompt's prefill; held against the twin
-   on 64 sampled rows), at M = 8 and 6,000 also by its device time
-   (``torch.profiler``) beside ``torch.matmul``'s; its kernels-line row is a
-   decode step's 129 calls at M = 8, with the 129 calls at M = 6,000 as
-   ``prefill_*``;
+   on 64 sampled rows); its device times come in phase 12; its
+   kernels-line row is a decode step's 129 calls at M = 8, with the 129
+   calls at M = 6,000 as ``prefill_*``;
 4. reference: a small Llama with head_dim 128 served on the card and on
    the CPU (where the wrappers run their twins), logits compared;
 5. serve (slice 1's main path): ``Llama(llama3_8b(2048), w4_group=128)`` with
@@ -67,7 +66,11 @@ Phases, each fatal on failure (non-zero exit, no final line):
    K3's tolerance, timed beside ``torch.matmul`` on the dequantized bf16
    weight, each also by its device time alone (``torch.profiler``); the
    kernels line's times are a decode step's 129 calls at M = 8, its
-   ``max_abs_err`` the largest over every M;
+   ``max_abs_err`` the largest over every M; then K3's device time at
+   phase 3's shapes, M = 8 and 6,000, beside ``torch.matmul``'s (after the
+   serving phases, so that no profiler session runs before those; a
+   trace that lost kernels is taken again with longer quiet pads around
+   the calls, and is fatal after five);
 13. wbwtab engine (slice 4's main path): ``nin_gc.Net()`` at full width
    with seeded random weights, ``prepare(method="wbwtab")`` at W = 3 and
    W = 2 (A = 2), 4 train-mode forwards at batch 64 for the BN
@@ -213,59 +216,54 @@ def time_ms(fn, args_list, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-# device_ms readings taken by queued_ms after the profiler lost events five times
-DEVICE_MS_FALLBACKS = []
+# the quiet time (s) before and after the calls in each torch.profiler trace of device_ms:
+# one per attempt
+TRACE_PADS = (0.01, 0.03, 0.1, 0.3, 1.0)
+# device_ms readings that needed more than one trace
+TRACE_RETRIES = []
 
 
-def queued_ms(fn, args_list, iters: int) -> float:
-    """Mean ms per call of ``iters`` calls queued behind a sleep kernel
-    that outlasts their enqueueing, timed with CUDA events from the sleep's
-    end: the card runs them back to back and the host does not pace them
-    (the card's gaps between kernels are included)."""
-    fn(*args_list[0])
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for i in range(iters):
-        fn(*args_list[i % len(args_list)])
-    enqueue_s = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(int(4e9 * enqueue_s) + 1_000_000)  # about twice it at 2 GHz
-    start.record()
-    for i in range(iters):
-        fn(*args_list[i % len(args_list)])
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def device_ms(fn, args_list, iters: int) -> float:
+def device_ms(fn, args_list, iters: int, per_call: int = 1) -> float:
     """Mean device time (ms) of the kernels one ``fn(*args)`` launches,
     from ``torch.profiler`` over ``iters`` calls: no host time, unlike
     :func:`time_ms`, which measures back-to-back calls and so the host
-    where a call's host work outlasts its kernels. Every call launches at
-    least one kernel, so a trace holding fewer kernels than calls lost
-    events (seen on an H100: readings of 0 and under the bound) and is
-    taken again; after five such traces the reading comes from
-    :func:`queued_ms` and is listed in ``DEVICE_MS_FALLBACKS``."""
+    where a call's host work outlasts its kernels. Each call launches the
+    same kernels, at least ``per_call`` of them, so a trace is whole only
+    if it holds at least ``iters * per_call`` kernels and each kernel name
+    a multiple of ``iters`` times. Traces have lost kernels on an H100
+    (fewer kernels than calls, or none), more often the longer the process
+    had used the profiler; the cause is not isolated. A kernel whose
+    timestamp drifts outside the trace's window would be dropped, so the
+    card sits idle for a pad before and after the calls, longer at each
+    attempt (``TRACE_PADS``); a trace still not whole after the last is
+    fatal."""
+    from collections import Counter
+
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    name = getattr(fn, "__name__", str(fn))
     fn(*args_list[0])
     torch.cuda.synchronize()
-    for _ in range(5):
+    for attempt, pad in enumerate(TRACE_PADS):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(pad)
             for i in range(iters):
                 fn(*args_list[i % len(args_list)])
             torch.cuda.synchronize()
-        kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-        if sum(e.count for e in kernels) >= iters:
+            time.sleep(pad)
+        kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        counts = Counter(e.name for e in kernels)
+        if len(kernels) >= iters * per_call and all(c % iters == 0 for c in counts.values()):
+            if attempt:
+                TRACE_RETRIES.append(dict(fn=name, iters=iters, attempts=attempt + 1, pad_s=pad))
             return sum(e.self_device_time_total for e in kernels) / 1e3 / iters
-    name = getattr(fn, "__name__", str(fn))
-    log(f"torch.profiler recorded fewer kernels than the {iters} calls of {name} in five "
-        f"traces: device time from calls queued behind a sleep instead")
-    DEVICE_MS_FALLBACKS.append(name)
-    return queued_ms(fn, args_list, iters)
+        span = (f"{min(e.time_range.start for e in kernels):.0f} to "
+                f"{max(e.time_range.end for e in kernels):.0f} us" if kernels else "none")
+        log(f"device_ms {name}: trace {attempt + 1} (pads of {pad} s) held {len(kernels)} "
+            f"kernels for {iters} calls of at least {per_call} ({dict(counts)}), at {span}")
+    fail(f"torch.profiler recorded fewer kernels than {iters} calls of {name} launch, in "
+         f"{len(TRACE_PADS)} traces")
 
 
 def copies_for(nbytes: int) -> int:
@@ -283,29 +281,45 @@ def _k3_bound(m, k, n):
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
+def _k3_weights(k, n, dev, gen):
+    """Copies of one shape's hl8 weights and group scales, larger than L2
+    together, and as many bf16 dequantized copies for ``torch.matmul``."""
+    from micronet_tpu_torch.ops import int4_matmul as im
+
+    weights = []
+    for _ in range(copies_for(k // 2 * n + k // GROUP * n * 4)):
+        packed = torch.randint(-128, 128, (k // 2, n), dtype=torch.int8, device=dev,
+                               generator=gen)
+        gs = torch.rand((k // GROUP, n), device=dev, generator=gen) * 0.01 + 1e-3
+        weights.append((packed, gs))
+    w_bf16 = [(im.unpack_int4_hl8(p).float() * im.expand_gscale(g, GROUP)).to(torch.bfloat16)
+              for p, g in weights[: copies_for(2 * k * n)]]
+    return weights, w_bf16
+
+
+def _k3_calls(m, x, weights, w_bf16):
+    """K3's and ``torch.matmul``'s argument lists at M = m, and the calls a
+    reading takes: at M <= 128 30 calls over every copy, so each finds its
+    weights cold in L2; at the prefill's M a few calls on one copy."""
+    xb = x.to(torch.bfloat16)
+    if m == K3_PREFILL_M:
+        return [(x, *weights[0])], [(xb, w_bf16[0])], 3
+    return [(x, p, g) for p, g in weights], [(xb, w) for w in w_bf16], 30
+
+
 def check_k3(dev, gen, report):
     """K3 at the five W4 shapes of one Llama-3-8B forward: M = 1, 8 and 128
     (regime A, decode) against the whole twin, weights cold in L2; M = 6,000
     (regime B, the long prompt's prefill) against the twin on a sample of
     rows (the first, the last and 62 drawn from ``gen``) in column chunks,
     since the whole twin would hold (K/g, M, N) f32. Each beside
-    ``torch.matmul`` on the dequantized bf16 weight, by events and by device
-    time."""
+    ``torch.matmul`` on the dequantized bf16 weight, by events; the device
+    times come later, from :func:`k3_device_times`."""
     from micronet_tpu_torch.ops import int4_matmul as im
 
     cases = {}
     for (k, n), per_step in K3_SHAPES:
-        packed_bytes = k // 2 * n + k // GROUP * n * 4
-        ncopy = copies_for(packed_bytes)
-        weights = []
-        for _ in range(ncopy):
-            packed = torch.randint(-128, 128, (k // 2, n), dtype=torch.int8,
-                                   device=dev, generator=gen)
-            gs = torch.rand((k // GROUP, n), device=dev, generator=gen) * 0.01 + 1e-3
-            weights.append((packed, gs))
-        # the library yardstick: one bf16 matmul on the dequantized weight
-        w_bf16 = [(im.unpack_int4_hl8(p).float() * im.expand_gscale(g, GROUP))
-                  .to(torch.bfloat16) for p, g in weights[: copies_for(2 * k * n)]]
+        weights, w_bf16 = _k3_weights(k, n, dev, gen)
         for m in K3_MS + (K3_PREFILL_M,):
             x = torch.randn((m, k), device=dev, generator=gen)
             out = im.int4_matmul_grouped_hl8(x, *weights[0])
@@ -329,54 +343,73 @@ def check_k3(dev, gen, report):
             if not (torch.isfinite(out).all() and err <= K3_REL_TOL * scale):
                 fail(f"K3 M={m} K={k} N={n}: max|err| {err:.3e} > {K3_REL_TOL} * {scale:.3e}")
             del out
-            xb = x.to(torch.bfloat16)
-            if m == K3_PREFILL_M:  # long calls: one copy of the weights, a few calls
-                args, lib_args, iters = [(x, *weights[0])], [(xb, w_bf16[0])], 3
-                plain = None
-            else:
-                args, lib_args, iters = [(x, p, g) for p, g in weights], [(xb, w) for w in w_bf16], 30
-                plain = time_ms(im.int4_matmul_grouped_hl8_ref, args, 5, 1)
+            args, lib_args, iters = _k3_calls(m, x, weights, w_bf16)
+            plain = None if m == K3_PREFILL_M else time_ms(im.int4_matmul_grouped_hl8_ref,
+                                                           args, 5, 1)
             ms = time_ms(im.int4_matmul_grouped_hl8, args, iters)
             lib = time_ms(torch.matmul, lib_args, iters)
-            dev_ms = lib_dev_ms = None  # traced only for the decode step and the prefill
-            if m in (8, K3_PREFILL_M):
-                dev_ms = device_ms(im.int4_matmul_grouped_hl8, args, iters)
-                lib_dev_ms = device_ms(torch.matmul, lib_args, iters)
             bound, bound_by = _k3_bound(m, k, n)
             cases[(m, k, n)] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound,
-                                    bound_by=bound_by, device_ms=dev_ms,
-                                    library_device_ms=lib_dev_ms, max_abs_err=err, ref_max=scale,
+                                    bound_by=bound_by, max_abs_err=err, ref_max=scale,
                                     per_step=per_step, regime=im._k3_regime(m, GROUP))
-            dev_txt = "" if dev_ms is None else f" (device {dev_ms:.4f})"
-            lib_txt = "" if lib_dev_ms is None else f" (device {lib_dev_ms:.4f})"
             log(f"K3 M={m:4d} K={k:6d} N={n:6d} (regime {im._k3_regime(m, GROUP)}): err "
-                f"{err:.3e} (tol {K3_REL_TOL * scale:.3e}) kernel {ms:.4f} ms{dev_txt}, plain "
-                f"{'-' if plain is None else f'{plain:.4f}'} ms, torch.matmul bf16 {lib:.4f} ms"
-                f"{lib_txt}, bound {bound:.4f} ms ({bound_by}, {bound / (dev_ms or ms):.1%} of it)")
-            del x, xb
+                f"{err:.3e} (tol {K3_REL_TOL * scale:.3e}) kernel {ms:.4f} ms, plain "
+                f"{'-' if plain is None else f'{plain:.4f}'} ms, torch.matmul bf16 {lib:.4f} ms, "
+                f"bound {bound:.4f} ms ({bound_by}, {bound / ms:.1%} of it)")
+            del x, args, lib_args
         del weights, w_bf16
         torch.cuda.empty_cache()
     report["k3_cases"] = [dict(m=m, k=k, n=n, **v) for (m, k, n), v in cases.items()]
+    # the kernels line: one decode step at M = 8 (129 calls); the device times and the
+    # prefill's figures join it in k3_device_times
+    step = [v for (m, _, _), v in cases.items() if m == 8]
+    return dict({key: sum(v[key] * v["per_step"] for v in step)
+                 for key in ("ms", "plain_ms", "library_ms", "bound_ms")},
+                max_abs_err=max(v["max_abs_err"] for v in cases.values()),
+                bound_by="bytes" if all(v["bound_by"] == "bytes" for v in step)
+                else "operations")
+
+
+def k3_device_times(dev, gen, report, row):
+    """K3's device time (``torch.profiler``) at phase 3's shapes, M = 8 and
+    6,000, beside ``torch.matmul``'s on the dequantized bf16 weight, on
+    fresh weights from ``gen``; adds a decode step's and a prefill's 129
+    calls to the kernels-line ``row``. Taken after the serving phases, so
+    that no profiler session runs before them (as in the smoke runs before
+    this reading was added)."""
+    from micronet_tpu_torch.ops import int4_matmul as im
+
+    cases = {(c["m"], c["k"], c["n"]): c for c in report["k3_cases"]}
+    for (k, n), _ in K3_SHAPES:
+        weights, w_bf16 = _k3_weights(k, n, dev, gen)
+        for m in (8, K3_PREFILL_M):
+            x = torch.randn((m, k), device=dev, generator=gen)
+            args, lib_args, iters = _k3_calls(m, x, weights, w_bf16)
+            per_call = 2 if im._k3_regime(m, GROUP) == "B" else 1  # B: the x pre-pass, the GEMM
+            case = cases[m, k, n]
+            case["device_ms"] = device_ms(im.int4_matmul_grouped_hl8, args, iters, per_call)
+            case["library_device_ms"] = device_ms(torch.matmul, lib_args, iters)
+            log(f"K3 M={m:4d} K={k:6d} N={n:6d}: device {case['device_ms']:.4f} ms, "
+                f"torch.matmul bf16 {case['library_device_ms']:.4f} ms, bound "
+                f"{case['bound_ms']:.4f} ms ({case['bound_ms'] / case['device_ms']:.1%} of it)")
+            del x, args, lib_args
+        del weights, w_bf16
+        torch.cuda.empty_cache()
 
     def forward(m, keys):  # the 129 calls of one forward at M = m
         return {key: sum(v[key] * v["per_step"] for (mm, _, _), v in cases.items() if mm == m)
                 for key in keys}
 
-    # the kernels line: one decode step at M = 8; the prefill of the long prompt beside it
-    row = dict(forward(8, ("ms", "plain_ms", "library_ms", "bound_ms", "device_ms",
-                           "library_device_ms")),
-               max_abs_err=max(v["max_abs_err"] for v in cases.values()),
-               bound_by="bytes" if all(v["bound_by"] == "bytes" for (m, _, _), v in cases.items()
-                                       if m == 8) else "operations")
+    row.update(forward(8, ("device_ms", "library_device_ms")))
     pre = forward(K3_PREFILL_M, ("ms", "bound_ms", "device_ms", "library_device_ms"))
     row.update({f"prefill_{key}": v for key, v in pre.items()},
                prefill_m=K3_PREFILL_M, prefill_bound_share=pre["bound_ms"] / pre["device_ms"])
+    report["k3_cases"] = list(cases.values())
     log(f"K3 forward at M=8: device {row['device_ms']:.3f} ms, torch.matmul "
         f"{row['library_device_ms']:.3f} ms, bound {row['bound_ms']:.3f} ms; at M="
         f"{K3_PREFILL_M}: device {pre['device_ms']:.2f} ms, torch.matmul "
         f"{pre['library_device_ms']:.2f} ms, bound {pre['bound_ms']:.2f} ms "
         f"({row['prefill_bound_share']:.1%} of it)")
-    return row
 
 
 def check_attention(dev, gen, report):
@@ -1466,6 +1499,7 @@ def main() -> int:
                      if k in LONG_KERNELS})
     k2 = check_k2(dev, gen, report)
     wo = check_k8_k9(dev, gen, report)
+    k3_device_times(dev, gen, report, k3)
     launches.update({k: v for k, v in wbwtab_engine(dev, args.seed, report, profile_dir).items()
                      if k in WBWTAB_KERNELS})
 
@@ -1532,7 +1566,7 @@ def main() -> int:
              **wo["int4_matmul_grouped"]),
     ]
     report["kernels"] = rows
-    report["device_ms_fallbacks"] = DEVICE_MS_FALLBACKS
+    report["device_ms_retries"] = TRACE_RETRIES
     report["seconds"] = time.perf_counter() - t_start
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     log(f"total {report['seconds']:.1f} s")

@@ -16,6 +16,14 @@ slot is recycled for the next queued request:
 
 Determinism contract: a request's tokens equal those of its isolated
 ``generate()`` / ``generate_sampled()`` run, whatever shares the batch.
+For a W4 model on the card it holds with ``max_slots <= 128``: a decode
+step's W4 matmuls run at M = ``max_slots`` in the same regime of
+``ops/int4_matmul.py::int4_matmul_grouped_hl8`` as ``generate``'s at M = 1,
+and within a regime a row's result does not depend on M. Past 128 slots the
+loop decodes in the other regime (``_k3_regime``), and so does a chunked
+prefill whose chunk (``prefill_chunk``) and prompt length lie on opposite
+sides of 128 rows. The two regimes agree only within K3's tolerance, so the
+logits then differ by rounding and a near tie may pick another token.
 """
 
 from __future__ import annotations
@@ -71,7 +79,11 @@ class ServeLoop:
     another may together outgrow the pool, and a slot whose append was
     dropped is then finished early (truncated). The model must provide
     ``init_paged_cache`` and ``decode_batch_paged``. Token streams equal
-    the dense loop's."""
+    the dense loop's.
+
+    For a W4 model on the card, tokens equal ``generate``'s (the module's
+    contract) only up to 128 slots, and with a ``prefill_chunk`` only for
+    prompts on its side of 128 rows: see the module's note."""
 
     def __init__(
         self,

@@ -1,12 +1,11 @@
 """K3 (``int4_matmul_grouped_hl8``) on the CPU: its card kernel's bit tricks
-and schedule mirrored in numpy, its regime choice, and its wrapper's calls.
+mirrored in numpy, its regime choice, and its wrapper's calls.
 
 The kernel itself runs only on a card (``tests/test_torch_cuda.py``); here
 the dequantize of both regimes is replayed on every byte pair and held bit
-for bit against ``unpack_int4_hl8``, regime B's stage order is replayed
-from the kernel's formula, and the wrapper is driven against a stand-in
-library to show which entry point and which arguments each call gets. No
-JAX is needed.
+for bit against ``unpack_int4_hl8``, and the wrapper is driven against a
+stand-in library to show which entry point and which arguments each call
+gets. No JAX is needed.
 """
 
 import inspect
@@ -56,9 +55,6 @@ def _hl8_rows(nrows, seed):
     return np.concatenate([np.stack([p0, p1]), rest]).astype(np.uint8).view(np.int8)
 
 
-_GB_K = 128  # regime B's packed rows a stage at most (csrc/int4_matmul.cu kGbK)
-
-
 def _words(row):
     return np.ascontiguousarray(row).view(np.uint32)  # column 4q + i is byte i
 
@@ -101,56 +97,6 @@ def test_regime_b_fragment_bits_equal_unpack_int4_hl8_on_every_byte(half):
         lo, hi = _dq_hi(v >> np.uint32(4)) if half else _dq_lo(v)
         np.testing.assert_array_equal(lo, ref[0, e::2])
         np.testing.assert_array_equal(hi, ref[1, e::2])
-
-
-def test_regime_b_fragment_reads_are_free_of_bank_conflicts():
-    """Regime B's packed tile keeps 16-byte chunk c of row r at c ^ (r % 8);
-    each of a warp's four 16-bit reads of a k16 step (rows 2t + e + 8f of the
-    step, columns c0 = 64 wg + 16 (warp % 4) + 2g) touches 32 distinct words
-    or shared ones, never two words of one bank, in every warp and step."""
-    lanes = np.arange(32)
-    g, t = lanes >> 2, lanes & 3
-    for warp in range(8):
-        c0 = (warp >> 2) * 64 + (warp & 3) * 16 + 2 * g
-        for i in range(8):  # the k16 steps of a 128-row stage
-            for q in range(4):
-                r = 16 * i + 2 * t + (q & 1) + 8 * (q >> 1)
-                addr = r * 128 + (((c0 >> 4) ^ (r & 7)) << 4) + (c0 & 15)
-                words = np.unique(addr // 4)
-                assert len(np.unique(words % 32)) == len(words)
-
-
-@pytest.mark.parametrize("k2,group", [(2048, 128), (7168, 128), (336, 48), (512, 256),
-                                      (320, 32), (64, 16), (960, 320)])
-def test_regime_b_stages_cover_each_group_half_once_in_order(k2, group):
-    """Regime B's K loop (the kernel's StageWalk: sub-stage s, then half h,
-    then group gi): stage v is packed rows [r0, r0 + rows) of half h, scale
-    row h ? g1 + gi : gi; every packed
-    row meets each half exactly once, a stage never crosses a group and
-    holds a multiple of 16 rows up to 64, the halves of a group run low then
-    high, and the first stage of each (group, half) is where its sum starts."""
-    g1 = k2 // group
-    nsub = -(-group // _GB_K)
-    covered = np.zeros((2, k2), np.int64)
-    order = []
-    gi = h = s = 0
-    for v in range(g1 * 2 * nsub):
-        if v:  # StageWalk::next
-            s += 1
-            if s == nsub:
-                s, h = 0, h + 1
-                if h == 2:
-                    h, gi = 0, gi + 1
-        r0, rows = gi * group + _GB_K * s, min(_GB_K, group - _GB_K * s)
-        srow = g1 + gi if h else gi
-        assert rows % 16 == 0 and 0 < rows <= _GB_K
-        assert gi * group <= r0 and r0 + rows <= (gi + 1) * group
-        assert srow == (r0 // group if h == 0 else g1 + r0 // group)
-        covered[h, r0:r0 + rows] += 1
-        order.append((gi, h, s == 0))
-    np.testing.assert_array_equal(covered, 1)
-    starts = [(gi, h) for gi, h, first in order if first]
-    assert starts == [(gi, h) for gi in range(g1) for h in (0, 1)]
 
 
 def test_regime_reads_only_m_and_group():
