@@ -17,7 +17,10 @@ Phases, each fatal on failure (non-zero exit, no final line):
    M = 6,000 (regime B, the long prompt's prefill; held against the twin
    on 64 sampled rows); its device times come in phase 12; its
    kernels-line row is a decode step's 129 calls at M = 8, with the 129
-   calls at M = 6,000 as ``prefill_*``;
+   calls at M = 6,000 as ``prefill_*``. K4a and K5a run at G = 64, R = 4,
+   D = 128, S = 2,048 with bounds 1..2,048, and K4a again at the serving
+   loop's fills (bounds 16..288, its row's ``fills_*``); how many clusters
+   of the decode-attention kernel the card holds at once;
 4. reference: a small Llama with head_dim 128 served on the card and on
    the CPU (where the wrappers run their twins), logits compared;
 5. serve (slice 1's main path): ``Llama(llama3_8b(2048), w4_group=128)`` with
@@ -42,12 +45,12 @@ Phases, each fatal on failure (non-zero exit, no final line):
    just after); the same engine on the CPU must agree on 8 images;
    img/s of the engine and of the port's fp32 eval. Then the same for
    NIN-GC W4A4 at batch 1024 (no kernel on that path);
-10. long-context kernels: K4b and K5b (split S) against their twins at
-   G = 64, R = 4, D = 128, S = 8192 with bounds 0..8192; K4b at bound b
-   equal to K5b at b + 1 bit for bit; K6 and K7 over shuffled pools of
-   pages of 16 and 512 against their twins and, bit for bit, against the
-   dense kernel over the gathered view; times beside the twins', SDPA's
-   and the bound;
+10. long-context kernels: K4b and K5b (the blocked wrappers; the cluster
+   regime at S = 8192) against their twins at G = 64, R = 4, D = 128,
+   S = 8192 with bounds 0..8192; K4b at bound b equal to K5b at b + 1 bit
+   for bit; K6 and K7 over shuffled pools of pages of 16 and 512 against
+   their twins and, bit for bit, against the dense kernel over the
+   gathered view; times beside the twins', SDPA's and the bound;
 11. paged and long-context serving (slice 3's main path):
    ``Llama(llama3_8b(8192), w4_group=128)``, 12 greedy requests (two of
    4,500 and 6,000 prompt tokens) through the dense ``ServeLoop(8)`` (K4b
@@ -67,10 +70,12 @@ Phases, each fatal on failure (non-zero exit, no final line):
    weight, each also by its device time alone (``torch.profiler``); the
    kernels line's times are a decode step's 129 calls at M = 8, its
    ``max_abs_err`` the largest over every M; then K3's device time at
-   phase 3's shapes, M = 8 and 6,000, beside ``torch.matmul``'s (after the
-   serving phases, so that no profiler session runs before those; a
-   trace that lost kernels is taken again with longer quiet pads around
-   the calls, and is fatal after five);
+   phase 3's shapes, M = 8 and 6,000, beside ``torch.matmul``'s, and the
+   device times of K4a (phase 3's bounds and the serving fills), K4b and
+   K6 (pages of 16) at phase 3's and 10's shapes (after the serving
+   phases, so that no profiler session runs before those; a trace that
+   lost kernels is taken again with longer quiet pads around the calls,
+   and is fatal after five);
 13. wbwtab engine (slice 4's main path): ``nin_gc.Net()`` at full width
    with seeded random weights, ``prepare(method="wbwtab")`` at W = 3 and
    W = 2 (A = 2), 4 train-mode forwards at batch 64 for the BN
@@ -115,6 +120,8 @@ K3_MS = (1, 8, 128)  # regime A (decode)
 K3_PREFILL_M = 6000  # regime B: the long prompt of phase 11 (LONG_PROMPTS[0])
 K3_TWIN_COLS = 16384  # the twin on sampled rows, this many columns at a time
 ATT_G, ATT_R, ATT_D, ATT_S = 64, 4, 128, 2048  # 8 slots x 8 KV heads
+# the bounds of phase 5's decode steps: prompts of 16 to 256 tokens plus up to 32 new ones
+SERVE_FILLS = (16, 288)
 # exact products, f32 sums in another order over up to 14336 terms
 K3_REL_TOL = 2e-5
 # sums in another order; a term p * v_scale within an ulp of a bf16
@@ -451,10 +458,94 @@ def check_attention(dev, gen, report):
         log(f"{name} G={g} R={r} D={d} S={s} (bounds 1..{s}, {bnd['visible_rows']} visible "
             f"rows): err {err:.3e} (tol {ATT_ABS_TOL}), kernel {ms:.4f} ms, plain {plain:.4f} ms, "
             f"sdpa bf16 {lib:.4f} ms, bound {bnd['bound_ms']:.4f} ms")
+    # K4a again at the serving loop's own fills (phase 5's decode steps)
+    fills = torch.randint(SERVE_FILLS[0], SERVE_FILLS[1] + 1, (g,), generator=gen,
+                          device=dev).to(torch.int32)
+    fills[0], fills[1] = SERVE_FILLS
+    args = [(*c, q, fills, *cur) for c in caches]
+    err = (da.decode_attend_q8kv_cur(*args[0]) - da.decode_attend_q8kv_cur_ref(*args[0])).abs()
+    err = err.max().item()
+    if err > ATT_ABS_TOL:
+        fail(f"decode_attend_q8kv_cur at fills {SERVE_FILLS}: max|err| {err:.3e} > {ATT_ABS_TOL}")
+    ms = time_ms(da.decode_attend_q8kv_cur, args, 50)
+    plain = time_ms(da.decode_attend_q8kv_cur_ref, args, 5, 1)
+    lib, bnd = attention_yardsticks(q, *caches[0], fills, cur)
+    out["decode_attend_q8kv_cur"].update(
+        fills_ms=ms, fills_plain_ms=plain, fills_library_ms=lib, fills_max_abs_err=err,
+        fills_bound_ms=bnd["bound_ms"], fills_visible_rows=bnd["visible_rows"])
+    log(f"decode_attend_q8kv_cur G={g} R={r} D={d} S={s} (bounds {SERVE_FILLS[0]}.."
+        f"{SERVE_FILLS[1]}, {bnd['visible_rows']} visible rows): err {err:.3e}, kernel "
+        f"{ms:.4f} ms, plain {plain:.4f} ms, sdpa bf16 {lib:.4f} ms, bound "
+        f"{bnd['bound_ms']:.4f} ms")
+    report["attention_clusters_at_once"] = {
+        f"S={ss}": da.cluster_occupancy(r, ss) for ss in (ATT_S, LONG_CTX)}
+    log(f"decode attention: clusters of {da.cluster_size(s)} blocks; the card holds "
+        f"{report['attention_clusters_at_once']} of them at once (R={r})")
     report["attention"] = out
     del caches
     torch.cuda.empty_cache()
     return out
+
+
+def attention_device_times(dev, gen, report, att, long_att):
+    """K4a (phase 3's bounds and the serving fills), K4b and K6 (pages of
+    16) at their phase 3 and 10 shapes by device time (``torch.profiler``),
+    on fresh inputs from ``gen``, into the kernels-line rows ``att`` and
+    ``long_att``. Taken after the serving phases, as K3's are."""
+    from micronet_tpu_torch.ops import decode_attention as da
+    from micronet_tpu_torch.ops import paged_attention as pa
+
+    g, r, d = ATT_G, ATT_R, ATT_D
+    ri = lambda *shape: torch.randint(-127, 128, shape, dtype=torch.int8, device=dev,
+                                      generator=gen)
+    rf = lambda *shape: torch.rand(shape, device=dev, generator=gen) * 0.02 + 1e-3
+    q = torch.randn((g, r, d), device=dev, generator=gen)
+    cur = (ri(g, d), rf(g), ri(g, d), rf(g))
+
+    def per_call(s):  # kernels one call launches: 1 in the cluster regime, 3 split
+        return 1 if da._plan(s)[0] else 3
+
+    def bounds(lo, hi):
+        b = torch.randint(lo, hi + 1, (g,), generator=gen, device=dev).to(torch.int32)
+        b[0], b[1] = lo, hi
+        return b
+
+    readings = {}
+    for key, s, b, fn in (("K4a", ATT_S, bounds(1, ATT_S), da.decode_attend_q8kv_cur),
+                          ("K4a_fills", ATT_S, bounds(*SERVE_FILLS), da.decode_attend_q8kv_cur),
+                          ("K4b", LONG_CTX, bounds(0, LONG_CTX),
+                           da.decode_attend_q8kv_blocked_cur)):
+        caches = [(ri(g, s, d), rf(g, s), ri(g, s, d), rf(g, s))
+                  for _ in range(copies_for(2 * g * s * (d + 4)))]
+        readings[key] = device_ms(fn, [(*c, q, b, *cur) for c in caches], 30, per_call(s))
+        del caches
+    slots, heads = SLOTS, g // SLOTS
+    lengths = torch.randint(1, LONG_CTX + 1, (slots,), generator=gen, device=dev).to(torch.int32)
+    lengths[:4] = torch.tensor([0, LONG_CTX, 1, PAGES_E2E + 1])
+    pool, table = _shuffled_pool(dev, gen, lengths, PAGE, heads)
+    qp = torch.randn((slots, heads, r, d), device=dev, generator=gen)
+    curp = (ri(slots, heads, d), rf(slots, heads), ri(slots, heads, d), rf(slots, heads))
+    readings["K6"] = device_ms(pa.paged_decode_attend_cur, [(*pool, table, lengths, qp, *curp)],
+                               30, per_call(LONG_CTX))
+    view = (*pa._gather_dense_batch(pool[0], pool[1], table),
+            *pa._gather_dense_batch(pool[2], pool[3], table))
+    readings["K4b_view"] = device_ms(
+        da.decode_attend_q8kv_blocked_cur,
+        [(*view, qp.reshape(g, r, d), lengths[:, None].expand(slots, heads).reshape(g).contiguous(),
+          *(t.reshape(g, *t.shape[2:]) for t in curp))], 30, per_call(LONG_CTX))
+    del pool, view
+    torch.cuda.empty_cache()
+    att["decode_attend_q8kv_cur"].update(device_ms=readings["K4a"],
+                                         fills_device_ms=readings["K4a_fills"])
+    long_att["decode_attend_q8kv_blocked_cur"]["device_ms"] = readings["K4b"]
+    long_att[f"paged_decode_attend_cur_page{PAGE}"].update(
+        device_ms=readings["K6"], dense_view_device_ms=readings["K4b_view"])
+    report["attention_device_ms"] = readings
+    log(f"decode attention by device time: K4a {readings['K4a']:.4f} ms (bounds 1..{ATT_S}), "
+        f"{readings['K4a_fills']:.4f} ms (bounds {SERVE_FILLS[0]}..{SERVE_FILLS[1]}); K4b "
+        f"{readings['K4b']:.4f} ms and K6 {readings['K6']:.4f} ms (S={LONG_CTX}, pages of "
+        f"{PAGE}: {readings['K6'] / readings['K4b']:.3f}x K4b; {readings['K6'] / readings['K4b_view']:.3f}x "
+        f"K4b over K6's gathered view, {readings['K4b_view']:.4f} ms, the same bounds)")
 
 
 def attention_yardsticks(q, kc, ks, vc, vs, bound, cur=None, extra_bytes=0):
@@ -1044,17 +1135,19 @@ def check_long_attention(dev, gen, report):
             if not torch.equal(got.reshape(g, r, d), dense()):
                 fail(f"{name} page {page} differs from the dense kernel over the gathered view")
             ms = time_ms(fn, [args], 50)
+            dense_ms = time_ms(dense, [()], 50)  # the same bounds, dense, over the view
             plain = time_ms(twin, [args], 5, 1)
             # the library call runs on the gathered view: the gather is not timed
             lib, bnd = attention_yardsticks(qp.reshape(g, r, d), *view, dense_bound,
                                             curd if extra else None,
                                             extra_bytes=4 * pages_read)
             out[f"{name}_page{page}"] = dict(ms=ms, plain_ms=plain, library_ms=lib,
-                                             max_abs_err=err, page=page, **bnd)
+                                             max_abs_err=err, page=page, dense_view_ms=dense_ms,
+                                             **bnd)
             log(f"{name} page {page} slots={slots} H={heads} R={r} S={s} (lengths 0..{s}): "
                 f"err {err:.3e} (tol {LONG_ATT_TOL}), equal to the dense kernel over the "
-                f"gathered view; kernel {ms:.4f} ms, plain {plain:.4f} ms, sdpa bf16 on the view {lib:.4f} ms, "
-                f"bound {bnd['bound_ms']:.4f} ms")
+                f"gathered view; kernel {ms:.4f} ms (dense over the view {dense_ms:.4f} ms), plain "
+                f"{plain:.4f} ms, sdpa bf16 on the view {lib:.4f} ms, bound {bnd['bound_ms']:.4f} ms")
         del pool, view
     report["long_attention"] = out
     torch.cuda.empty_cache()
@@ -1500,6 +1593,7 @@ def main() -> int:
     k2 = check_k2(dev, gen, report)
     wo = check_k8_k9(dev, gen, report)
     k3_device_times(dev, gen, report, k3)
+    attention_device_times(dev, gen, report, att, long_att)
     launches.update({k: v for k, v in wbwtab_engine(dev, args.seed, report, profile_dir).items()
                      if k in WBWTAB_KERNELS})
 

@@ -5,16 +5,20 @@ Counterpart of ``micronet_tpu/ops/decode_attention.py``:
 plus the current token's quantized K/V row, the deferred-append serving
 path) and their S-blocked forms ``decode_attend_q8kv_blocked(_cur)``. All
 run hand-written CUDA kernels (``csrc/decode_attention.cu`` over the
-bodies of ``csrc/decode_attention.cuh``) in two regimes:
+bodies of ``csrc/decode_attention.cuh``), in a regime chosen by S alone
+(:func:`_plan`):
 
-- one block per KV group, the group's logits in shared memory, for
-  S <= 4096 (``decode_attend_q8kv(_cur)``, K5a / K4a);
-- split S, for S > 4096, where ``decode_attend_q8kv(_cur)`` hand over
-  to ``decode_attend_q8kv_blocked(_cur)`` (K5b / K4b), as the JAX package
-  does past ``_MAX_RESIDENT_S``. The dispatch depends on S only. The
-  split kernel cuts S into splits of ``_SPLIT`` positions of its own
-  choosing; ``block_s`` is accepted for the JAX package's signature and
-  does not change the result.
+- the cluster regime for S <= ``_MAX_CLUSTER_S``: one thread-block
+  cluster of :func:`cluster_size` blocks per KV group, each block a
+  contiguous slice of :func:`slice_len` visible positions, the logits in
+  shared memory, one launch, no scratch;
+- the split regime past it: splits of ``_SPLIT`` positions, the logits in
+  a global scratch, three launches.
+
+``decode_attend_q8kv(_cur)`` hand over to ``decode_attend_q8kv_blocked(_cur)``
+(K5b / K4b) for S > 4096, as the JAX package does past
+``_MAX_RESIDENT_S``; at the same S both run the same kernel. ``block_s`` is
+accepted for the JAX package's signature and does not change the result.
 
 Numerics (the JAX oracles' rounding points), in both regimes:
 
@@ -27,8 +31,8 @@ Numerics (the JAX oracles' rounding points), in both regimes:
 - the denominator is floored at 1e-30.
 
 The JAX package's blocked kernels round p against a running max (an
-online softmax); the split kernels here keep the global max, so the
-blocked wrappers share the plain twins of the whole-cache ones.
+online softmax); the kernels here keep the global max, so the blocked
+wrappers share the plain twins of the whole-cache ones.
 
 torch's bf16 ``matmul`` returns bf16, so the twins hold bf16-rounded
 values in f32 (:func:`..ops.int4_matmul.round_bf16`) and multiply in f32
@@ -59,13 +63,16 @@ __all__ = [
 
 _LIB_SIGNATURES = {
     "mn_decode_attend_q8kv": [ctypes.c_void_p] * 12 + [ctypes.c_longlong]
-    + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+    + [ctypes.c_int] * 7 + [ctypes.c_void_p],
+    "mn_decode_attend_cluster_occupancy": [ctypes.c_int] * 3 + [ctypes.c_void_p],
 }
-_WARPS, _MAX_D, _MAX_R = 8, 128, 8  # csrc/decode_attention.cuh
-_SPLIT = 512  # positions per split of the split-S kernels (kSplit)
-_HOPPER_SMEM_OPTIN = 232448  # bytes of shared memory one block may use
-# past this S the whole-cache wrappers run the split-S kernels (the JAX
-# package's threshold for its S-blocked kernels)
+_MAX_D, _MAX_R = 128, 8  # csrc/decode_attention.cuh
+_SPLIT = 512  # positions per split of the split regime (kSplit)
+# past this S the kernels run the split regime: a slice's logits would
+# outgrow shared memory (csrc/decode_attention.cuh::kClusterMaxS)
+_MAX_CLUSTER_S = 16384
+# past this S the whole-cache wrappers hand over to the blocked ones (the
+# JAX package's threshold for its S-blocked kernels)
 _MAX_RESIDENT_S = 4096
 
 
@@ -117,32 +124,64 @@ def decode_attend_q8kv_cur_ref(
     return out if gqa else out[:, 0, :]
 
 
-# The split-S kernels keep the global-max rounding of the whole-cache
-# kernels, so they share their plain twins.
+# The blocked wrappers run the same kernels, which keep the global-max
+# rounding, so they share the plain twins.
 decode_attend_q8kv_blocked_ref = decode_attend_q8kv_ref
 decode_attend_q8kv_blocked_cur_ref = decode_attend_q8kv_cur_ref
 
 
-def _smem_bytes(r: int, s: int) -> int:
-    return 4 * (_WARPS * r * _MAX_D + r * (s + 1))
+def cluster_size(s: int) -> int:
+    """Blocks in the cluster of one KV group, from S alone: 8 at every S
+    of the cluster regime (``tools/attn_variants.py`` measured 4 and 16
+    slower at S = 2,048 and 8,192, PERF.md §6)."""
+    return 8
+
+
+def slice_len(n: int, c: int) -> int:
+    """Positions a block of a ``c``-block cluster takes of a group's ``n``
+    visible ones: ceil(n / c) rounded up to a multiple of 16 (the MMA
+    tile), so the first ceil(n / slice) blocks hold them. The kernel cuts
+    every group by this rule from its own n."""
+    per_block = -(-n // c)
+    return (per_block + 15) // 16 * 16
+
+
+def _plan(s: int):
+    """The regime of a call at cache length ``s``, from S alone: (cluster,
+    lmax) for the cluster regime, with lmax the longest slice any bound
+    gives (n <= S + 1 with a current row), or (0, 0) for the split
+    regime."""
+    if s > _MAX_CLUSTER_S:
+        return 0, 0
+    c = cluster_size(s)
+    return c, slice_len(s + 1, c)
 
 
 def split_scratch_floats(g: int, s: int, d: int, r: int) -> int:
-    """Floats of scratch the split-S kernels need: the (G, R, S + 1)
+    """Floats of scratch the split regime needs: the (G, R, S + 1)
     logits and, per split, each row's max, denominator and D partial
     sums (``csrc/decode_attention.cuh::split_scratch_floats``)."""
     return g * r * (s + 1 + -(-s // _SPLIT) * (d + 2))
 
 
-def check_limits(s: int, d: int, r: int, split: bool) -> None:
-    """Raise unless the kernels take this geometry: D % 4 == 0, D <= 128,
-    R <= 8 and, for the one-block regime, S small enough for the group's
-    logits to fit in shared memory."""
-    if d % 4 or d > _MAX_D or r > _MAX_R or (
-            not split and _smem_bytes(r, s) > _HOPPER_SMEM_OPTIN):
-        raise ValueError(f"kernel needs D % 4 == 0, D <= {_MAX_D}, R <= {_MAX_R} "
-                         f"and, in one block, S small enough for shared memory "
-                         f"(D={d}, R={r}, S={s})")
+def check_limits(s: int, d: int, r: int) -> None:
+    """Raise unless the kernels take this geometry: S >= 1, D % 4 == 0,
+    D <= 128 and 1 <= R <= 8. Any S is taken: the cluster regime up to
+    ``_MAX_CLUSTER_S``, the split regime past it."""
+    if s < 1 or d < 1 or d % 4 or d > _MAX_D or not 1 <= r <= _MAX_R:
+        raise ValueError(f"kernel needs S >= 1, D % 4 == 0, D <= {_MAX_D} and "
+                         f"1 <= R <= {_MAX_R} (D={d}, R={r}, S={s})")
+
+
+def cluster_occupancy(r: int, s: int) -> int:
+    """Clusters of the dense current-row kernel the card holds at once at
+    R = ``r`` rows and cache length ``s`` (the cluster regime only)."""
+    c, lmax = _plan(s)
+    n = ctypes.c_int(0)
+    lib = _build.load("decode_attention", _LIB_SIGNATURES)
+    _build.check(lib.mn_decode_attend_cluster_occupancy(r, c, lmax, ctypes.addressof(n)),
+                 "decode_attend_q8kv cluster occupancy")
+    return n.value
 
 
 def cur_operands(cur, lead):
@@ -154,13 +193,13 @@ def cur_operands(cur, lead):
             ("v_cur", v, torch.int8, lead + (d,)), ("v_cur_scale", vs, torch.float32, lead)]
 
 
-def _launch(k_codes, k_scale, v_codes, v_scale, q, bound, cur, split):
-    """Check operands and launch a kernel; ``cur`` is None or the four
-    current-row tensors. Returns the (G, R, D) output."""
+def _launch(k_codes, k_scale, v_codes, v_scale, q, bound, cur, name):
+    """Check operands and launch the kernel of S's regime; ``cur`` is None
+    or the four current-row tensors. Returns the (G, R, D) output."""
     g, s, d = k_codes.shape
     q3 = q if q.dim() == 3 else q[:, None, :]
     r = q3.shape[1]
-    check_limits(s, d, r, split)
+    check_limits(s, d, r)
     dev = k_codes.device
     want = [
         ("k_codes", k_codes, torch.int8, (g, s, d)),
@@ -170,22 +209,22 @@ def _launch(k_codes, k_scale, v_codes, v_scale, q, bound, cur, split):
         ("q", q3, torch.float32, (g, r, d)),
         ("bound", bound, torch.int32, (g,)),
     ] + ([] if cur is None else cur_operands(cur, (g,)))
-    for name, t, dtype, shape in want:
-        _build.check_operand(name, t, dtype, dev, shape)
+    for what, t, dtype, shape in want:
+        _build.check_operand(what, t, dtype, dev, shape)
     out = torch.empty((g, r, d), dtype=torch.float32, device=dev)
-    n_scratch = split_scratch_floats(g, s, d, r) if split else 0
-    scratch = torch.empty((n_scratch,), dtype=torch.float32, device=dev) if split else None
+    cluster, lmax = _plan(s)
+    n_scratch = 0 if cluster else split_scratch_floats(g, s, d, r)
+    scratch = torch.empty((n_scratch,), dtype=torch.float32, device=dev) if n_scratch else None
     ptrs = [0, 0, 0, 0] if cur is None else [t.data_ptr() for t in cur]
     lib = _build.load("decode_attention", _LIB_SIGNATURES)
     rc = lib.mn_decode_attend_q8kv(
         k_codes.data_ptr(), k_scale.data_ptr(), v_codes.data_ptr(),
         v_scale.data_ptr(), q3.data_ptr(), bound.data_ptr(), *ptrs,
-        out.data_ptr(), scratch.data_ptr() if split else 0, n_scratch,
-        g, s, d, r, int(cur is not None), int(split),
-        torch.cuda.current_stream(dev).cuda_stream,
+        out.data_ptr(), 0 if scratch is None else scratch.data_ptr(), n_scratch,
+        g, s, d, r, int(cur is not None), cluster, lmax,
+        torch._C._cuda_getCurrentRawStream(dev.index),
     )
-    _build.check(rc, "decode_attend_q8kv" + ("_blocked" if split else "")
-                 + ("_cur" if cur is not None else ""))
+    _build.check(rc, name)
     return out if q.dim() == 3 else out[:, 0, :]
 
 
@@ -202,7 +241,7 @@ def decode_attend_q8kv(k_codes, k_scale, v_codes, v_scale, q, bound):
         return decode_attend_q8kv_blocked(k_codes, k_scale, v_codes, v_scale, q, bound)
     if not on_cuda(k_codes):
         return decode_attend_q8kv_ref(k_codes, k_scale, v_codes, v_scale, q, bound)
-    out = _launch(k_codes, k_scale, v_codes, v_scale, q, bound, None, split=False)
+    out = _launch(k_codes, k_scale, v_codes, v_scale, q, bound, None, "decode_attend_q8kv")
     decode_attend_q8kv.launches += 1
     return out
 
@@ -226,7 +265,7 @@ def decode_attend_q8kv_cur(
         return decode_attend_q8kv_blocked_cur(*args)
     if not on_cuda(k_codes):
         return decode_attend_q8kv_cur_ref(*args)
-    out = _launch(*args[:6], args[6:], split=False)
+    out = _launch(*args[:6], args[6:], "decode_attend_q8kv_cur")
     decode_attend_q8kv_cur.launches += 1
     return out
 
@@ -236,14 +275,15 @@ decode_attend_q8kv_cur.launches = 0
 
 def decode_attend_q8kv_blocked(k_codes, k_scale, v_codes, v_scale, q, bound, *,
                                block_s: int = 1024):
-    """:func:`decode_attend_q8kv` on the split-S kernel (any S; the
-    long-context path past S = 4096). ``block_s`` is the JAX package's
-    block size, accepted for its signature: the kernel cuts S into splits
-    of its own (``_SPLIT``), and the result does not depend on either.
+    """:func:`decode_attend_q8kv` at any S (the long-context path past
+    S = 4096), in the regime of S (:func:`_plan`). ``block_s`` is the JAX
+    package's block size, accepted for its signature: the kernel cuts the
+    positions by its own rules, and the result does not depend on it.
     CPU tensors run :func:`decode_attend_q8kv_blocked_ref`."""
     if not on_cuda(k_codes):
         return decode_attend_q8kv_blocked_ref(k_codes, k_scale, v_codes, v_scale, q, bound)
-    out = _launch(k_codes, k_scale, v_codes, v_scale, q, bound, None, split=True)
+    out = _launch(k_codes, k_scale, v_codes, v_scale, q, bound, None,
+                  "decode_attend_q8kv_blocked")
     decode_attend_q8kv_blocked.launches += 1
     return out
 
@@ -255,15 +295,14 @@ def decode_attend_q8kv_blocked_cur(
     k_codes, k_scale, v_codes, v_scale, q, bound,
     k_cur, k_cur_scale, v_cur, v_cur_scale, *, block_s: int = 1024,
 ):
-    """:func:`decode_attend_q8kv_cur` on the split-S kernel; ``block_s``
-    as in :func:`decode_attend_q8kv_blocked`. At bound b it equals
+    """:func:`decode_attend_q8kv_cur` at any S; ``block_s`` as in :func:`decode_attend_q8kv_blocked`. At bound b it equals
     :func:`decode_attend_q8kv_blocked` at b + 1 over a cache whose row b
     holds the current row, bit for bit on the card."""
     args = (k_codes, k_scale, v_codes, v_scale, q, bound,
             k_cur, k_cur_scale, v_cur, v_cur_scale)
     if not on_cuda(k_codes):
         return decode_attend_q8kv_blocked_cur_ref(*args)
-    out = _launch(*args[:6], args[6:], split=True)
+    out = _launch(*args[:6], args[6:], "decode_attend_q8kv_blocked_cur")
     decode_attend_q8kv_blocked_cur.launches += 1
     return out
 

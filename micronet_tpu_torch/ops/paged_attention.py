@@ -10,7 +10,8 @@ the form without it.
 Both run the hand-written CUDA kernel ``csrc/paged_attention.cu``: the
 bodies of the dense kernels (``csrc/decode_attention.cuh``) with paged
 row addressing, in the regime the dense wrappers pick at the same
-S = max_pages * page (one block per group up to 4096, split S beyond).
+S = max_pages * page (one cluster of blocks per group up to
+``_MAX_CLUSTER_S``, split S beyond).
 So a pool gives bit for bit what the dense kernel gives over the view
 gathered from it, and the plain twins are that gather followed by the
 dense twins (the JAX package's ``paged_decode_attend(_cur)_xla``).
@@ -25,7 +26,7 @@ import torch
 from .._device import on_cuda
 from . import _build
 from .decode_attention import (
-    _MAX_RESIDENT_S,
+    _plan,
     check_limits,
     cur_operands,
     decode_attend_q8kv_cur_ref,
@@ -42,7 +43,7 @@ __all__ = [
 
 _LIB_SIGNATURES = {
     "mn_paged_decode_attend": [ctypes.c_void_p] * 13 + [ctypes.c_longlong]
-    + [ctypes.c_int] * 8 + [ctypes.c_void_p],
+    + [ctypes.c_int] * 9 + [ctypes.c_void_p],
 }
 
 
@@ -96,8 +97,7 @@ def _launch(k_codes, k_scale, v_codes, v_scale, page_table, lengths, q, cur):
     slots, mp = page_table.shape
     r = q.shape[2]
     s = mp * page
-    split = s > _MAX_RESIDENT_S  # the dense wrappers' rule, at the same S
-    check_limits(s, d, r, split)
+    check_limits(s, d, r)
     dev = k_codes.device
     want = [
         ("k_codes", k_codes, torch.int8, (p, h, page, d)),
@@ -111,15 +111,16 @@ def _launch(k_codes, k_scale, v_codes, v_scale, page_table, lengths, q, cur):
     for name, t, dtype, shape in want:
         _build.check_operand(name, t, dtype, dev, shape)
     out = torch.empty((slots, h, r, d), dtype=torch.float32, device=dev)
-    n_scratch = split_scratch_floats(slots * h, s, d, r) if split else 0
-    scratch = torch.empty((n_scratch,), dtype=torch.float32, device=dev) if split else None
+    cluster, lmax = _plan(s)  # the dense wrappers' regime at the same S
+    n_scratch = 0 if cluster else split_scratch_floats(slots * h, s, d, r)
+    scratch = torch.empty((n_scratch,), dtype=torch.float32, device=dev) if n_scratch else None
     ptrs = [0, 0, 0, 0] if cur is None else [t.data_ptr() for t in cur]
     lib = _build.load("paged_attention", _LIB_SIGNATURES)
     rc = lib.mn_paged_decode_attend(
         k_codes.data_ptr(), k_scale.data_ptr(), v_codes.data_ptr(), v_scale.data_ptr(),
         q.data_ptr(), page_table.data_ptr(), lengths.data_ptr(), *ptrs, out.data_ptr(),
-        scratch.data_ptr() if split else 0, n_scratch, slots, h, page, mp, d, r,
-        int(cur is not None), int(split), torch.cuda.current_stream(dev).cuda_stream,
+        0 if scratch is None else scratch.data_ptr(), n_scratch, slots, h, page, mp, d, r,
+        int(cur is not None), cluster, lmax, torch._C._cuda_getCurrentRawStream(dev.index),
     )
     _build.check(rc, "paged_decode_attend" + ("_cur" if cur is not None else ""))
     return out

@@ -274,6 +274,167 @@ def test_results_do_not_depend_on_the_batch(cuda):
         assert torch.equal(one[0], full[i])
 
 
+def _append_cur(base, cur, bound):
+    """The cache with row b of group i holding group i's current row."""
+    kc, ks, vc, vs, q = base
+    out = [t.clone() for t in (kc, ks, vc, vs)]
+    for i, b in enumerate(bound.tolist()):
+        for t, c in zip(out, cur):
+            t[i, b] = c[i]
+    return (*out, q)
+
+
+def _slice_edges(s):
+    """Visible counts n at the edges of the cluster regime's slices at cache
+    length s: for slices of 16, 64 and 80 positions and the longest slice,
+    n = C x slice - 1, C x slice and C x slice + 1 (the last block one short,
+    every block full, and one position more, which widens every slice),
+    each within 1..s."""
+    c = tda.cluster_size(s)
+    lens = sorted({16, 64, 80, tda.slice_len(s, c)})
+    return sorted({n for l in lens for n in (c * l - 1, c * l, c * l + 1) if 1 <= n <= s})
+
+
+@pytest.mark.parametrize("s", [2049, 8193])  # below and past the hand-over at 4096
+def test_cluster_slice_edges_cur_equals_append_then_attend(cuda, s):
+    """K4a(b) = K5a(b + 1) and K4b(b) = K5b(b + 1) bit for bit where the
+    visible count n = b + 1 sits at a slice edge: the current row lands in
+    the block, tile and lane that cache row b would; both within the twins'
+    tolerance."""
+    ns = _slice_edges(s)
+    base, cur = _attn_case(len(ns), s, 128, 4, seed=100 + s)
+    bound = torch.tensor([n - 1 for n in ns], dtype=torch.int32, device=cuda)
+    appended = _append_cur(base, cur, bound)
+    cur_fn, fn = ((tda.decode_attend_q8kv_cur, tda.decode_attend_q8kv) if s <= 4096 else
+                  (tda.decode_attend_q8kv_blocked_cur, tda.decode_attend_q8kv_blocked))
+    a = cur_fn(*base, bound, *cur)
+    b = fn(*appended, bound + 1)
+    assert torch.equal(a, b)
+    torch.testing.assert_close(a, tda.decode_attend_q8kv_cur_ref(*base, bound, *cur),
+                               rtol=0, atol=_ATTN_ATOL)
+
+
+@pytest.mark.parametrize("r,d", [(3, 100), (8, 48), (1, 36)])
+def test_cluster_kernel_four_byte_copies_match_twins(cuda, r, d):
+    """Rows of D % 16 != 0 bytes (and a cache that starts off a 16-byte
+    boundary) take 4-byte copies; the result matches the twins."""
+    s = 700
+    base, cur = _attn_case(5, s, d, r, seed=110 + d)
+    if d % 16 == 0:  # 16-byte rows, but the cache starts 4 bytes past a 16-byte boundary
+        flat = torch.empty(base[0].numel() + 4, dtype=torch.int8, device=cuda)
+        shifted = flat[4:].view(base[0].shape)
+        shifted.copy_(base[0])
+        base = (shifted, *base[1:])
+    bound = torch.tensor([0, 1, 63, 64, s], dtype=torch.int32, device=cuda)
+    torch.testing.assert_close(tda.decode_attend_q8kv(*base, bound),
+                               tda.decode_attend_q8kv_ref(*base, bound), rtol=0, atol=_ATTN_ATOL)
+    torch.testing.assert_close(tda.decode_attend_q8kv_cur(*base, bound, *cur),
+                               tda.decode_attend_q8kv_cur_ref(*base, bound, *cur),
+                               rtol=0, atol=_ATTN_ATOL)
+
+
+def test_results_do_not_depend_on_the_batch_in_small_caches(cuda):
+    """A group alone equals the same group in a batch at S <= 4096 too
+    (clusters of 8): K4a over a dense cache, K6 over a pool of pages of 16."""
+    base, cur = _attn_case(12, 2048, 128, 4, seed=120)
+    bound = torch.arange(12, dtype=torch.int32, device=cuda) * 186
+    full = tda.decode_attend_q8kv_cur(*base, bound, *cur)
+    for i in (0, 5, 11):
+        one = tda.decode_attend_q8kv_cur(*(t[i:i + 1] for t in base), bound[i:i + 1],
+                                         *(t[i:i + 1] for t in cur))
+        assert torch.equal(one[0], full[i])
+    pool, table, lengths, q, cur = _paged_case(6, 2, 4, 16, 128, seed=121)
+    full = tpa.paged_decode_attend_cur(*pool, table, lengths, q, *cur)
+    for i in (1, 4, 5):
+        one = tpa.paged_decode_attend_cur(*pool, table[i:i + 1], lengths[i:i + 1], q[i:i + 1],
+                                          *(t[i:i + 1] for t in cur))
+        assert torch.equal(one[0], full[i])
+
+
+def test_two_calls_give_the_same_bits(cuda):
+    """No float atomics and a fixed order of every sum: K4a, K4b and K6
+    repeat bit for bit."""
+    for s in (2048, 8192):
+        base, cur = _attn_case(6, s, 128, 4, seed=130 + s)
+        bound = torch.tensor([0, 1, 17, s // 3, s - 1, s], dtype=torch.int32, device=cuda)
+        fn = tda.decode_attend_q8kv_cur if s <= 4096 else tda.decode_attend_q8kv_blocked_cur
+        assert torch.equal(fn(*base, bound, *cur), fn(*base, bound, *cur))
+    pool, table, lengths, q, cur = _paged_case(5, 2, 4, 16, 512, seed=132)
+    assert torch.equal(tpa.paged_decode_attend_cur(*pool, table, lengths, q, *cur),
+                       tpa.paged_decode_attend_cur(*pool, table, lengths, q, *cur))
+
+
+def test_paged_equals_dense_at_the_serving_context(cuda):
+    """K6 and K7 at S = 8192 over pages of 16 (the paged loop's geometry)
+    equal the dense kernels over the gathered view bit for bit."""
+    slots, h, r = 4, 2, 4
+    pool, table, lengths, q, cur = _paged_case(slots, h, r, 16, 512, seed=140)
+    out6 = tpa.paged_decode_attend_cur(*pool, table, lengths, q, *cur)
+    out7 = tpa.paged_decode_attend(*pool, table, lengths, q)
+    kc, ks = tpa._gather_dense_batch(pool[0], pool[1], table)
+    vc, vs = tpa._gather_dense_batch(pool[2], pool[3], table)
+    g = slots * h
+    bound = lengths[:, None].expand(slots, h).reshape(g).contiguous()
+    q3 = q.reshape(g, r, 128)
+    flat = [t.reshape(g, *t.shape[2:]) for t in cur]
+    assert torch.equal(out6.reshape(g, r, 128), tda.decode_attend_q8kv_cur(kc, ks, vc, vs, q3,
+                                                                           bound, *flat))
+    assert torch.equal(out7.reshape(g, r, 128), tda.decode_attend_q8kv(kc, ks, vc, vs, q3, bound))
+    torch.testing.assert_close(out6, tpa.paged_decode_attend_cur_ref(*pool, table, lengths, q,
+                                                                     *cur),
+                               rtol=0, atol=_ATTN_ATOL)
+
+
+def test_paged_small_pages_stage_the_table_slice(cuda):
+    """Pages of 4 make a slot's table row longer than a block keeps: each
+    block then reads only its slice's entries. K6 and K7 still equal the
+    dense kernels over the gathered view bit for bit, and their twins."""
+    slots, h, r, page, mp = 5, 2, 4, 4, 300
+    assert mp > tda._plan(page * mp)[1] + 2  # the slice path, not the whole row
+    pool, table, lengths, q, cur = _paged_case(slots, h, r, page, mp, seed=145)
+    out6 = tpa.paged_decode_attend_cur(*pool, table, lengths, q, *cur)
+    out7 = tpa.paged_decode_attend(*pool, table, lengths, q)
+    kc, ks = tpa._gather_dense_batch(pool[0], pool[1], table)
+    vc, vs = tpa._gather_dense_batch(pool[2], pool[3], table)
+    g = slots * h
+    bound = lengths[:, None].expand(slots, h).reshape(g).contiguous()
+    q3 = q.reshape(g, r, 128)
+    flat = [t.reshape(g, *t.shape[2:]) for t in cur]
+    assert torch.equal(out6.reshape(g, r, 128), tda.decode_attend_q8kv_cur(kc, ks, vc, vs, q3,
+                                                                           bound, *flat))
+    assert torch.equal(out7.reshape(g, r, 128), tda.decode_attend_q8kv(kc, ks, vc, vs, q3, bound))
+    torch.testing.assert_close(out7, tpa.paged_decode_attend_ref(*pool, table, lengths, q),
+                               rtol=0, atol=_ATTN_ATOL)
+
+
+def test_split_regime_past_the_cluster_capacity(cuda):
+    """Past S = 16384 the kernels run the split regime (three launches
+    over a scratch): K5b and K4b against their twins, K4b(b) = K5b(b + 1)."""
+    s = tda._MAX_CLUSTER_S + 16
+    assert tda._plan(s) == (0, 0)
+    base, cur = _attn_case(3, s + 1, 128, 4, seed=150)
+    bound = torch.tensor([1, 513, s], dtype=torch.int32, device=cuda)
+    n5, n4 = tda.decode_attend_q8kv_blocked.launches, tda.decode_attend_q8kv_blocked_cur.launches
+    out5 = tda.decode_attend_q8kv(*base, bound)
+    out4 = tda.decode_attend_q8kv_cur(*base, bound, *cur)
+    torch.cuda.synchronize()
+    assert (tda.decode_attend_q8kv_blocked.launches,
+            tda.decode_attend_q8kv_blocked_cur.launches) == (n5 + 1, n4 + 1)
+    torch.testing.assert_close(out5, tda.decode_attend_q8kv_ref(*base, bound),
+                               rtol=0, atol=_ATTN_ATOL)
+    torch.testing.assert_close(out4, tda.decode_attend_q8kv_cur_ref(*base, bound, *cur),
+                               rtol=0, atol=_ATTN_ATOL)
+    assert torch.equal(out4, tda.decode_attend_q8kv(*_append_cur(base, cur, bound), bound + 1))
+
+
+@pytest.mark.parametrize("r", [1, 4, 8])
+def test_cluster_regime_fits_on_the_card(cuda, r):
+    """At every S of the cluster regime's plan the card holds clusters of
+    the kernel at once (a launch that cannot be placed is refused)."""
+    for s in (1, 2048, 4096, 8192, tda._MAX_CLUSTER_S):
+        assert tda.cluster_occupancy(r, s) >= 1
+
+
 # (M, K, N, s_x, zp, qmin, qmax): ResNet-18's fc call, ragged edges with
 # zp != 0, the A4 range, and a shape of many blocks
 _K1_CASES = [
