@@ -479,7 +479,7 @@ def check_attention(dev, gen, report):
         f"{bnd['bound_ms']:.4f} ms")
     report["attention_clusters_at_once"] = {
         f"S={ss}": da.cluster_occupancy(r, ss) for ss in (ATT_S, LONG_CTX)}
-    log(f"decode attention: clusters of {da.cluster_size(s)} blocks; the card holds "
+    log(f"decode attention: clusters of {da._plan(s)[0]} blocks; the card holds "
         f"{report['attention_clusters_at_once']} of them at once (R={r})")
     report["attention"] = out
     del caches
@@ -487,11 +487,13 @@ def check_attention(dev, gen, report):
     return out
 
 
-def attention_device_times(dev, gen, report, att, long_att):
-    """K4a (phase 3's bounds and the serving fills), K4b and K6 (pages of
-    16) at their phase 3 and 10 shapes by device time (``torch.profiler``),
-    on fresh inputs from ``gen``, into the kernels-line rows ``att`` and
-    ``long_att``. Taken after the serving phases, as K3's are."""
+def attention_cases(dev, gen):
+    """The decode-attention calls timed by device time, on fresh inputs from
+    ``gen``, built one case at a time: yields (key, wrapper, argument
+    lists, S). K4a at phase 3's shape (bounds 1..2,048) and at the serving
+    fills, K4b at phase 10's (S = 8,192, bounds 0..8,192), K6 over a
+    shuffled pool of pages of 16 at phase 10's shape, and the dense kernel
+    over K6's gathered view (``K4b_view``, the same bounds)."""
     from micronet_tpu_torch.ops import decode_attention as da
     from micronet_tpu_torch.ops import paged_attention as pa
 
@@ -502,22 +504,18 @@ def attention_device_times(dev, gen, report, att, long_att):
     q = torch.randn((g, r, d), device=dev, generator=gen)
     cur = (ri(g, d), rf(g), ri(g, d), rf(g))
 
-    def per_call(s):  # kernels one call launches: 1 in the cluster regime, 3 split
-        return 1 if da._plan(s)[0] else 3
-
     def bounds(lo, hi):
         b = torch.randint(lo, hi + 1, (g,), generator=gen, device=dev).to(torch.int32)
         b[0], b[1] = lo, hi
         return b
 
-    readings = {}
     for key, s, b, fn in (("K4a", ATT_S, bounds(1, ATT_S), da.decode_attend_q8kv_cur),
                           ("K4a_fills", ATT_S, bounds(*SERVE_FILLS), da.decode_attend_q8kv_cur),
                           ("K4b", LONG_CTX, bounds(0, LONG_CTX),
                            da.decode_attend_q8kv_blocked_cur)):
         caches = [(ri(g, s, d), rf(g, s), ri(g, s, d), rf(g, s))
                   for _ in range(copies_for(2 * g * s * (d + 4)))]
-        readings[key] = device_ms(fn, [(*c, q, b, *cur) for c in caches], 30, per_call(s))
+        yield key, fn, [(*c, q, b, *cur) for c in caches], s
         del caches
     slots, heads = SLOTS, g // SLOTS
     lengths = torch.randint(1, LONG_CTX + 1, (slots,), generator=gen, device=dev).to(torch.int32)
@@ -525,15 +523,27 @@ def attention_device_times(dev, gen, report, att, long_att):
     pool, table = _shuffled_pool(dev, gen, lengths, PAGE, heads)
     qp = torch.randn((slots, heads, r, d), device=dev, generator=gen)
     curp = (ri(slots, heads, d), rf(slots, heads), ri(slots, heads, d), rf(slots, heads))
-    readings["K6"] = device_ms(pa.paged_decode_attend_cur, [(*pool, table, lengths, qp, *curp)],
-                               30, per_call(LONG_CTX))
+    yield "K6", pa.paged_decode_attend_cur, [(*pool, table, lengths, qp, *curp)], LONG_CTX
     view = (*pa._gather_dense_batch(pool[0], pool[1], table),
             *pa._gather_dense_batch(pool[2], pool[3], table))
-    readings["K4b_view"] = device_ms(
-        da.decode_attend_q8kv_blocked_cur,
-        [(*view, qp.reshape(g, r, d), lengths[:, None].expand(slots, heads).reshape(g).contiguous(),
-          *(t.reshape(g, *t.shape[2:]) for t in curp))], 30, per_call(LONG_CTX))
-    del pool, view
+    del pool
+    yield "K4b_view", da.decode_attend_q8kv_blocked_cur, [
+        (*view, qp.reshape(g, r, d), lengths[:, None].expand(slots, heads).reshape(g).contiguous(),
+         *(t.reshape(g, *t.shape[2:]) for t in curp))], LONG_CTX
+
+
+def attention_device_times(dev, gen, report, att, long_att):
+    """K4a (phase 3's bounds and the serving fills), K4b and K6 (pages of
+    16) at their phase 3 and 10 shapes by device time (``torch.profiler``),
+    on the inputs of :func:`attention_cases`, into the kernels-line rows
+    ``att`` and ``long_att``. Taken after the serving phases, as K3's are."""
+    from micronet_tpu_torch.ops import decode_attention as da
+
+    readings = {}
+    for key, fn, calls, s in attention_cases(dev, gen):
+        # kernels one call launches: 1 in the cluster regime, 3 split
+        readings[key] = device_ms(fn, calls, 30, 1 if da._plan(s)[0] else 3)
+        del calls
     torch.cuda.empty_cache()
     att["decode_attend_q8kv_cur"].update(device_ms=readings["K4a"],
                                          fills_device_ms=readings["K4a_fills"])

@@ -20,10 +20,11 @@
 
 // Codes (G, S, D) int8, scales (G, S) f32, q (G, R, D) f32, bound (G,) int32,
 // out (G, R, D) f32. With has_cur, kcur/vcur (G, D) int8 and kscur/vscur (G,)
-// f32 are the current rows (ignored otherwise). cluster > 0 runs the cluster
-// regime (clusters of that many blocks, slices of at most lmax positions);
-// cluster == 0 the split regime, whose scratch holds at least
-// mn_attn::split_scratch_floats(G, S, D, R) floats.
+// f32 are the current rows (ignored otherwise). cluster == mn_attn::kCluster
+// runs the cluster regime (slices of at most lmax positions); cluster == 0
+// the split regime, whose scratch holds at least
+// mn_attn::split_scratch_floats(G, S, D, R) floats. Any other cluster size is
+// refused.
 extern "C" int mn_decode_attend_q8kv(const void* kc, const void* ks, const void* vc,
                                      const void* vs, const void* q, const void* bound,
                                      const void* kcur, const void* kscur, const void* vcur,
@@ -46,8 +47,8 @@ extern "C" int mn_decode_attend_q8kv(const void* kc, const void* ks, const void*
 }
 
 // How many clusters of the dense current-row kernel the card holds at once at
-// R rows, clusters of `cluster` blocks and slices of lmax positions, into
-// *clusters (0: the launch would be refused).
+// R rows and slices of lmax positions (cluster as above), into *clusters (0:
+// the launch would be refused).
 extern "C" int mn_decode_attend_cluster_occupancy(int R, int cluster, int lmax, int* clusters) {
   if (!mn_attn::valid_args(1, 1, mn_attn::kMaxD, R, cluster, lmax, nullptr, 0))
     return (int)cudaErrorInvalidValue;

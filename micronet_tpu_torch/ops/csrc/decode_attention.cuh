@@ -34,8 +34,8 @@
 // wrapper from S alone:
 //
 // - the cluster regime (S <= kClusterMaxS = 16,384): one thread-block cluster
-//   of C blocks per group, C from S alone (ops/decode_attention.py::
-//   cluster_size). Block `rank` takes the contiguous slice [rank * L,
+//   of C = kCluster = 8 blocks per group (ops/decode_attention.py::_CLUSTER).
+//   Block `rank` takes the contiguous slice [rank * L,
 //   rank * L + L) of the group's n visible positions, L = n / C rounded up to
 //   a multiple of 16 (ops/decode_attention.py::slice_len), so a slice depends
 //   on n and S only, never on the number of groups. Each block
@@ -60,7 +60,7 @@
 //     rank order, divides, and writes them. No atomics, no global scratch,
 //     one launch; every exchange writes into the receiver, which waits for
 //     all C writers, so no block waits for another to leave.
-//   Past S = 4,096 the clusters take the groups heaviest first (cluster k the
+//   Past S = kOrderFromS the clusters take the groups heaviest first (cluster k the
 //   group of k-th most positions), so that a launch of more clusters than the
 //   card holds at once does not end with one heavy group running alone.
 // - the split regime (S > kClusterMaxS, where a slice's logits would outgrow
@@ -92,10 +92,7 @@
 
 #include <atomic>
 
-// Knobs of the cluster regime, for tools/attn_variants.py: MN_ATTN_STAGES
-// (ring tiles a block), MN_ATTN_MIN_BLOCKS (the blocks an SM the register
-// budget is set for), MN_ATTN_ORDER_FROM_S (the S past which clusters take
-// the heaviest groups first); and two diagnostic builds: MN_ATTN_NO_MATH drops
+// Two diagnostic builds, for tools/attn_variants.py: MN_ATTN_NO_MATH drops
 // the code conversions and MMAs (the copies, the softmax and the exchanges
 // stay; the outputs are then wrong), MN_ATTN_TIMELINE stamps each block's
 // progress (mn_attn_timeline in decode_attention.cu reads the stamps back).
@@ -119,16 +116,6 @@ __device__ unsigned long long mn_attn_stamps[kStampBlocks * kStamps];
   } while (0)
 #endif
 
-#ifndef MN_ATTN_STAGES
-#define MN_ATTN_STAGES 4
-#endif
-#ifndef MN_ATTN_MIN_BLOCKS
-#define MN_ATTN_MIN_BLOCKS 5
-#endif
-#ifndef MN_ATTN_ORDER_FROM_S
-#define MN_ATTN_ORDER_FROM_S 4096
-#endif
-
 namespace mn_attn {
 namespace {  // internal to each library that includes this header
 
@@ -148,13 +135,14 @@ constexpr int kSplit = 512;  // positions per split (ops/decode_attention.py::_S
 constexpr int kCWarps = 4;
 constexpr int kCThreads = kCWarps * 32;
 constexpr int kTile = 16 * kCWarps;  // positions a ring stage: one 16-position MMA tile a warp
-constexpr int kStages = MN_ATTN_STAGES;
+constexpr int kStages = 4;           // ring tiles a block (3 measured the same, 6 and 8 slower)
+constexpr int kMinBlocks = 5;        // blocks an SM the register budget is set for
 constexpr int kRowBytes = kMaxD;     // a code row in shared memory
 constexpr int kStageBytes = kTile * kRowBytes;
-constexpr int kMaxCluster = 16;
+constexpr int kCluster = 8;          // blocks in a group's cluster: the portable maximum
 constexpr int kClusterMaxS = 16384;  // ops/decode_attention.py::_MAX_CLUSTER_S
-constexpr int kMaxOrderG = 256;     // the most groups the cluster regime orders by size
-constexpr int kOrderFromS = MN_ATTN_ORDER_FROM_S;  // caches longer than this: heaviest first
+constexpr int kMaxOrderG = 256;      // the most groups the cluster regime orders by size
+constexpr int kOrderFromS = 4096;    // caches longer than this: the heaviest groups first
 constexpr int kStaticSmem = 3072;    // bound on the cluster kernel's static shared arrays
 static_assert(kStages >= 2 && kStages * kStageBytes >= kCWarps * kMaxR * kMaxD * 4,
               "the PV partials reuse the drained ring");
@@ -330,7 +318,7 @@ __device__ __forceinline__ void lds_chunk(const unsigned char* tile, int j, int 
 inline size_t cluster_smem_bytes(int R, int lmax) {
   return (size_t)kStages * kStageBytes
        + 4 * ((size_t)R * lmax + 2 * (size_t)lmax)  // logits (then bf16(p * v_scale)), scales
-       + 4 * ((size_t)R * kMaxD + kMaxCluster)      // partial sums received
+       + 4 * ((size_t)R * kMaxD + kCluster)      // partial sums received
        + 4 * ((size_t)lmax + 2);                    // page-table slice
 }
 
@@ -367,7 +355,7 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar) {  // phase 0: each bar
 // the R * D outputs); every exchange writes into the receiver's shared memory,
 // so a block leaves as soon as its own outputs are written.
 template <bool CUR, class Rows>
-__global__ void __launch_bounds__(kCThreads, MN_ATTN_MIN_BLOCKS)
+__global__ void __launch_bounds__(kCThreads, kMinBlocks)
 attend_cluster_kernel(Rows rows, MN_OPERAND_PARAMS, int R, int C, int lmax, int vec16,
                       int order) {
   MN_OPERANDS_IN_KERNEL;
@@ -380,12 +368,12 @@ attend_cluster_kernel(Rows rows, MN_OPERAND_PARAMS, int R, int C, int lmax, int 
   float* kss = lg + (size_t)R * lmax;                                  // [lmax] k scales
   float* vss = kss + lmax;                                             // [lmax] v scales
   float* recv = vss + lmax;                   // [C][slab] partial sums received
-  int* tab = reinterpret_cast<int*>(recv + R * kMaxD + kMaxCluster);  // [lmax + 2]
+  int* tab = reinterpret_cast<int*>(recv + R * kMaxD + kCluster);  // [lmax + 2]
   // bf16(p * v_scale) of row r overwrites the first half of logit row r
   __nv_bfloat16* pv = reinterpret_cast<__nv_bfloat16*>(lg);  // row pitch 2 * lmax
   float* red = reinterpret_cast<float*>(ring);  // [kCWarps][R][kMaxD], once the ring drains
   __shared__ float wred[kCWarps][kMaxR];
-  __shared__ float xmax[kMaxCluster][kMaxR], xden[kMaxCluster][kMaxR];
+  __shared__ float xmax[kCluster][kMaxR], xden[kCluster][kMaxR];
   __shared__ __align__(8) uint64_t bar_max, bar_sum;
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -723,7 +711,7 @@ cudaError_t once_per_device(F set) {
 }
 
 // The cluster kernel may take all the dynamic shared memory a block can have
-// beside its static arrays, and clusters of up to 16 blocks.
+// beside its static arrays.
 template <bool CUR, class Rows>
 cudaError_t cluster_attributes() {
   return once_per_device([] {
@@ -734,12 +722,9 @@ cudaError_t cluster_attributes() {
     if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
     err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
     if (err != cudaSuccess) return err;
-    err = cudaFuncSetAttribute(attend_cluster_kernel<CUR, Rows>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               optin - (int)fa.sharedSizeBytes);
-    if (err != cudaSuccess) return err;
     return cudaFuncSetAttribute(attend_cluster_kernel<CUR, Rows>,
-                                cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                optin - (int)fa.sharedSizeBytes);
   });
 }
 
@@ -1097,8 +1082,8 @@ inline bool rows_16b(const Operands& op, bool cur) {
   return op.D % 16 == 0 && a16(op.kc) && a16(op.vc) && (!cur || (a16(op.kcur) && a16(op.vcur)));
 }
 
-// The cluster regime when cluster > 0 (clusters of that size, slices of at
-// most lmax positions), else the split regime over scratch.
+// The cluster regime when cluster > 0 (clusters of kCluster blocks, slices of
+// at most lmax positions), else the split regime over scratch.
 template <class Rows>
 cudaError_t dispatch(const Rows& rows, const Operands& op, int G, int R, bool cur, int cluster,
                      int lmax, float* scratch, cudaStream_t st) {
@@ -1127,15 +1112,15 @@ cudaError_t dispatch(const Rows& rows, const Operands& op, int G, int R, bool cu
 }
 
 // Checks shared by the entry points; true when the arguments are usable. The
-// cluster regime (cluster > 0) takes S <= kClusterMaxS, clusters of 1 to
-// kMaxCluster blocks and slices of lmax positions (a multiple of 16) that
+// cluster regime (cluster > 0) takes S <= kClusterMaxS, clusters of kCluster
+// blocks and slices of lmax positions (a multiple of 16) that
 // cover S + 1 and fit in shared memory; the split regime a scratch of
 // split_scratch_floats.
 inline bool valid_args(int G, int S, int D, int R, int cluster, int lmax, const void* scratch,
                        long long scratch_floats) {
   if (G <= 0 || S <= 0 || D <= 0 || D > kMaxD || D % 4 || R < 1 || R > kMaxR) return false;
   if (cluster > 0)
-    return S <= kClusterMaxS && cluster <= kMaxCluster && lmax > 0 && lmax % 16 == 0 &&
+    return S <= kClusterMaxS && cluster == kCluster && lmax > 0 && lmax % 16 == 0 &&
            (long long)lmax * cluster >= (long long)S + 1 &&
            (long long)G * cluster <= 0x7fffffffLL &&
            cluster_smem_bytes(R, lmax) + kStaticSmem <= (size_t)kSmemOptin;

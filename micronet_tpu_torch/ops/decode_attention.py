@@ -9,7 +9,7 @@ bodies of ``csrc/decode_attention.cuh``), in a regime chosen by S alone
 (:func:`_plan`):
 
 - the cluster regime for S <= ``_MAX_CLUSTER_S``: one thread-block
-  cluster of :func:`cluster_size` blocks per KV group, each block a
+  cluster of ``_CLUSTER`` blocks per KV group, each block a
   contiguous slice of :func:`slice_len` visible positions, the logits in
   shared memory, one launch, no scratch;
 - the split regime past it: splits of ``_SPLIT`` positions, the logits in
@@ -71,6 +71,10 @@ _SPLIT = 512  # positions per split of the split regime (kSplit)
 # past this S the kernels run the split regime: a slice's logits would
 # outgrow shared memory (csrc/decode_attention.cuh::kClusterMaxS)
 _MAX_CLUSTER_S = 16384
+# blocks in a KV group's cluster at every S of the cluster regime, the
+# portable maximum (csrc/decode_attention.cuh::kCluster; 4 and 16 were
+# slower at S = 2,048 and 8,192, PERF.md §6)
+_CLUSTER = 8
 # past this S the whole-cache wrappers hand over to the blocked ones (the
 # JAX package's threshold for its S-blocked kernels)
 _MAX_RESIDENT_S = 4096
@@ -130,13 +134,6 @@ decode_attend_q8kv_blocked_ref = decode_attend_q8kv_ref
 decode_attend_q8kv_blocked_cur_ref = decode_attend_q8kv_cur_ref
 
 
-def cluster_size(s: int) -> int:
-    """Blocks in the cluster of one KV group, from S alone: 8 at every S
-    of the cluster regime (``tools/attn_variants.py`` measured 4 and 16
-    slower at S = 2,048 and 8,192, PERF.md §6)."""
-    return 8
-
-
 def slice_len(n: int, c: int) -> int:
     """Positions a block of a ``c``-block cluster takes of a group's ``n``
     visible ones: ceil(n / c) rounded up to a multiple of 16 (the MMA
@@ -153,8 +150,7 @@ def _plan(s: int):
     regime."""
     if s > _MAX_CLUSTER_S:
         return 0, 0
-    c = cluster_size(s)
-    return c, slice_len(s + 1, c)
+    return _CLUSTER, slice_len(s + 1, _CLUSTER)
 
 
 def split_scratch_floats(g: int, s: int, d: int, r: int) -> int:

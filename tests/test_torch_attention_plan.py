@@ -2,15 +2,12 @@
 kernels (``ops/decode_attention.py::_plan``: the regime, the cluster size
 and the longest slice, from S alone), the slice rule the kernel cuts each
 group by, ``check_limits``, and the call each wrapper makes, driven against
-a stand-in library; and the cluster kernel's bit tricks
-(``csrc/decode_attention.cuh``: ``codes_bf16x2``, the PV byte permutes,
-``swz``) mirrored in numpy. The kernels themselves run only on a card
+a stand-in library. The kernels themselves run only on a card
 (``tests/test_torch_cuda.py``). No JAX is needed.
 """
 
 import inspect
 
-import numpy as np
 import pytest
 import torch
 
@@ -21,14 +18,13 @@ from micronet_tpu_torch.ops import paged_attention as tpa
 
 def test_plan_reads_only_s():
     """The regime, the cluster size and the longest slice come from S
-    alone: the cluster regime up to 16,384 with slices that cover S + 1
-    positions (a full cache and the current row), the split regime past
-    it."""
+    alone: the cluster regime up to 16,384, in clusters of 8 blocks (the
+    portable maximum) with slices that cover S + 1 positions (a full cache
+    and the current row), the split regime past it."""
     assert list(inspect.signature(tda._plan).parameters) == ["s"]
-    assert list(inspect.signature(tda.cluster_size).parameters) == ["s"]
     for s in (1, 16, 255, 300, 2048, 4096, 4097, 5000, 8192, tda._MAX_CLUSTER_S):
         c, lmax = tda._plan(s)
-        assert c == tda.cluster_size(s) and 1 <= c <= 16
+        assert c == tda._CLUSTER == 8
         assert lmax == tda.slice_len(s + 1, c)
         assert lmax % 16 == 0 and lmax * c >= s + 1
     for s in (tda._MAX_CLUSTER_S + 1, 20000, 131072):
@@ -182,71 +178,3 @@ def test_attention_wrappers_on_a_card_tensor_launch_or_raise(monkeypatch):
                                 torch.tensor([9], dtype=torch.int32), torch.zeros((1, 2, 2, 8)))
     assert tpa.paged_decode_attend.launches == before
 
-
-def _byte_perm(a, b, sel):
-    """CUDA's __byte_perm: result byte i is byte (sel >> 4i) & 7 of (b << 32 | a)."""
-    both = (np.asarray(b, np.uint64) << np.uint64(32)) | np.asarray(a, np.uint64)
-    out = np.zeros(np.broadcast(a, b).shape, np.uint64)
-    for i in range(4):
-        src = np.uint64((sel >> (4 * i)) & 7)
-        out |= ((both >> (np.uint64(8) * src)) & np.uint64(0xFF)) << np.uint64(8 * i)
-    return out.astype(np.uint32)
-
-
-def _codes_bf16x2(w):
-    """codes_bf16x2: the four int8 codes of each word w as two bf16x2 (bytes
-    0, 1 in lo; 2, 3 in hi), through the f32 2^23 + (c + 128)."""
-    u = w ^ np.uint32(0x80808080)
-    f = [(_byte_perm(u, 0x4B000000, 0x7650 + i).view(np.float32) - np.float32(8388736.0))
-         for i in range(4)]
-    bits = [x.astype(np.float32).view(np.uint32) for x in f]
-    return _byte_perm(bits[0], bits[1], 0x7632), _byte_perm(bits[2], bits[3], 0x7632)
-
-
-def _bf16_pair(v):
-    """The two bf16 halves of each uint32 v, as f32."""
-    lo = (v & np.uint32(0xFFFF)) << np.uint32(16)
-    hi = v & np.uint32(0xFFFF0000)
-    return lo.view(np.float32), hi.view(np.float32)
-
-
-def test_code_conversion_is_exact_on_every_byte():
-    """Every int8 code, in every byte of a word, comes out as its exact
-    bf16 value, the lower byte in the lower half."""
-    rng = np.random.default_rng(0)
-    codes = np.stack([np.arange(-128, 128)] + [rng.permutation(np.arange(-128, 128))
-                                               for _ in range(3)], axis=1).astype(np.int8)
-    w = np.ascontiguousarray(codes).view(np.uint32)[:, 0]
-    lo, hi = _codes_bf16x2(w)
-    got = np.stack([*_bf16_pair(lo), *_bf16_pair(hi)], axis=1)
-    np.testing.assert_array_equal(got, codes.astype(np.float32))
-
-
-def test_pv_byte_permutes_pair_two_positions():
-    """The PV operand: 0x5140 pairs bytes 0 and 1 of two positions' words
-    (x0, y0, x1, y1), 0x7362 bytes 2 and 3, so each bf16x2 holds one d of
-    two positions."""
-    x = np.uint32(0x44332211)
-    y = np.uint32(0x88776655)
-    assert int(_byte_perm(x, y, 0x5140)) == 0x66225511
-    assert int(_byte_perm(x, y, 0x7362)) == 0x88447733
-
-
-def _swz(j):
-    return ((j & 1) << 2) ^ (((j >> 1) & 3) << 1)
-
-
-@pytest.mark.parametrize("pattern", ["qk", "pv"])
-def test_tile_swizzle_spreads_each_quarter_warp_over_eight_chunks(pattern):
-    """16-byte shared loads are served a quarter-warp at a time: its eight
-    lanes must hit eight different 16-byte chunks of the 128-byte bank row.
-    QK^T reads rows g and g + 8 at chunks t and t + 4; PV reads rows 2t,
-    2t + 1, 2t + 8 and 2t + 9 at chunk g (g = lane / 4, t = lane % 4)."""
-    lanes = np.arange(32)
-    g, t = lanes // 4, lanes % 4
-    loads = ([(g + r, t + c) for r in (0, 8) for c in (0, 4)] if pattern == "qk" else
-             [(2 * t + r, g) for r in (0, 1, 8, 9)])
-    for rows, chunks in loads:
-        phys = chunks ^ _swz(rows)
-        for q in range(4):
-            assert len(set(phys[8 * q:8 * q + 8].tolist())) == 8

@@ -290,7 +290,7 @@ def _slice_edges(s):
     n = C x slice - 1, C x slice and C x slice + 1 (the last block one short,
     every block full, and one position more, which widens every slice),
     each within 1..s."""
-    c = tda.cluster_size(s)
+    c = tda._plan(s)[0]
     lens = sorted({16, 64, 80, tda.slice_len(s, c)})
     return sorted({n for l in lens for n in (c * l - 1, c * l, c * l + 1) if 1 <= n <= s})
 

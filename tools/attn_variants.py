@@ -1,28 +1,21 @@
 #!/usr/bin/env python3
 """Decode attention's cluster regime at the serving shapes, by device time,
-across the knobs of its design: the blocks in a group's cluster, the tiles
-in each block's ring, the register budget and the heaviest-first order.
+in diagnostic builds of its kernel.
 
-    python3 tools/attn_variants.py [--clusters 4,8,16] [--builds "" MN_ATTN_STAGES=6 ...]
+    python3 tools/attn_variants.py [--builds "" MN_ATTN_NO_MATH ...]
     python3 tools/attn_variants.py --tree DIR
     python3 tools/attn_variants.py --timeline
 
-Cases, with random codes and scales from a seeded generator, copies larger
-than L2 together as in ``chip_smoke.py``:
+The cases are ``chip_smoke.attention_cases``: K4a at phase 3's shape
+(64 groups, R = 4, D = 128, S = 2,048, bounds 1..2,048) and at the serving
+loop's fills (bounds 16..288), K4b at phase 10's (S = 8,192, bounds
+0..8,192), K6 over pages of 16 shuffled in the pool at phase 10's shape,
+and the dense kernel over K6's gathered view; random codes and scales from
+a seeded generator, copies larger than L2 together.
 
-- K4a at phase 3's shape: 64 groups (8 slots x 8 KV heads), R = 4,
-  D = 128, S = 2,048, bounds 1..2,048;
-- K4a at the serving loop's fills: the same geometry, bounds 16..288
-  (phase 5's decode steps), and again at 7 slots (56 groups);
-- K4b at phase 10's shape: S = 8,192, bounds 0..8,192;
-- K6 at phase 10's shape: pages of 16 shuffled in the pool, S = 8,192,
-  lengths 0..8,192.
-
-For each build (a set of macros of ``csrc/decode_attention.cuh``:
-``MN_ATTN_STAGES``, ``MN_ATTN_MIN_BLOCKS``, ``MN_ATTN_ORDER_FROM_S``, the
-diagnostic ``MN_ATTN_NO_MATH``; all builds started together) and each forced cluster
-size (the wrappers' ``cluster_size`` replaced), each case prints
-the device time per call (``torch.profiler``, through
+For each build (a set of macros of ``csrc/decode_attention.cuh``, such as
+the diagnostic ``MN_ATTN_NO_MATH``; all builds started together), each case
+prints the device time per call (``torch.profiler``, through
 ``chip_smoke.device_ms``), the time of back-to-back calls (CUDA events) and
 how many clusters the card holds at once. ``--tree DIR`` imports
 ``micronet_tpu_torch`` from another checkout (an older commit unpacked with
@@ -46,42 +39,6 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 
 
-def _cases(cs, dev, gen):
-    """name -> (function, argument lists, cache length S, R)."""
-    from micronet_tpu_torch.ops import decode_attention as da
-    from micronet_tpu_torch.ops import paged_attention as pa
-
-    g, r, d = cs.ATT_G, cs.ATT_R, cs.ATT_D
-    ri = lambda *shape: torch.randint(-127, 128, shape, dtype=torch.int8, device=dev,
-                                      generator=gen)
-    rf = lambda *shape: torch.rand(shape, device=dev, generator=gen) * 0.02 + 1e-3
-    q = torch.randn((g, r, d), device=dev, generator=gen)
-    cur = (ri(g, d), rf(g), ri(g, d), rf(g))
-    out = {}
-    for name, s, lo, hi, gg in (("K4a S=2048 bounds 1..2048", cs.ATT_S, 1, cs.ATT_S, g),
-                                ("K4a S=2048 bounds 16..288", cs.ATT_S, 16, 288, g),
-                                ("K4a S=2048 bounds 16..288 G=56", cs.ATT_S, 16, 288, g - 8),
-                                ("K4b S=8192 bounds 0..8192", cs.LONG_CTX, 0, cs.LONG_CTX, g)):
-        bound = torch.randint(lo, hi + 1, (gg,), generator=gen, device=dev).to(torch.int32)
-        bound[0], bound[1] = lo, hi
-        caches = [(ri(gg, s, d), rf(gg, s), ri(gg, s, d), rf(gg, s))
-                  for _ in range(cs.copies_for(2 * gg * s * (d + 4)))]
-        fn = da.decode_attend_q8kv_cur if s <= da._MAX_RESIDENT_S else \
-            da.decode_attend_q8kv_blocked_cur
-        out[name] = (fn, [(*c, q[:gg], bound, *(t[:gg] for t in cur)) for c in caches], s, r)
-    slots, heads = cs.SLOTS, g // cs.SLOTS
-    lengths = torch.randint(1, cs.LONG_CTX + 1, (slots,), generator=gen, device=dev).to(
-        torch.int32)
-    lengths[:4] = torch.tensor([0, cs.LONG_CTX, 1, cs.PAGES_E2E + 1])
-    pool, table = cs._shuffled_pool(dev, gen, lengths, cs.PAGE, heads)
-    qp = torch.randn((slots, heads, r, d), device=dev, generator=gen)
-    curp = (ri(slots, heads, d), rf(slots, heads), ri(slots, heads, d), rf(slots, heads))
-    out[f"K6 S=8192 pages of {cs.PAGE}"] = (pa.paged_decode_attend_cur,
-                                            [(*pool, table, lengths, qp, *curp)],
-                                            cs.LONG_CTX, r)
-    return out
-
-
 PHASES = ("prologue and q", "K loop", "max exchange", "softmax", "V loop", "partials sent",
           "partials wait", "outputs")
 
@@ -97,11 +54,11 @@ def timeline(cases, da, _build) -> None:
         lib = load("decode_attention",
                    {**da._LIB_SIGNATURES, "mn_attn_timeline": [ctypes.c_void_p, ctypes.c_int]},
                    defines)
-        for name, (fn, calls, s, _) in cases.items():
+        for name, fn, calls, s in cases:
             if not name.startswith("K4"):
                 continue
             g = calls[0][0].shape[0]
-            blocks = g * da.cluster_size(s)
+            blocks = g * da._plan(s)[0]
             fn(*calls[0])
             torch.cuda.synchronize()
             fn(*calls[1 % len(calls)])
@@ -131,7 +88,6 @@ def timeline(cases, da, _build) -> None:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--clusters", default="4,8,16", help="forced cluster sizes")
     ap.add_argument("--builds", nargs="*", default=[""],
                     help="macro sets, each comma-separated (\"\" is the kernel as it is)")
     ap.add_argument("--tree", type=Path, default=None,
@@ -156,9 +112,9 @@ def main() -> int:
     print(f"micronet_tpu_torch from {Path(da.__file__).resolve().parents[2]}")
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
-    cases = _cases(cs, dev, gen)
+    cases = list(cs.attention_cases(dev, gen))
     if args.tree is not None:
-        for name, (fn, calls, s, _) in cases.items():
+        for name, fn, calls, s in cases:
             per_call = 1 if s <= da._MAX_RESIDENT_S else 3  # the split regime's three kernels
             try:
                 dev_t = f"{cs.device_ms(fn, calls, 30, per_call):.4f} ms"
@@ -172,27 +128,24 @@ def main() -> int:
         timeline(cases, da, _build)
         return 0
     builds = [tuple(m for m in b.split(",") if m) for b in args.builds]
-    clusters = [int(v) for v in args.clusters.split(",")]
     started = [(src, defines, _build._start(src, defines))
                for defines in builds for src in ("decode_attention", "paged_attention")]
     for src, _, (st, out) in started:
         if st is not None:
             _build._finish(src, st, out)
-    load, size = _build.load, da.cluster_size
+    load = _build.load
     try:
         for defines in builds:
             _build.load = lambda name, sig, extra=(), _d=defines: load(name, sig,
                                                                         tuple(extra) + _d)
-            for c in clusters:
-                da.cluster_size = lambda s, _c=c: _c
-                for name, (fn, calls, s, r) in cases.items():
-                    t = cs.device_ms(fn, calls, 30, 1)
-                    ev = cs.time_ms(fn, calls, 50)
-                    print(f"[{' '.join(defines) or 'kernel'}] cluster {c:2d} {name}: device "
-                          f"{t:.4f} ms, events {ev:.4f} ms, {da.cluster_occupancy(r, s)} "
-                          f"clusters at once", flush=True)
+            for name, fn, calls, s in cases:
+                t = cs.device_ms(fn, calls, 30, 1)
+                ev = cs.time_ms(fn, calls, 50)
+                print(f"[{' '.join(defines) or 'kernel'}] {name}: device {t:.4f} ms, events "
+                      f"{ev:.4f} ms, {da.cluster_occupancy(cs.ATT_R, s)} clusters at once",
+                      flush=True)
     finally:
-        _build.load, da.cluster_size = load, size
+        _build.load = load
     return 0
 
 
