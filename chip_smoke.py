@@ -34,8 +34,11 @@ Phases, each fatal on failure (non-zero exit, no final line):
    the same for 3 forwards of each engine in phases 9 and 13, and for both
    loops of phase 11);
 7. K1 (``int8_matmul_dequant``) against its twin, bit for bit, at the
-   engine's call, a large call and a ragged A4 call with zp != 0, timed
-   beside ``torch._int_mm`` on codes and its int8 bound (1,979 TOP/s);
+   engine's call, a large call and a ragged A4 call with zp != 0: the
+   public wrapper in the regime ``_k1_regime`` picks (logged) and each of
+   its two regimes forced (the small mma.sync kernel, the wgmma GEMM with
+   its pre-passes), timed beside ``torch._int_mm`` on codes and its int8
+   bound (1,979 TOP/s); its device times come at the end of phase 12;
 8. conv routes: every IntConv2d route at ResNet-18's and NIN-GC's layer
    shapes; the int32 accumulators equal an f64 conv of the same codes;
 9. engine (slice 2's main path): ``resnet18()`` with seeded random
@@ -61,10 +64,10 @@ Phases, each fatal on failure (non-zero exit, no final line):
    back, exact launch counts; each loop's prefill seconds, the 6,000-token
    prompt's own among them;
 12. wbwtab kernels: K2 (``binary_act_matmul``) against its twin, bit for
-   bit, at NIN-GC's largest ternary 1x1 conv as a dense GEMM (batch 1024:
-   M = 65,536, K = N = 1,024), a ragged call and a call with exact zeros,
-   -0.0 and NaN in x, timed beside ``torch._int_mm`` on sign codes made
-   beforehand; K8 (``int4_matmul``) and K9 (``int4_matmul_grouped``, group
+   bit, in the regime picked and in both forced, at NIN-GC's largest
+   ternary 1x1 conv as a dense GEMM (batch 1024: M = 65,536, K = N =
+   1,024), a ragged call and a call with exact zeros, -0.0 and NaN in x,
+   timed beside ``torch._int_mm`` on sign codes made beforehand; K8 (``int4_matmul``) and K9 (``int4_matmul_grouped``, group
    128) at the five Llama-3-8B shapes of phase 3, M = 1, 8 and 128, within
    K3's tolerance, timed beside ``torch.matmul`` on the dequantized bf16
    weight, each also by its device time alone (``torch.profiler``); the
@@ -72,7 +75,9 @@ Phases, each fatal on failure (non-zero exit, no final line):
    ``max_abs_err`` the largest over every M; then K3's device time at
    phase 3's shapes, M = 8 and 6,000, beside ``torch.matmul``'s, and the
    device times of K4a (phase 3's bounds and the serving fills), K4b and
-   K6 (pages of 16) at phase 3's and 10's shapes (after the serving
+   K6 (pages of 16) at phase 3's and 10's shapes, then K1's at phase 7's
+   three calls and K2's at its path call (the wrapper and each regime
+   forced) beside ``torch._int_mm``'s on codes (after the serving
    phases, so that no profiler session runs before those; a trace that
    lost kernels is taken again with longer quiet pads around the calls,
    and is fatal after five);
@@ -800,49 +805,150 @@ def serve(dev, seed, report, profile_dir=None):
 # ---------------------------------------------------------------- phase 3b
 
 
+def k1_args(m, k, n, s_x, zp, qmin, qmax, dev, gen):
+    """K1's arguments at one call of ``K1_CASES``: x with a quarter of its
+    values on .5 code boundaries, int8 weights, column scales, s_x and zp
+    as f32 tensors on the card."""
+    x = torch.randn((m, k), device=dev, generator=gen) * (40 * s_x)
+    ties = (torch.randint(-20, 20, (m, k), device=dev, generator=gen) + 0.5) * s_x
+    x = torch.where(torch.rand((m, k), device=dev, generator=gen) < 0.25, ties, x)
+    w_q = torch.randint(-127, 128, (k, n), dtype=torch.int8, device=dev, generator=gen)
+    ws = torch.rand((n,), device=dev, generator=gen) * 0.02 + 1e-3
+    return (x, w_q, ws, torch.tensor(s_x, device=dev), torch.tensor(zp, device=dev), qmin, qmax)
+
+
+def k2_args(label, m, k, n, dev, gen):
+    """K2's arguments at one call of ``K2_CASES``; "zeros" holds exact zeros,
+    -0.0 and NaN in x."""
+    x = torch.randn((m, k), device=dev, generator=gen)
+    if label == "zeros":
+        x = torch.where(torch.rand((m, k), device=dev, generator=gen) < 0.25, 0.0, x)
+        x = torch.where(torch.rand((m, k), device=dev, generator=gen) < 0.25, -0.0, x)
+        x[0, :4] = float("nan")
+    w_q = torch.randint(-1, 2, (k, n), dtype=torch.int8, device=dev, generator=gen)
+    alpha = torch.rand((n,), device=dev, generator=gen) + 0.5
+    return (x, w_q, alpha)
+
+
+def int_mm_args(codes, w_q):
+    """``torch._int_mm``'s arguments for codes (M, K) times w_q (K, N): the
+    weight as a column-major (K, N') view, N padded to what ``_int_mm``
+    takes."""
+    k, n = w_q.shape
+    w_nk = torch.zeros((max(16, -(-n // 8) * 8), k), dtype=torch.int8, device=w_q.device)
+    w_nk[:n] = w_q.t()
+    return (codes, w_nk.t())
+
+
+def int8_regimes(i8, binary):
+    """K1's (or, ``binary``, K2's) two regimes forced, taking the public
+    wrapper's arguments; they count no launch."""
+    if binary:
+        return {"small": lambda x, w, a: i8._small_call(x, w, a),
+                "gemm": lambda x, w, a: i8._gemm_call(x, w, a)}
+    return {"small": lambda x, w, ws, s, z, lo, hi: i8._small_call(x, w, ws, (s, z, lo, hi)),
+            "gemm": lambda x, w, ws, s, z, lo, hi: i8._gemm_call(x, w, ws, (s, z, lo, hi))}
+
+
+def check_int8_call(what, fn, ref_fn, binary, args, regime):
+    """One K1 or K2 call: the public wrapper and both regimes forced, each
+    against the twin bit for bit (fatal otherwise); returns max|err|."""
+    from micronet_tpu_torch.ops import int_matmul as i8
+
+    ref = ref_fn(*args)
+    err = 0.0
+    for name, call in [(f"wrapper (regime {regime})", fn)] + list(int8_regimes(i8, binary).items()):
+        got = call(*args)
+        torch.cuda.synchronize()
+        err = max(err, (got - ref).abs().max().item())
+        if not torch.equal(got, ref):
+            fail(f"{what} {name}: differs from its twin (max|err| {err:.3e}, "
+                 f"{int((got != ref).sum())} elements)")
+    return err
+
+
+def int8_bound(m, k, n, extra_bytes=0):
+    """K1's/K2's least time (ms): x (f32) and w_q read, the column scales
+    read, out (f32) written; 2MKN int8 operations."""
+    nbytes = m * k * 4 + k * n + n * 4 + m * n * 4 + extra_bytes
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 2 * m * k * n / INT8_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
 def check_k1(dev, gen, report):
     """K1 against its twin, bit for bit, at the engine's call, a large call
-    and a ragged A4 call with zp != 0. The library yardstick is
+    and a ragged A4 call with zp != 0: the public wrapper in the regime
+    ``_k1_regime`` picks, and each regime forced. The library yardstick is
     ``torch._int_mm`` over codes quantized beforehand: the integer product
     only, without the quantize and the dequantize that K1 fuses (N padded
-    to 16, which ``_int_mm`` needs)."""
+    to 16, which ``_int_mm`` needs). Device times come at the end of phase
+    12 (:func:`int8_device_times`)."""
+    from micronet_tpu_torch.ops import _build
     from micronet_tpu_torch.ops import int_matmul as i8
 
     out_cases = {}
     for label, m, k, n, s_x, zp, qmin, qmax, iters in K1_CASES:
-        x = torch.randn((m, k), device=dev, generator=gen) * (40 * s_x)
-        ties = (torch.randint(-20, 20, (m, k), device=dev, generator=gen) + 0.5) * s_x
-        x = torch.where(torch.rand((m, k), device=dev, generator=gen) < 0.25, ties, x)
-        w_q = torch.randint(-127, 128, (k, n), dtype=torch.int8, device=dev, generator=gen)
-        ws = torch.rand((n,), device=dev, generator=gen) * 0.02 + 1e-3
-        args = (x, w_q, ws, torch.tensor(s_x, device=dev), torch.tensor(zp, device=dev),
-                qmin, qmax)
-        got = i8.int8_matmul_dequant(*args)
-        ref = i8.int8_matmul_dequant_ref(*args)
-        torch.cuda.synchronize()
-        err = (got - ref).abs().max().item()
-        if not torch.equal(got, ref):
-            fail(f"K1 {label} M={m} K={k} N={n}: kernel differs from its twin "
-                 f"(max|err| {err:.3e}, {int((got != ref).sum())} elements)")
+        args = k1_args(m, k, n, s_x, zp, qmin, qmax, dev, gen)
+        regime = i8._k1_regime(m, k, n, _build.sm_count(dev))
+        err = check_int8_call(f"K1 {label} M={m} K={k} N={n}", i8.int8_matmul_dequant,
+                              i8.int8_matmul_dequant_ref, False, args, regime)
         ms = time_ms(i8.int8_matmul_dequant, [args], iters)
         plain = time_ms(i8.int8_matmul_dequant_ref, [args], max(3, iters // 20), 1)
-        codes = i8.quantize_int8(x, s_x, zp, qmin, qmax)
-        w_nk = torch.zeros((max(16, -(-n // 8) * 8), k), dtype=torch.int8, device=dev)
-        w_nk[:n] = w_q.t()
-        lib = time_ms(torch._int_mm, [(codes, w_nk.t())], iters)
-        nbytes = m * k * 4 + k * n + n * 4 + m * n * 4 + 8
-        ops = 2 * m * k * n
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S
+        codes = i8.quantize_int8(args[0], s_x, zp, qmin, qmax)
+        lib = time_ms(torch._int_mm, [int_mm_args(codes, args[1])], iters)
+        bound, bound_by = int8_bound(m, k, n, extra_bytes=8)
         out_cases[label] = dict(m=m, k=k, n=n, zp=zp, qmin=qmin, qmax=qmax, ms=ms,
-                                plain_ms=plain, library_ms=lib,
-                                bound_ms=max(t_bytes, t_ops) * 1e3,
-                                bound_by="bytes" if t_bytes >= t_ops else "operations",
-                                max_abs_err=err)
-        log(f"K1 {label:12s} M={m:5d} K={k:5d} N={n:5d}: equal to its twin; kernel {ms:.4f} ms, "
-            f"plain {plain:.4f} ms, torch._int_mm on codes {lib:.4f} ms, bound "
-            f"{out_cases[label]['bound_ms']:.4f} ms ({out_cases[label]['bound_by']})")
+                                plain_ms=plain, library_ms=lib, bound_ms=bound, bound_by=bound_by,
+                                max_abs_err=err, regime=regime)
+        log(f"K1 {label:12s} M={m:5d} K={k:5d} N={n:5d} (regime {regime}): wrapper, small and "
+            f"gemm regimes equal to the twin; kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+            f"torch._int_mm on codes {lib:.4f} ms, bound {bound:.4f} ms ({bound_by})")
+        del args, codes
+    torch.cuda.empty_cache()
     report["k1_cases"] = out_cases
     return out_cases
+
+
+def int8_device_times(dev, gen, report, k1_row, k2_row):
+    """K1's device time (``torch.profiler``) at phase 7's three calls and
+    K2's at its path call, on fresh inputs from ``gen``: the public wrapper
+    (``per_call`` its kernels, ``_plan``'s count: 1 in the small regime, 2
+    or 3 in the GEMM's), each regime forced, and ``torch._int_mm`` on
+    codes made beforehand. Taken after the serving phases, as K3's are; adds
+    ``device_ms``, ``library_device_ms`` and ``regime`` to the kernels-line
+    rows."""
+    from micronet_tpu_torch.ops import _build
+    from micronet_tpu_torch.ops import int_matmul as i8
+
+    def read(what, case, fn, binary, args, lib_args, iters):
+        iters = min(iters, 50)
+        per_call = {r: i8._plan(case["m"], case["k"], case["n"], r, _build.sm_count(dev))
+                    ["launches"] for r in ("small", "gemm")}
+        case["device_ms"] = device_ms(fn, [args], iters, per_call[case["regime"]])
+        for regime, call in int8_regimes(i8, binary).items():
+            call.__name__ = f"{fn.__name__}_{regime}"
+            case[f"{regime}_device_ms"] = device_ms(call, [args], iters, per_call[regime])
+        case["library_device_ms"] = device_ms(torch._int_mm, [lib_args], iters)
+        log(f"{what}: device {case['device_ms']:.4f} ms (regime {case['regime']}; small "
+            f"{case['small_device_ms']:.4f}, gemm {case['gemm_device_ms']:.4f}), torch._int_mm "
+            f"{case['library_device_ms']:.4f} ms, bound {case['bound_ms']:.4f} ms "
+            f"({case['bound_ms'] / case['device_ms']:.1%} of it)")
+
+    for label, m, k, n, s_x, zp, qmin, qmax, iters in K1_CASES:
+        args = k1_args(m, k, n, s_x, zp, qmin, qmax, dev, gen)
+        codes = i8.quantize_int8(args[0], s_x, zp, qmin, qmax)
+        read(f"K1 {label:12s} M={m:5d} K={k:5d} N={n:5d}", report["k1_cases"][label],
+             i8.int8_matmul_dequant, False, args, int_mm_args(codes, args[1]), iters)
+        del args, codes
+    label, m, k, n, iters = K2_CASES[0]
+    args = k2_args(label, m, k, n, dev, gen)
+    codes = torch.where(args[0] >= 0, 1, -1).to(torch.int8)
+    read(f"K2 {label:12s} M={m:5d} K={k:5d} N={n:5d}", report["k2_cases"][label],
+         i8.binary_act_matmul, True, args, int_mm_args(codes, args[1]), iters)
+    del args, codes
+    torch.cuda.empty_cache()
+    for row, case in ((k1_row, report["k1_cases"]["path"]), (k2_row, report["k2_cases"]["path"])):
+        row.update({key: case[key] for key in ("device_ms", "library_device_ms", "regime")})
 
 
 # ---------------------------------------------------------------- phase 3c
@@ -1296,46 +1402,31 @@ def serve_long(dev, seed, card, report, profile_dir=None):
 
 
 def check_k2(dev, gen, report):
-    """K2 against its twin, bit for bit. The library yardstick is
+    """K2 against its twin, bit for bit: the public wrapper in the regime
+    ``_k1_regime`` picks, and each regime forced. The library yardstick is
     ``torch._int_mm`` over sign codes made beforehand: the integer product
     only, without K2's sign and its alpha epilogue (N padded to what
-    ``_int_mm`` takes)."""
+    ``_int_mm`` takes). Device times come at the end of phase 12."""
+    from micronet_tpu_torch.ops import _build
     from micronet_tpu_torch.ops import int_matmul as i8
 
     out_cases = {}
     for label, m, k, n, iters in K2_CASES:
-        x = torch.randn((m, k), device=dev, generator=gen)
-        if label == "zeros":
-            x = torch.where(torch.rand((m, k), device=dev, generator=gen) < 0.25, 0.0, x)
-            x = torch.where(torch.rand((m, k), device=dev, generator=gen) < 0.25, -0.0, x)
-            x[0, :4] = float("nan")
-        w_q = torch.randint(-1, 2, (k, n), dtype=torch.int8, device=dev, generator=gen)
-        alpha = torch.rand((n,), device=dev, generator=gen) + 0.5
-        args = (x, w_q, alpha)
-        got = i8.binary_act_matmul(*args)
-        ref = i8.binary_act_matmul_ref(*args)
-        torch.cuda.synchronize()
-        err = (got - ref).abs().max().item()
-        if not torch.equal(got, ref):
-            fail(f"K2 {label} M={m} K={k} N={n}: kernel differs from its twin "
-                 f"(max|err| {err:.3e}, {int((got != ref).sum())} elements)")
+        args = k2_args(label, m, k, n, dev, gen)
+        regime = i8._k1_regime(m, k, n, _build.sm_count(dev))
+        err = check_int8_call(f"K2 {label} M={m} K={k} N={n}", i8.binary_act_matmul,
+                              i8.binary_act_matmul_ref, True, args, regime)
         ms = time_ms(i8.binary_act_matmul, [args], iters)
         plain = time_ms(i8.binary_act_matmul_ref, [args], max(3, iters // 20), 1)
-        codes = torch.where(x >= 0, 1, -1).to(torch.int8)
-        w_nk = torch.zeros((max(16, -(-n // 8) * 8), k), dtype=torch.int8, device=dev)
-        w_nk[:n] = w_q.t()
-        lib = time_ms(torch._int_mm, [(codes, w_nk.t())], iters)
-        nbytes = m * k * 4 + k * n + n * 4 + m * n * 4
-        ops = 2 * m * k * n
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S
+        codes = torch.where(args[0] >= 0, 1, -1).to(torch.int8)
+        lib = time_ms(torch._int_mm, [int_mm_args(codes, args[1])], iters)
+        bound, bound_by = int8_bound(m, k, n)
         out_cases[label] = dict(m=m, k=k, n=n, ms=ms, plain_ms=plain, library_ms=lib,
-                                bound_ms=max(t_bytes, t_ops) * 1e3,
-                                bound_by="bytes" if t_bytes >= t_ops else "operations",
-                                max_abs_err=err)
-        log(f"K2 {label:6s} M={m:6d} K={k:5d} N={n:5d}: equal to its twin; kernel {ms:.4f} ms, "
-            f"plain {plain:.4f} ms, torch._int_mm on sign codes {lib:.4f} ms, bound "
-            f"{out_cases[label]['bound_ms']:.4f} ms ({out_cases[label]['bound_by']})")
-        del x, codes, got, ref
+                                bound_ms=bound, bound_by=bound_by, max_abs_err=err, regime=regime)
+        log(f"K2 {label:6s} M={m:6d} K={k:5d} N={n:5d} (regime {regime}): wrapper, small and "
+            f"gemm regimes equal to the twin; kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+            f"torch._int_mm on sign codes {lib:.4f} ms, bound {bound:.4f} ms ({bound_by})")
+        del args, codes
     torch.cuda.empty_cache()
     report["k2_cases"] = out_cases
     return out_cases
@@ -1604,6 +1695,11 @@ def main() -> int:
     wo = check_k8_k9(dev, gen, report)
     k3_device_times(dev, gen, report, k3)
     attention_device_times(dev, gen, report, att, long_att)
+    k1_row = {k: v for k, v in k1["path"].items()
+              if k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err")}
+    k2_row = {k: v for k, v in k2["path"].items()
+              if k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err")}
+    int8_device_times(dev, gen, report, k1_row, k2_row)
     launches.update({k: v for k, v in wbwtab_engine(dev, args.seed, report, profile_dir).items()
                      if k in WBWTAB_KERNELS})
 
@@ -1632,8 +1728,7 @@ def main() -> int:
              launches=launches["int8_matmul_dequant"],
              per="one call at M=512 K=512 N=10 (ResNet-18's fc at batch 512); library_ms is "
                  "torch._int_mm on codes quantized beforehand: the integer product only",
-             **{k: v for k, v in k1["path"].items()
-                if k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err")}),
+             **k1_row),
         dict(name="decode_attend_q8kv_blocked_cur", route="cuda",
              source=src + "decode_attention.cu",
              replaces="micronet_tpu/ops/decode_attention.py:390",
@@ -1657,8 +1752,7 @@ def main() -> int:
              per=f"one call at M={K2_CASES[0][1]} K={K2_CASES[0][2]} N={K2_CASES[0][3]} "
                  "(NIN-GC's 8th conv as a dense GEMM at batch 1024); library_ms is "
                  "torch._int_mm on sign codes made beforehand: the integer product only",
-             **{k: v for k, v in k2["path"].items()
-                if k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err")}),
+             **k2_row),
         dict(name="int4_matmul", route="cuda", source=src + "int4_matmul.cu",
              replaces="micronet_tpu/ops/int4_matmul.py:158", launches=launches["int4_matmul"],
              per="129 calls at M=8 over the five 8B shapes (one decode step's worth)",

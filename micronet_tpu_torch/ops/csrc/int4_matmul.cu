@@ -118,7 +118,7 @@
 // - Diagnostic builds (tools/w4_variants.py, through ops/_build.py's defines): W4_NO_COMPUTE
 //   keeps the copies and the split sum but no warp computes; W4_NO_REDUCE skips the split sum.
 
-#include <cuda.h>  // CUtensorMap and its enums (the encoder is fetched at run time)
+#include "hopper.cuh"  // smem_addr, cp.async, mbarriers, TMA, wgmma fences, encode_tiled
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -150,27 +150,6 @@ static_assert(8 * 64 * 16 * 4 <= w4_stages(2) * w4_slot_bytes(2), "ring too smal
 // each group's partial dot, a group a multiple of 16 rows or any group (a k-tile cut by a
 // group boundary runs one masked MMA per group it touches)
 enum W4Mode { kW4Col = 0, kW4Group = 1, kW4GroupAny = 2, kW4Hl8 = 3, kW4Hl8Any = 4 };
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// global -> shared copies of 16 or 4 bytes; src_bytes 0 fills the destination with zeros
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_addr(dst)), "l"(src), "r"(src_bytes) : "memory");
-}
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               :: "r"(smem_addr(dst)), "l"(src), "r"(src_bytes) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(kPending) : "memory");
-}
 
 // d += a (16x16 bf16, row) * b (16x8 bf16, col), f32 accumulators
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
@@ -531,21 +510,6 @@ w4_kernel(const float* __restrict__ x, const int8_t* __restrict__ packed,
   if (tid == 0) counters[tile] = 0;  // ready for the next call on this stream
 }
 
-// raise a kernel's dynamic shared-memory limit, once per device (allowed: the caller's flags,
-// one set per kernel instantiation)
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kern, int bytes, bool (&allowed)[64]) {
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  if (dev >= 64 || !allowed[dev]) {
-    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (e != cudaSuccess) return e;
-    if (dev < 64) allowed[dev] = true;
-  }
-  return cudaSuccess;
-}
-
 template <int MB, int kMode, bool kVec16>
 int w4_launch(const void* x, const void* packed, const void* scale, void* out, void* ws,
               void* counters, int M, int K, int N, int group, int splits, cudaStream_t st) {
@@ -602,29 +566,6 @@ static_assert(kGbSmem <= 232448, "regime B's shared memory exceeds a block's");
 constexpr int kGbConsumers = 2 * 128;           // two warpgroups: wgmma
 constexpr int kGbThreads = kGbConsumers + 32;   // and one producer warp: the loads
 
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int kPending>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(kPending) : "memory");
-}
-// keeps the compiler from moving accesses of an accumulator across a wgmma fence or wait
-__device__ __forceinline__ void reg_fence(float (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
-}
-
-// the descriptor of a K-major bf16 tile with the 128-byte swizzle: rows of 128 bytes (64
-// values of K), 8-row groups 1024 bytes apart; the tile's base 1024-byte aligned, a k16 step
-// 32 bytes further on
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
-}
-
 // d (64 f32 a thread) = [d +] A (64 x 16 bf16, in registers: this thread's fragment a) * B
 // (16 x 128, K-major, 128-byte swizzle, from shared memory through its descriptor)
 __device__ __forceinline__ void wgmma_rs_m64n128k16(float (&d)[64], const uint32_t (&a)[4],
@@ -680,47 +621,6 @@ __global__ void hl8_x_bf16_kernel(const float* __restrict__ x, __nv_bfloat16* __
         make_uint4(pack_bf16x2(v[0], v[1]), pack_bf16x2(v[2], v[3]), pack_bf16x2(v[4], v[5]),
                    pack_bf16x2(v[6], v[7]));
   }
-}
-
-// ---- mbarrier and TMA primitives
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(smem_addr(bar)), "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(smem_addr(bar)) : "memory");
-}
-// the barrier counts one arrival once all of this thread's earlier cp.async copies have landed
-__device__ __forceinline__ void cp_async_mbar_arrive(uint64_t* bar) {
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" :: "r"(smem_addr(bar))
-               : "memory");
-}
-// wait for the phase of parity `parity` to complete; a phase that never completes traps
-// (after about 2^35 cycles) instead of hanging the card
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  const long long t0 = clock64();
-  while (!done) {
-    if (clock64() - t0 > (1LL << 35)) __trap();
-    asm volatile("{\n.reg .pred p;\n"
-                 "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-                 "selp.u32 %0, 1, 0, p;\n}\n"
-                 : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
-  }
-}
-// a 2-D TMA tile load into this CTA's shared memory, counted by `bar`
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
-                                         int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4}], [%2];\n"
-      :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
-         "r"(c1) : "memory");
 }
 
 // (group, half, sub-stage) of consecutive stages, without divisions: the sub-stages of a
@@ -895,24 +795,6 @@ hl8_gemm_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant_
       *reinterpret_cast<float2*>(out + (size_t)(m + 1) * N + n) =
           make_float2(acc[4 * j + 1], acc[4 * j + 3]);
   }
-}
-
-// cuTensorMapEncodeTiled, from the driver through the runtime (no link against libcuda)
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) ==
-            cudaSuccess && q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
 }
 
 // the tensor maps of the x planes (2 * Mp rows of K/2 bf16; a box of 64 values, one swizzle

@@ -469,6 +469,95 @@ def test_int8_matmul_dequant_kernel_rejects_what_it_cannot_take(cuda):
                                 1.0, 0.0)
 
 
+def _k1_inputs(m, k, n, s_x, zp, seed):
+    gen = _gen(seed)
+    x = torch.randn((m, k), device="cuda", generator=gen) * (40 * s_x)
+    ties = (torch.randint(-20, 20, (m, k), device="cuda", generator=gen) + 0.5) * s_x
+    x = torch.where(torch.rand((m, k), device="cuda", generator=gen) < 0.25, ties, x)
+    w_q = torch.randint(-128, 128, (k, n), dtype=torch.int8, device="cuda", generator=gen)
+    w_scale = torch.rand((n,), device="cuda", generator=gen) * 0.02 + 1e-3
+    return x, w_q, w_scale, torch.tensor(s_x, device="cuda"), torch.tensor(zp, device="cuda")
+
+
+# beyond _K1_CASES: M = 1, K not a multiple of 16 or 32, N = 10, zp != 0, and an A4 call of
+# the GEMM regime's size with a ragged K and an odd N
+_K1_REGIME_CASES = _K1_CASES + [
+    (1, 37, 10, 0.05, 0.0, -128.0, 127.0),
+    (7, 100, 10, 0.1, 2.0, -128.0, 127.0),
+    (300, 1000, 513, 0.25, -3.0, -8.0, 7.0),
+    (129, 2000, 130, 0.05, 1.0, -128.0, 127.0),
+]
+
+
+
+@pytest.mark.parametrize("m,k,n,s_x,zp,qmin,qmax", _K1_REGIME_CASES)
+def test_int8_matmul_dequant_regimes_equal_twin_bit_for_bit(cuda, m, k, n, s_x, zp, qmin, qmax):
+    """K1 forced into each regime (the small mma.sync kernel, the wgmma
+    GEMM with its pre-passes; N % 4 == 0 stores out by TMA, other N by
+    plain stores): each equals the twin and the other bit for bit, a second
+    call equals the first, and neither counts a launch."""
+    x, w_q, w_scale, s, z = _k1_inputs(m, k, n, s_x, zp, seed=m + k + n)
+    ref = ti8.int8_matmul_dequant_ref(x, w_q, w_scale, s, z, qmin, qmax)
+    before = ti8.int8_matmul_dequant.launches
+    quant = (s, z, qmin, qmax)
+    small = ti8._small_call(x, w_q, w_scale, quant)
+    torch.cuda.synchronize()
+    assert torch.equal(small, ref)
+    assert torch.equal(ti8._small_call(x, w_q, w_scale, quant), small)
+    gemm = ti8._gemm_call(x, w_q, w_scale, quant)
+    torch.cuda.synchronize()
+    assert torch.equal(gemm, ref)
+    assert torch.equal(ti8._gemm_call(x, w_q, w_scale, quant), gemm)
+    assert ti8.int8_matmul_dequant.launches == before
+
+
+def test_int8_matmuls_count_one_launch_per_wrapper_call(cuda):
+    """Each public call counts one launch, in either regime, pre-passes
+    included; the twin on CPU tensors counts none."""
+    for m, k, n in [(512, 512, 10), (1024, 1024, 1024)]:
+        x, w_q, w_scale, s, z = _k1_inputs(m, k, n, 0.05, 0.0, seed=3)
+        b1, b2 = ti8.int8_matmul_dequant.launches, ti8.binary_act_matmul.launches
+        ti8.int8_matmul_dequant(x, w_q, w_scale, s, z)
+        ti8.binary_act_matmul(x, w_q.clamp(-1, 1), w_scale)
+        ti8.int8_matmul_dequant(x.cpu(), w_q.cpu(), w_scale.cpu(), 0.05, 0.0)
+        torch.cuda.synchronize()
+        assert ti8.int8_matmul_dequant.launches == b1 + 1
+        assert ti8.binary_act_matmul.launches == b2 + 1
+
+
+def test_int8_matmuls_raise_past_their_limits(cuda):
+    """K past the int32 bound, and an empty x, raise in both regimes and in
+    the public wrappers, before anything launches."""
+    k = ti8._K_MAX + 1
+    x = torch.randn((1, k), device=cuda)
+    w_q = torch.zeros((k, 10), dtype=torch.int8, device=cuda)
+    ones = torch.ones(10, device=cuda)
+    quant = (torch.tensor(1.0, device=cuda), torch.tensor(0.0, device=cuda), -128.0, 127.0)
+    for call in (ti8._small_call, ti8._gemm_call):
+        with pytest.raises(ValueError, match="int32"):
+            call(x, w_q, ones, quant)
+        with pytest.raises(ValueError, match="int32"):
+            call(x, w_q, ones)
+        with pytest.raises(ValueError, match="M, K, N > 0"):
+            call(x[:0], w_q, ones)
+    before = ti8.binary_act_matmul.launches
+    with pytest.raises(ValueError, match="int32"):
+        ti8.binary_act_matmul(x, w_q, ones)
+    with pytest.raises(ValueError, match="int32"):
+        ti8.int8_matmul_dequant(x, w_q, ones, 1.0, 0.0)
+    assert ti8.binary_act_matmul.launches == before
+    # the largest K takes both regimes
+    k = ti8._K_MAX
+    x = torch.full((1, k), -1.0, device=cuda)
+    w_q = torch.full((k, 10), -128, dtype=torch.int8, device=cuda)
+    ref = ti8.int8_matmul_dequant_ref(x, w_q, ones, 1.0 / 128, 0.0)
+    assert ref[0, 0].item() == k * 128  # acc = K * 128 * 128, times 1 / 128
+    for call in (ti8._small_call, ti8._gemm_call):
+        assert torch.equal(call(x, w_q, ones, (torch.tensor(1.0 / 128, device=cuda),
+                                                torch.tensor(0.0, device=cuda), -128.0, 127.0)),
+                           ref)
+
+
 # ResNet-18 and NIN-GC layer shapes at batch 4 (see tests/test_torch_engine.py)
 _CONV_CASES = [
     (4, 64, 32, 64, 3, 1, 1, 1, False),
@@ -590,6 +679,34 @@ def test_binary_act_matmul_kernel_rejects_what_it_cannot_take(cuda):
     with pytest.raises(ValueError):  # f16 activations
         ti8.binary_act_matmul(x.half(), torch.zeros((16, 8), dtype=torch.int8, device=cuda),
                               torch.ones(8, device=cuda))
+
+
+_K2_REGIME_CASES = _K2_CASES + [(1, 45, 10), (64, 1000, 300), (40, 1500, 260)]
+
+
+@pytest.mark.parametrize("m,k,n", _K2_REGIME_CASES)
+def test_binary_act_matmul_regimes_equal_twin_bit_for_bit(cuda, m, k, n):
+    """K2 forced into each regime, x holding 0, -0.0 (both +1) and NaN
+    (-1): each equals the twin and the other bit for bit, and a second call
+    equals the first."""
+    gen = _gen(7 * m + n)
+    x = torch.randn((m, k), device=cuda, generator=gen)
+    x = torch.where(torch.rand((m, k), device=cuda, generator=gen) < 0.1, 0.0, x)
+    x = torch.where(torch.rand((m, k), device=cuda, generator=gen) < 0.1, -0.0, x)
+    x[0, 0] = float("nan")
+    w_q = torch.randint(-1, 2, (k, n), dtype=torch.int8, device=cuda, generator=gen)
+    alpha = torch.rand((n,), device=cuda, generator=gen) + 0.5
+    ref = ti8.binary_act_matmul_ref(x, w_q, alpha)
+    before = ti8.binary_act_matmul.launches
+    small = ti8._small_call(x, w_q, alpha)
+    torch.cuda.synchronize()
+    assert torch.equal(small, ref)
+    assert torch.equal(ti8._small_call(x, w_q, alpha), small)
+    gemm = ti8._gemm_call(x, w_q, alpha)
+    torch.cuda.synchronize()
+    assert torch.equal(gemm, ref)
+    assert torch.equal(ti8._gemm_call(x, w_q, alpha), gemm)
+    assert ti8.binary_act_matmul.launches == before
 
 
 # (K, N, K9's group): the 8B wo shape; K/2 = 320 (five 64-row stages) with a ragged N;
