@@ -90,7 +90,20 @@ Phases, each fatal on failure (non-zero exit, no final line):
    port's fp32 eval and the fused float model; on 8 images the first
    block's pre-sign output on the card against the CPU, then the rest of
    the engine from the same signs on both, bit for bit;
-14. the kernels line (JSON), then the final line
+14. training (slice 5's main path) through ``micronet_tpu_torch.cli``:
+   ``train`` on ``nin_gc.Net()`` at full width, batch 256, 2 epochs of 8
+   steps on the synthetic set, for ``float``, ``iao --bn_fuse``,
+   ``dorefa`` and ``wbwtab --W 3 --A 2`` (no hand-written kernel: every
+   count 0; each method's last loss below its first; img/s with the run's
+   first step left out, step times, peak memory, losses and test accuracy
+   on a line of their own), ``model-test`` on the IAO checkpoint
+   (EQUIVALENCE OK), then each method's step at batch 8 on the card
+   against the CPU, block by block from the CPU's inputs (TF32 off);
+15. ``cli train --ptq --ptq_observer kl --calib_cache`` on full-width
+   ResNet-18, ``cli freeze-int``, the engine at batch 512 (K1 once per
+   forward, the card against the CPU on 8 images); then NIN's ``train -sr``
+   -> ``prune --percent 0.5`` -> ``train --prune_quant``;
+16. the kernels line (JSON), then the final line
    ``{"ok": true, "device": {...}}``.
 
 Details of every measurement go to ``<out>/chip_smoke.json`` (``--out``,
@@ -1637,6 +1650,432 @@ def wbwtab_engine(dev, seed, report, profile_dir=None):
     return {k: sum(r[k] for r in runs) for k in runs[0]}
 
 
+# ---------------------------------------------------------------- phase 14
+
+
+# slice 5: the CLI's training path. NIN-GC at its default widths and the
+# CLI's default batch, on the synthetic set at its default 2,048 images
+# (8 steps an epoch); (label, method flags)
+TRAIN_METHODS = [("float", ["--method", "float"]), ("iao", ["--method", "iao", "--bn_fuse"]),
+                 ("dorefa", ["--method", "dorefa"]),
+                 ("wbwtab", ["--method", "wbwtab", "--W", "3", "--A", "2"])]
+TRAIN_EPOCHS, TRAIN_BATCH, STEP_BATCH = 2, 256, 8
+# the card's step against the CPU's, block by block from the CPU's inputs
+# to each block (f32 convs summed in another order; TF32 off): the last
+# block's loss within STEP_RTOL relative, outputs within STEP_RTOL x
+# max(1, max|out|), gradients within STEP_RTOL x max|g|
+STEP_RTOL = 1e-4
+# a code, sign, STE or ReLU mask may round the other way on the card only
+# this close to its edge (codes in grid units; signs and masks in |x|;
+# ternary thresholds relative); a flip anywhere else fails the run
+CODE_EDGE, SIGN_EDGE, CENTER_EDGE, TERNARY_EDGE = 1e-3, 1e-4, 1e-6, 1e-5
+
+
+def _near_half(v):
+    v = v.double()
+    return (v - torch.floor(v) - 0.5).abs() < CODE_EDGE
+
+
+def _quant_points(block):
+    """Forward hooks recording, per rounding edge of ``block`` whose input
+    the card computes otherwise, its input and output: IAO weight
+    quantizers (BN-folded weights), wbwtab signs and ReLUs (their
+    gradient mask)."""
+    from micronet_tpu_torch.nn import modules as M
+    from micronet_tpu_torch.nn import qat_iao, qat_wbwtab
+
+    rec, handles = {}, []
+    for name, m in block.named_modules():
+        if (isinstance(m, qat_iao.FakeQuantizer) and m.is_weight) or isinstance(m, M.ReLU) or (
+                isinstance(m, qat_wbwtab.ActivationQuantizer) and m.A == 2):
+            def hook(mod, inp, out, name=name):
+                rec[name] = (mod, inp[0].detach(), out.detach())
+            handles.append(m.register_forward_hook(hook))
+    return rec, handles
+
+
+def _weight_flips(block_card, block_cpu):
+    """Out channels (axis 0 of the block's conv weights) whose DoReFa or
+    wbwtab weight codes came out otherwise on the card; fails on a flip
+    that is not at an edge."""
+    from micronet_tpu_torch.nn import qat_dorefa, qat_wbwtab
+    from micronet_tpu_torch.quant import dorefa, wbwtab
+
+    chans = set()
+    for (name, mc), mh in zip(block_card.named_modules(), block_cpu.modules()):
+        if isinstance(mh, (qat_dorefa.QuantConv2d, qat_dorefa.QuantLinear)):
+            step = ((1 << mh.w_bits) - 1) / 2.0
+            codes = [torch.round((dorefa.quantize_weight(m.weight.detach(), mh.w_bits).cpu()
+                                  + 1) * step) for m in (mc, mh)]
+            t = torch.tanh(mh.weight.detach().double())
+            edge = _near_half((t / (2 * t.abs().max()) + 0.5) * (2 * step))
+        elif isinstance(mh, qat_wbwtab.QuantConv2d) and mh.W in (2, 3):
+            codes = [torch.sign(wbwtab.quantize_weight(m.weight.detach(), mh.W)[0].cpu())
+                     for m in (mc, mh)]
+            w = mh.weight.detach().double()
+            if mh.W == 3:
+                thr = 0.7 * w.abs().mean(dim=(1, 2, 3), keepdim=True)
+                edge = (w.abs() - thr).abs() < TERNARY_EDGE * thr
+            else:
+                edge = (w - w.mean(dim=1, keepdim=True)).abs() < CENTER_EDGE
+        else:
+            continue
+        flipped = codes[0] != codes[1]
+        if bool((flipped & ~edge).any()):
+            fail(f"train step: {name}'s weight codes differ on the card away from an edge")
+        chans |= set(flipped.reshape(flipped.shape[0], -1).any(1).nonzero().flatten().tolist())
+    return chans
+
+
+def _point_flips(rec_card, rec_cpu):
+    """Channels of the block's output touched by an IAO weight code, a
+    sign, a sign's STE mask or a ReLU's mask that came out otherwise on the
+    card; fails on a flip that is not at an edge."""
+    from micronet_tpu_torch.nn import modules as M
+
+    chans = set()
+    for name, (m, x_h, out_h) in rec_cpu.items():
+        _, x_c, out_c = rec_card[name]
+        x_c, out_c = x_c.cpu(), out_c.cpu()
+        if getattr(m, "is_weight", False):
+            v_h = x_h / m.scale - m.zero_point
+            flipped = torch.round(out_c / rec_card[name][0].scale.cpu()) != torch.round(
+                out_h / m.scale)
+            edge = _near_half(v_h)
+            axis_ch = flipped.reshape(flipped.shape[0], -1).any(1)
+        elif isinstance(m, M.ReLU):  # its gradient passes where x > 0
+            flipped = (x_c > 0) != (x_h > 0)
+            edge = x_h.abs() < SIGN_EDGE
+            axis_ch = flipped.transpose(0, 1).reshape(flipped.shape[1], -1).any(1)
+        else:  # a sign: the value and its STE mask |x| < 1
+            flipped = (out_c != out_h) | ((x_c.abs() < 1) != (x_h.abs() < 1))
+            edge = (x_h.abs() < SIGN_EDGE) | ((x_h.abs() - 1).abs() < SIGN_EDGE)
+            axis_ch = flipped.transpose(0, 1).reshape(flipped.shape[1], -1).any(1)
+        if bool((flipped & ~edge).any()):
+            fail(f"train step: {name} rounds otherwise on the card away from an edge")
+        chans |= set(axis_ch.nonzero().flatten().tolist())
+    return chans
+
+
+def _close_or_fail(what, got, ref, atol, keep=None):
+    got, ref = got.detach().cpu(), ref.detach().cpu()
+    if keep is not None:
+        got, ref = got[keep], ref[keep]
+    diff = (got - ref).abs().max().item() if got.numel() else 0.0
+    if not diff <= atol:
+        fail(f"train step: {what} max|diff| {diff:.3e} (tol {atol:.3e})")
+    return diff
+
+
+def step_card_vs_cpu(method_flags, batch, dev, seed, cfg_widths=None):
+    """One training step of ``method_flags`` on NIN-GC (default widths
+    unless ``cfg_widths``) on the card against the same step on the CPU,
+    block by block: each card block gets the CPU's input to it and the
+    CPU's gradient with respect to its output, and must give the CPU's
+    output, input gradient, parameter gradients and state (BN running
+    statistics, observers) after the step. Where a value the card computes
+    otherwise rounds the other way at an edge (a BN-folded weight's code, a
+    sign or its mask, a ReLU's mask), the channels it touches leave the
+    comparison, and with them the block's input gradient. Returns the
+    numbers of the comparison."""
+    import copy
+
+    import torch.nn.functional as TF
+
+    from micronet_tpu_torch.models.nin_gc import Net
+    from micronet_tpu_torch.nn import prepare, train_mode
+    from micronet_tpu_torch.quant.config import QuantConfig
+    from micronet_tpu_torch.train import data as data_lib
+
+    method = method_flags[method_flags.index("--method") + 1]
+    kw = dict(bn_fuse="--bn_fuse" in method_flags)
+    if method == "wbwtab":
+        kw = dict(W=int(method_flags[method_flags.index("--W") + 1]),
+                  A=int(method_flags[method_flags.index("--A") + 1]))
+    cpu = Net(cfg=cfg_widths, device="cpu", generator=torch.Generator().manual_seed(seed))
+    if method != "float":
+        cpu = prepare(cpu, QuantConfig(**kw), method=method, device="cpu")
+    cpu = train_mode(cpu)
+    card = copy.deepcopy(cpu).to(dev)
+    ds = data_lib._synthetic(batch, 1)
+    gen = torch.Generator().manual_seed(seed)
+    x = data_lib.augment_batch(gen, torch.from_numpy(ds[0])).permute(0, 3, 1, 2)
+    y = torch.from_numpy(ds[1].astype(np.int64))
+    blocks_h, blocks_c = list(cpu.model.layers), list(card.model.layers)
+    # the CPU's forward through a copy records every block's input
+    xs = [x]
+    with torch.no_grad():
+        for b in copy.deepcopy(cpu).model.layers:
+            xs.append(b(xs[-1]))
+    logits = xs[-1].reshape(batch, -1).requires_grad_()
+    loss_h = TF.cross_entropy(logits, y)
+    loss_h.backward()
+    g = logits.grad.reshape(xs[-1].shape)
+    grads = [None] * len(blocks_h)
+    for i in reversed(range(len(blocks_h))):  # the CPU's backward, block by block
+        xi = xs[i].clone().requires_grad_()
+        rec, handles = _quant_points(blocks_h[i])
+        out = blocks_h[i](xi)
+        for h in handles:
+            h.remove()
+        (out * g).sum().backward()
+        grads[i] = (g, out.detach(), xi.grad, rec)
+        g = xi.grad
+    gmax = max(p.grad.abs().max().item() for p in cpu.parameters())
+    n_chan = skipped_gx = 0
+    worst = dict(out=0.0, gx=0.0, grad=0.0, state=0.0)
+    for i, (bh, bc) in enumerate(zip(blocks_h, blocks_c)):
+        g, out_h, gx_h, rec_h = grads[i]
+        xi = xs[i].to(dev).requires_grad_()
+        rec_c, handles = _quant_points(bc)
+        out = bc(xi)
+        for h in handles:
+            h.remove()
+        (out * g.to(dev)).sum().backward()
+        if i == len(blocks_c) - 1:
+            loss_c = TF.cross_entropy(out.detach().reshape(batch, -1), y.to(dev))
+        chans = _point_flips(rec_c, rec_h) | _weight_flips(bc, bh)
+        n_chan += len(chans)
+        keep = torch.ones(out_h.shape[1], dtype=torch.bool)
+        keep[list(chans)] = False
+        what = f"{method} block {i} ({type(bh).__name__})"
+        worst["out"] = max(worst["out"], _close_or_fail(
+            what + " output", out.permute(1, 0, 2, 3), out_h.permute(1, 0, 2, 3),
+            STEP_RTOL * max(1.0, out_h.abs().max().item()), keep))
+        if chans:
+            skipped_gx += 1
+        else:
+            worst["gx"] = max(worst["gx"], _close_or_fail(
+                what + " input gradient", xi.grad, gx_h, STEP_RTOL * gx_h.abs().max().item()))
+        for (name, pc), ph in zip(bc.named_parameters(), bh.parameters()):
+            k = keep if ph.shape[0] == keep.shape[0] else None
+            worst["grad"] = max(worst["grad"], _close_or_fail(
+                f"{what} gradient of {name}", pc.grad, ph.grad, STEP_RTOL * gmax, k))
+        for (name, tc), th in zip(bc.state_dict().items(), bh.state_dict().values()):
+            if th.dtype == torch.bool:
+                if not torch.equal(tc.cpu(), th):
+                    fail(f"train step: {what} state {name} differs on the card")
+                continue
+            k = keep if th.dim() and th.shape[0] == keep.shape[0] else None
+            worst["state"] = max(worst["state"], _close_or_fail(
+                f"{what} state {name}", tc.float(), th.float(),
+                STEP_RTOL * max(1.0, th.abs().max().item()), k))
+    loss_c, loss_h = float(loss_c), float(loss_h.detach())
+    rel = abs(loss_c - loss_h) / abs(loss_h)
+    if not rel <= STEP_RTOL:
+        fail(f"train step: {method} loss on the card {loss_c:.6f} vs the CPU {loss_h:.6f}")
+    return dict(loss_cpu=loss_h, loss_rel_diff=rel, blocks=len(blocks_h),
+                channels_at_an_edge=n_chan, blocks_without_input_grad_check=skipped_gx,
+                gmax=gmax, **{f"max_abs_{k}": v for k, v in worst.items()})
+
+
+def _cli(argv, what):
+    """``micronet_tpu_torch.cli.main(argv)``: its output echoed, the run
+    failed unless it returns 0."""
+    import contextlib
+    import io
+
+    from micronet_tpu_torch import cli
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main([str(a) for a in argv])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    text = buf.getvalue()
+    for line in text.splitlines():
+        log(f"  | {line}")
+    if rc != 0:
+        fail(f"{what}: cli {' '.join(map(str, argv[:3]))} returned {rc}")
+    return text, seconds
+
+
+def _train_numbers(metrics: Path, batch: int):
+    """Step times (the run's first step left out), losses and accuracy
+    from a run's metrics file."""
+    rows = [json.loads(line) for line in metrics.read_text().splitlines()]
+    epochs = [r for r in rows if r["event"] == "epoch"]
+    evals = [r for r in rows if r["event"] == "eval"]
+    ms = [t for r in epochs for t in r["step_ms"]][1:]
+    losses = [v for r in epochs for v in r["step_loss"]]
+    return dict(steps=len(losses), step_ms_median=float(np.median(ms)),
+                step_ms_max=float(np.max(ms)), img_s=batch * len(ms) / sum(ms) * 1e3,
+                first_loss=losses[0], last_loss=losses[-1],
+                test_acc_last=evals[-1]["acc"], test_acc_best=evals[-1]["best_acc"],
+                epoch_seconds=[r["seconds"] for r in epochs])
+
+
+def train_nin_gc(dev, seed, out_dir: Path, card: str, report):
+    """Slice 5's main path on NIN-GC: ``cli train`` at full width for each
+    method (every kernel count zeroed before and still 0 after: training
+    runs no hand-written kernel), then ``cli model-test`` on the IAO
+    checkpoint (EQUIVALENCE OK), then each method's step on the card
+    against the CPU's at batch 8."""
+    res = {}
+    kernels = _all_kernels()
+    for label, flags in TRAIN_METHODS:
+        ck, metrics = out_dir / f"nin_gc_{label}.npz", out_dir / f"nin_gc_{label}.jsonl"
+        metrics.unlink(missing_ok=True)
+        torch.cuda.reset_peak_memory_stats()
+        for kern in kernels:
+            kern.launches = 0
+        # -- the main path: cli train -----------------------------------
+        _, seconds = _cli(["train", "--device", str(dev), *flags, "--epochs", TRAIN_EPOCHS,
+                           "--train_batch_size", TRAIN_BATCH, "--seed", seed, "--save", ck,
+                           "--metrics", metrics], f"train {label}")
+        launches = {k.__name__: k.launches for k in kernels}
+        # ----------------------------------------------------------------
+        if any(launches.values()):
+            fail(f"train {label}: launch counts {launches}, expected none")
+        r = _train_numbers(metrics, TRAIN_BATCH)
+        r.update(seconds=seconds, peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        if not (math.isfinite(r["first_loss"]) and math.isfinite(r["last_loss"])
+                and r["last_loss"] < r["first_loss"]):
+            fail(f"train {label}: loss {r['first_loss']:.4f} -> {r['last_loss']:.4f}")
+        res[label] = r
+    for label, r in res.items():
+        r["img_s_vs_float"] = r["img_s"] / res["float"]["img_s"]
+        log(json.dumps({"phase": 14, "model": "nin_gc", "method": label, "batch": TRAIN_BATCH,
+                        "card": card, **{k: r[k] for k in (
+                            "img_s", "img_s_vs_float", "step_ms_median", "step_ms_max",
+                            "peak_gb", "first_loss", "last_loss", "test_acc_last", "steps")}}))
+    text, _ = _cli(["model-test", "--device", str(dev), "--bn_fuse", "--model",
+                    out_dir / "nin_gc_iao.npz"], "model-test iao")
+    if "EQUIVALENCE OK" not in text:
+        fail("model-test on the IAO NIN-GC checkpoint did not print EQUIVALENCE OK")
+    res["model_test"] = [line for line in text.splitlines() if "acc" in line or "FPS" in line]
+    for label, flags in TRAIN_METHODS:
+        cmp = step_card_vs_cpu(flags, STEP_BATCH, dev, seed)
+        res[label]["card_vs_cpu_step"] = cmp
+        log(f"train step {label} (NIN-GC, batch {STEP_BATCH}), card vs CPU block by block: "
+            f"loss rel diff {cmp['loss_rel_diff']:.2e}; max|diff| out "
+            f"{cmp['max_abs_out']:.2e}, input grads {cmp['max_abs_gx']:.2e}, grads "
+            f"{cmp['max_abs_grad']:.2e} (max|g| {cmp['gmax']:.2e}); "
+            f"{cmp['channels_at_an_edge']} channels at an edge left out")
+    report["train_nin_gc"] = res
+    return res
+
+
+# ---------------------------------------------------------------- phase 15
+
+
+RESNET_PTQ_EPOCHS, NIN_PRUNE_EPOCHS = 1, 1
+
+
+def ptq_resnet18(dev, seed, out_dir: Path, card: str, report):
+    """``cli train --model_type 2 --method iao --ptq --ptq_observer kl
+    --calib_cache`` on full-width ResNet-18 (KL-entropy PTQ), then ``cli
+    freeze-int``; the engine rebuilt from the checkpoint, as freeze-int
+    builds it, must hold the state freeze-int saved, launch K1 once per
+    forward at batch 512 and agree with the same engine on the CPU."""
+    import copy
+
+    from micronet_tpu_torch.infer import freeze_int, fuse_bn_iao
+    from micronet_tpu_torch.models.resnet import resnet18
+    from micronet_tpu_torch.nn import eval_mode, prepare
+    from micronet_tpu_torch.quant.config import QuantConfig
+    from micronet_tpu_torch.train import load_state
+    from micronet_tpu_torch.train.checkpoint import state_to_arrays
+
+    ck, cache = out_dir / "resnet18_ptq.npz", out_dir / "resnet18_calib.json"
+    eng_ck, metrics = out_dir / "resnet18_engine.npz", out_dir / "resnet18_ptq.jsonl"
+    for p in (cache, metrics):
+        p.unlink(missing_ok=True)
+    model, ptq = ["--model_type", 2], ["--ptq", "--ptq_observer", "kl"]
+    text, calib_s = _cli(["train", "--device", str(dev), *model, "--method", "iao", *ptq,
+                          "--calib_cache", cache,
+                          "--epochs", RESNET_PTQ_EPOCHS, "--ptq_control", "--seed", seed,
+                          "--save", ck, "--metrics", metrics], "ptq resnet18")
+    n_thr = len(json.loads(cache.read_text()))
+    if f"resolved {n_thr} thresholds" not in text or n_thr < 20:
+        fail(f"ptq resnet18: {n_thr} thresholds in the calibration table")
+    rows = [json.loads(line) for line in metrics.read_text().splitlines()]
+    _, freeze_s = _cli(["freeze-int", "--device", str(dev), *model, *ptq, "--model", ck,
+                        "--save", eng_ck], "freeze-int resnet18")
+    # the engine as freeze-int builds it, to run it here
+    cfg = QuantConfig(ptq=True, ptq_observer="kl")
+    q = prepare(resnet18(device=dev, generator=torch.Generator(device=dev).manual_seed(0)),
+                cfg, inplace=True, device=dev)
+    load_state(ck, q)
+    fused = eval_mode(fuse_bn_iao(q, cfg, device=dev))
+    engine = eval_mode(freeze_int(fused, example_input=torch.zeros((1, 32, 32, 3), device=dev),
+                                  device=dev))
+    saved = dict(np.load(eng_ck))
+    for k, v in state_to_arrays(engine).items():
+        if not np.array_equal(saved[f"model/{k}"], v):
+            fail(f"freeze-int resnet18: the saved engine's {k} differs from the rebuilt one")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((RESNET_BATCH, 32, 32, 3), device=dev, generator=gen)
+    kernels = _all_kernels()
+    with torch.no_grad():
+        for kern in kernels:
+            kern.launches = 0
+        # -- the main path: engine forwards ----------------------------
+        out = engine(x)
+        engine_ms = _forward_ms(engine, x, ENGINE_ITERS)
+        launches = {k.__name__: k.launches for k in kernels}
+        # --------------------------------------------------------------
+        ref = copy.deepcopy(engine).to("cpu")(x[:CPU_BATCH].cpu())
+    forwards = 1 + ENGINE_ITERS
+    want = {k.__name__: 0 for k in kernels}
+    want["int8_matmul_dequant"] = forwards
+    if launches != want:
+        fail(f"ptq resnet18 engine: launch counts {launches}, expected {want}")
+    if tuple(out.shape) != (RESNET_BATCH, 10) or not torch.isfinite(out).all():
+        fail(f"ptq resnet18 engine: output {tuple(out.shape)}")
+    diff = _agree("ptq resnet18: engine on the card vs on the CPU", out[:CPU_BATCH].cpu(), ref,
+                  CARD_CPU_TOL)
+    img_s = RESNET_BATCH / engine_ms * 1e3
+    res = dict(calibration_train_s=calib_s,
+               calib_epoch_s=[r for r in rows if r["event"] == "epoch"][0]["seconds"],
+               thresholds=n_thr, freeze_int_s=freeze_s, engine_ms=engine_ms,
+               engine_img_s=img_s, phase9_engine_img_s=report["resnet18_w8a8"]["engine_img_s"],
+               launches=launches, forwards=forwards, card_vs_cpu_max_abs=diff,
+               test_acc=[r for r in rows if r["event"] == "eval"][-1]["acc"])
+    report["ptq_resnet18"] = res
+    log(json.dumps({"phase": 15, "model": "resnet18", "ptq": "kl", "card": card,
+                    "calibration_s": calib_s, "calib_epoch_s": res["calib_epoch_s"],
+                    "thresholds": n_thr, "engine_batch": RESNET_BATCH,
+                    "engine_img_s": img_s, "phase9_engine_img_s": res["phase9_engine_img_s"],
+                    "k1_launches": launches["int8_matmul_dequant"], "forwards": forwards,
+                    "card_vs_cpu_max_abs": diff}))
+    return launches["int8_matmul_dequant"]
+
+
+def prune_nin(dev, seed, out_dir: Path, card: str, report):
+    """NIN at its default widths: ``train --method float -sr``, ``prune
+    --percent 0.5 --normal_regular 1``, ``train --method iao
+    --prune_quant``; the pruned widths come back through the header."""
+    sr, pruned, pq = (out_dir / f"nin_{n}.npz" for n in ("sr", "pruned", "prune_quant"))
+    metrics = out_dir / "nin_prune_quant.jsonl"
+    metrics.unlink(missing_ok=True)
+    _, sr_s = _cli(["train", "--device", str(dev), "--method", "float", "-sr", "--s", "1e-4",
+                    "--model_type", 0, "--epochs", NIN_PRUNE_EPOCHS, "--seed", seed,
+                    "--train_batch_size", TRAIN_BATCH, "--save", sr], "train -sr nin")
+    text, _ = _cli(["prune", "--device", str(dev), "--model_type", 0, "--model", sr,
+                    "--save", pruned, "--percent", 0.5, "--normal_regular", 1], "prune nin")
+    cfg = json.loads(text.split("cfg: ")[1].splitlines()[0])
+    with np.load(pruned) as z:
+        if json.loads(bytes(z["__header__"]).decode())["extra"].get("cfg") != cfg:
+            fail("prune nin: the pruned checkpoint's header does not hold its cfg")
+    if sum(cfg) >= sum([192, 160, 96, 192, 192, 192, 192, 192]):
+        fail(f"prune nin: cfg {cfg} is not narrower than the default")
+    _, pq_s = _cli(["train", "--device", str(dev), "--method", "iao", "--model_type", 0,
+                    "--prune_quant", pruned, "--epochs", NIN_PRUNE_EPOCHS, "--seed", seed,
+                    "--train_batch_size", TRAIN_BATCH, "--save", pq, "--metrics", metrics],
+                   "train --prune_quant nin")
+    r = _train_numbers(metrics, TRAIN_BATCH)
+    if not all(math.isfinite(r[k]) for k in ("first_loss", "last_loss")):
+        fail("train --prune_quant nin: the loss is not finite")
+    res = dict(cfg=cfg, sr_seconds=sr_s, prune_quant_seconds=pq_s, **r)
+    report["prune_nin"] = res
+    log(json.dumps({"phase": 15, "model": "nin", "pipeline": "-sr -> prune -> --prune_quant",
+                    "card": card, "cfg": cfg, "img_s": r["img_s"],
+                    "first_loss": r["first_loss"], "last_loss": r["last_loss"],
+                    "test_acc_last": r["test_acc_last"]}))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1702,6 +2141,9 @@ def main() -> int:
     int8_device_times(dev, gen, report, k1_row, k2_row)
     launches.update({k: v for k, v in wbwtab_engine(dev, args.seed, report, profile_dir).items()
                      if k in WBWTAB_KERNELS})
+    train_nin_gc(dev, args.seed, out_dir, card, report)
+    k1_phase15 = ptq_resnet18(dev, args.seed, out_dir, card, report)
+    prune_nin(dev, args.seed, out_dir, card, report)
 
     src = "micronet_tpu_torch/ops/csrc/"
     long_per = (f"one call, G={ATT_G} R={ATT_R} D={ATT_D} S={LONG_CTX}, bounds 0..{LONG_CTX}")
@@ -1727,8 +2169,10 @@ def main() -> int:
              replaces="micronet_tpu/ops/int_matmul.py:114",
              launches=launches["int8_matmul_dequant"],
              per="one call at M=512 K=512 N=10 (ResNet-18's fc at batch 512); library_ms is "
-                 "torch._int_mm on codes quantized beforehand: the integer product only",
-             **k1_row),
+                 "torch._int_mm on codes quantized beforehand: the integer product only; "
+                 "launches_phase15 is its count over the KL-PTQ ResNet-18 engine's "
+                 f"{ENGINE_ITERS + 1} forwards after cli freeze-int",
+             launches_phase15=k1_phase15, **k1_row),
         dict(name="decode_attend_q8kv_blocked_cur", route="cuda",
              source=src + "decode_attention.cu",
              replaces="micronet_tpu/ops/decode_attention.py:390",

@@ -1,6 +1,10 @@
 """Post-training BN fusion, both schemes: the counterpart of
 ``micronet_tpu/infer/bn_fuse.py``.
 
+``pre_quantize_weights`` applies each IAO, wbwtab or DoReFa layer's
+weight quantizer once and stores the result (a DoReFa model's inference
+copy is the same checkpoint with ``quant_inference`` set and this pass).
+
 IAO: each trained ``QuantBNFuseConv2d`` becomes a
 ``QuantConv2d(quant_inference=True)`` whose weights and bias fold the
 running statistics, with the quantizers' scale, zero_point and observer
@@ -32,9 +36,9 @@ from torch import nn
 from .._device import resolve_device
 from ..nn import functional as F
 from ..nn import modules as M
-from ..nn import qat_iao, qat_wbwtab
+from ..nn import qat_dorefa, qat_iao, qat_wbwtab
 from ..nn.transform import _children, _conv_args, _copy_model
-from ..quant import wbwtab
+from ..quant import dorefa, wbwtab
 from ..quant.config import QuantConfig
 from ..quant.quantizers import fake_quant
 
@@ -104,6 +108,8 @@ def pre_quantize_weights(model: nn.Module) -> nn.Module:
                                       wq.min_val, wq.max_val, wq.symmetric))
         elif isinstance(m, qat_wbwtab.QuantConv2d):
             m.weight.copy_(wbwtab.quantize_weight(m.weight, m.W)[0])
+        elif isinstance(m, (qat_dorefa.QuantConv2d, qat_dorefa.QuantLinear)):
+            m.weight.copy_(dorefa.quantize_weight(m.weight, m.w_bits))
     return model
 
 

@@ -1,1 +1,5 @@
 """Model families of the port."""
+
+from .lenet import LeNet
+
+__all__ = ["LeNet"]

@@ -13,10 +13,17 @@ Granularity: "L" = per-tensor; per-out-channel conv weights reduce the
 OIHW axes (1, 2, 3) to (O, 1, 1, 1); per-column linear weights reduce
 the (in, out) axis 0 to (1, O).
 
-Not ported yet: the histogram and entropy observers (PTQ/KL), the
-``act_codes`` and ``bn_stats`` lowerings (every config runs the exact f32
-composition), ``QuantConvTranspose2d``, ``QuantConcat``,
-``QuantLeakyReLU`` and ``QuantSigmoid``.
+PTQ (``cfg.ptq``): activation quantizers observe with the percentile
+histogram (``ptq_observer="percentile"``) or collect an |x| histogram for
+the KL search of ``quant/calibrate.py`` (``"kl"``, the entropy observer);
+PTQ forces symmetric quantizers. While an entropy quantizer streams (in
+training mode, not ``qaft``) it passes its input through unquantized and
+leaves its qparams alone: they exist only once calibration resolves them.
+
+Not ported yet: the ``act_codes`` and ``bn_stats`` lowerings (every
+config runs the exact f32 composition), ``QuantConvTranspose2d``,
+``QuantConcat``, ``QuantLeakyReLU`` and ``QuantSigmoid`` (ROADMAP.md,
+Queue 1 items 7 and 8).
 """
 
 from __future__ import annotations
@@ -28,7 +35,8 @@ from torch import nn
 
 from .._device import resolve_device
 from ..quant.config import QuantConfig
-from ..quant.observers import MinMaxState, ema_minmax_update, minmax_update
+from ..quant.observers import (EntropyState, HistogramState, MinMaxState, ema_minmax_update,
+                               entropy_update, histogram_update, minmax_update)
 from ..quant.quantizers import asymmetric_qparams, fake_quant, quant_range, symmetric_qparams
 from . import functional as F
 from .functional import IntPair, _pair
@@ -46,24 +54,28 @@ __all__ = [
     "QuantAdd",
 ]
 
-_NOT_PORTED = "not ported yet (ROADMAP.md, Queue 1: PTQ/QAFT/KL calibration)"
+_OBSERVERS = ("minmax", "ema", "histogram", "entropy")
 
 
 class FakeQuantizer(nn.Module):
     """One fake-quant chain: observer, qparams and clip-STE round.
 
-    ``observer`` is ``"minmax"`` (cumulative) or ``"ema"``. ``union=True``
-    is ``QuantAdd``'s shared quantizer: it never observes, but refreshes
-    its qparams each training step from the min/max assigned to it.
+    ``observer`` is ``"minmax"`` (cumulative), ``"ema"``, ``"histogram"``
+    (EMA of the per-batch ``percentile`` of |x|) or ``"entropy"`` (an |x|
+    histogram of ``entropy_bins`` bins in ``ent_counts``/``ent_absmax``,
+    per-tensor only). ``union=True`` is ``QuantAdd``'s shared quantizer: it
+    never observes (and carries no histogram), but refreshes its qparams
+    each training step from the min/max assigned to it.
     """
 
     def __init__(self, bits: int, *, symmetric: bool = True, is_weight: bool = False,
                  stat_shape: Tuple[int, ...] = (1,), axes: Optional[Tuple[int, ...]] = None,
-                 observer: str = "ema", momentum: float = 0.1, qaft: bool = False,
-                 union: bool = False, device: Device = None):
+                 observer: str = "ema", momentum: float = 0.1, percentile: float = 0.9999,
+                 qaft: bool = False, union: bool = False, entropy_bins: int = 2048,
+                 device: Device = None):
         super().__init__()
-        if observer not in ("minmax", "ema"):
-            raise NotImplementedError(f"observer {observer!r} is {_NOT_PORTED}")
+        if observer not in _OBSERVERS:
+            raise ValueError(f"observer {observer!r}; pick from {_OBSERVERS}")
         dev = resolve_device(device)
         self.bits = bits
         self.symmetric = symmetric
@@ -71,6 +83,7 @@ class FakeQuantizer(nn.Module):
         self.axes = None if axes is None else tuple(axes)
         self.observer = observer
         self.momentum = momentum
+        self.percentile = percentile
         self.qaft = qaft
         self.union = union
         if bits not in (1, 32):
@@ -83,54 +96,85 @@ class FakeQuantizer(nn.Module):
         self.register_buffer("initialized", torch.zeros((), dtype=torch.bool, device=dev))
         self.register_buffer("scale", torch.ones(shape, device=dev))
         self.register_buffer("zero_point", torch.zeros(shape, device=dev))
+        if observer == "entropy" and not union:
+            # KL calibration is for activations, which are per-tensor
+            if any(d != 1 for d in shape):
+                raise ValueError("entropy (KL) calibration is per-tensor only: activation "
+                                 f"quantizers are layer-level; got stat_shape={shape}")
+            self.register_buffer("ent_counts", torch.zeros(entropy_bins, device=dev))
+            self.register_buffer("ent_absmax", torch.zeros((), device=dev))
 
     @torch.no_grad()
     def observe(self, x: torch.Tensor) -> None:
-        """Update min/max from a batch."""
-        state = MinMaxState(self.min_val, self.max_val, self.initialized)
-        if self.observer == "minmax":
-            state = minmax_update(state, x, self.axes)
+        """Update the observer's statistics from a batch."""
+        if self.observer == "entropy":
+            est = entropy_update(EntropyState(self.ent_counts, self.ent_absmax,
+                                              self.initialized), x)
+            self.ent_counts.copy_(est.counts)
+            self.ent_absmax.copy_(est.absmax)
+            self.initialized.copy_(est.initialized)
+            return
+        if self.observer == "histogram":
+            state = histogram_update(HistogramState(self.min_val, self.max_val,
+                                                    self.initialized),
+                                     x, self.percentile, self.momentum)
         else:
-            state = ema_minmax_update(state, x, self.axes, self.momentum)
+            state = MinMaxState(self.min_val, self.max_val, self.initialized)
+            if self.observer == "minmax":
+                state = minmax_update(state, x, self.axes)
+            else:
+                state = ema_minmax_update(state, x, self.axes, self.momentum)
         self.min_val.copy_(state.min_val)
         self.max_val.copy_(state.max_val)
         self.initialized.copy_(state.initialized)
 
     @torch.no_grad()
     def update_qparams(self) -> None:
-        """Refresh scale/zero_point from the observer state."""
+        """Refresh scale/zero_point from the observer state. The buffers are
+        rebound to the new tensors, not written in place: a forward that
+        quantizes twice (``QuantAdd``'s two addends) keeps the scale its
+        first use saved for the backward."""
         qparams = symmetric_qparams if self.symmetric else asymmetric_qparams
-        scale, zp = qparams(self.min_val, self.max_val, self.qmin, self.qmax)
-        self.scale.copy_(scale)
-        self.zero_point.copy_(zp)
+        self.scale, self.zero_point = qparams(self.min_val, self.max_val, self.qmin, self.qmax)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.bits == 32:
             return x
         if self.bits == 1:
             raise ValueError("1-bit is not supported by the IAO path; use wbwtab")
-        if self.training and not self.qaft:
+        streaming = self.training and not self.qaft
+        if streaming:
             if not self.union:
                 self.observe(x)
-            self.update_qparams()
+            if self.observer != "entropy":
+                self.update_qparams()
+        if streaming and self.observer == "entropy":
+            return x  # the float network streams until calibration resolves it
         return fake_quant(x, self.scale, self.zero_point, self.qmin, self.qmax,
                           self.min_val, self.max_val, self.symmetric)
 
 
+def _ptq_observer(cfg: QuantConfig) -> str:
+    return "entropy" if cfg.ptq_observer == "kl" else "histogram"
+
+
 def _act_quantizer(cfg: QuantConfig, dev) -> FakeQuantizer:
-    """Activation quantizer: per-tensor EMA min/max."""
+    """Activation quantizer, per-tensor: EMA min/max in QAT; under PTQ the
+    histogram or entropy observer, symmetric."""
     if cfg.ptq:
-        raise NotImplementedError(f"ptq=True is {_NOT_PORTED}")
+        return FakeQuantizer(cfg.a_bits, symmetric=True, observer=_ptq_observer(cfg),
+                             percentile=cfg.percentile, qaft=cfg.qaft, device=dev)
     return FakeQuantizer(cfg.a_bits, symmetric=cfg.symmetric, observer="ema",
                          qaft=cfg.qaft, device=dev)
 
 
 def _weight_quantizer(cfg: QuantConfig, stat_shape, axes, dev) -> FakeQuantizer:
     """Weight quantizer: min/max or EMA by ``weight_observer``,
-    per-channel (``stat_shape``/``axes``) or per-layer by ``q_level``."""
+    per-channel (``stat_shape``/``axes``) or per-layer by ``q_level``;
+    symmetric under PTQ."""
     if cfg.q_level != 0:
         stat_shape, axes = (1,), None
-    return FakeQuantizer(cfg.w_bits, symmetric=cfg.symmetric, is_weight=True,
+    return FakeQuantizer(cfg.w_bits, symmetric=cfg.symmetric or cfg.ptq, is_weight=True,
                          stat_shape=stat_shape, axes=axes,
                          observer="minmax" if cfg.weight_observer == 0 else "ema",
                          qaft=cfg.qaft, device=dev)
@@ -333,15 +377,14 @@ class QuantAdd(nn.Module):
 
     def __init__(self, *, cfg: QuantConfig, device: Device = None):
         super().__init__()
-        if cfg.ptq:
-            raise NotImplementedError(f"ptq=True is {_NOT_PORTED}")
         dev = resolve_device(device)
         self.qaft = cfg.qaft
-        self.observer_res = FakeQuantizer(cfg.a_bits, symmetric=True, qaft=cfg.qaft, device=dev)
-        self.observer_shortcut = FakeQuantizer(cfg.a_bits, symmetric=True, qaft=cfg.qaft,
-                                               device=dev)
-        self.activation_quantizer = FakeQuantizer(cfg.a_bits, symmetric=cfg.symmetric,
-                                                  qaft=cfg.qaft, union=True, device=dev)
+        kw = dict(observer=_ptq_observer(cfg) if cfg.ptq else "ema",
+                  percentile=cfg.percentile, qaft=cfg.qaft, device=dev)
+        self.observer_res = FakeQuantizer(cfg.a_bits, symmetric=True, **kw)
+        self.observer_shortcut = FakeQuantizer(cfg.a_bits, symmetric=True, **kw)
+        self.activation_quantizer = FakeQuantizer(cfg.a_bits, symmetric=cfg.symmetric or cfg.ptq,
+                                                  union=True, **kw)
 
     def forward(self, res: torch.Tensor, shortcut: torch.Tensor) -> torch.Tensor:
         if self.training and not self.qaft:

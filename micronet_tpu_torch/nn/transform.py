@@ -1,10 +1,12 @@
 """``prepare()``, the model-tree quantization transform: the counterpart of
-``micronet_tpu/nn/transform.py`` (IAO and wbwtab; DoReFa is not ported
-yet).
+``micronet_tpu/nn/transform.py`` (IAO, DoReFa and wbwtab).
 
 IAO: Conv2d -> QuantConv2d, or with ``bn_fuse`` the pair (Conv2d,
 following sibling BatchNorm2d) -> (QuantBNFuseConv2d, Identity); Linear,
 the pools and Add -> their quant variants. A plain ReLU is left alone.
+
+DoReFa: every Conv2d and Linear but the first quantizable one -> its
+DoReFa layer (no observers, nothing else changes).
 
 wbwtab: every Conv2d but the first and the last -> the wbwtab
 QuantConv2d; every ReLU after the first conv and before the last ->
@@ -26,9 +28,9 @@ from torch import nn
 from .._device import resolve_device
 from ..quant.config import QuantConfig
 from . import modules as M
-from . import qat_iao, qat_wbwtab
+from . import qat_dorefa, qat_iao, qat_wbwtab
 
-__all__ = ["prepare", "prepare_iao", "prepare_wbwtab"]
+__all__ = ["prepare", "prepare_iao", "prepare_dorefa", "prepare_wbwtab"]
 
 Setter = Callable[[nn.Module], None]
 
@@ -172,6 +174,37 @@ def prepare_iao(model: nn.Module, cfg: QuantConfig, *, inplace: bool = False,
     return model
 
 
+def _add_quant_op_dorefa(module: nn.Module, cfg: QuantConfig, dev: torch.device,
+                         counter: list) -> None:
+    for _, child, set_child in _children(module):
+        if type(child) is M.Conv2d:
+            counter[0] += 1
+            if counter[0] > 1:  # skip the first quantizable layer
+                q = qat_dorefa.QuantConv2d(cfg=cfg, device=dev, **_conv_args(child))
+                _copy_wb(q, child)
+                set_child(q)
+        elif type(child) is M.Linear:
+            counter[0] += 1
+            if counter[0] > 1:
+                q = qat_dorefa.QuantLinear(child.in_features, child.out_features,
+                                           bias=child.bias is not None, cfg=cfg, device=dev)
+                _copy_wb(q, child)
+                set_child(q)
+        else:
+            _add_quant_op_dorefa(child, cfg, dev, counter)
+
+
+def prepare_dorefa(model: nn.Module, cfg: QuantConfig, *, inplace: bool = False,
+                   device=None) -> nn.Module:
+    """DoReFa prepare, on ``device`` (None = CUDA)."""
+    dev = resolve_device(device)
+    if not inplace:
+        model = _copy_model(model)
+    model.to(dev)
+    _add_quant_op_dorefa(model, cfg, dev, [0])
+    return model
+
+
 def _count_convs(module: nn.Module) -> int:
     n = 0
     for _, child, _ in _children(module):
@@ -206,18 +239,15 @@ def prepare_wbwtab(model: nn.Module, cfg: QuantConfig, *, inplace: bool = False,
     return model
 
 
-_PREPARE = {"iao": prepare_iao, "wbwtab": prepare_wbwtab}
+_PREPARE = {"iao": prepare_iao, "dorefa": prepare_dorefa, "wbwtab": prepare_wbwtab}
 
 
 def prepare(model: nn.Module, cfg: Optional[QuantConfig] = None, *, method: str = "iao",
             inplace: bool = False, device=None, **overrides) -> nn.Module:
     """Rewrite ``model``'s tree with quant layers per ``method``.
     ``overrides`` update fields of ``cfg`` (or of a default QuantConfig)."""
-    if method == "dorefa":
-        raise NotImplementedError(
-            "method 'dorefa' is not ported yet (ROADMAP.md, Queue 1: DoReFa)")
     if method not in _PREPARE:
-        raise ValueError(f"unknown method {method!r}; pick from ['dorefa', 'iao', 'wbwtab']")
+        raise ValueError(f"unknown method {method!r}; pick from {sorted(_PREPARE)}")
     cfg = cfg or QuantConfig()
     if overrides:
         cfg = dataclasses.replace(cfg, **overrides)

@@ -24,7 +24,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from .rounding import round_half_away
+from .rounding import clip, round_half_away, true_div
 
 __all__ = [
     "FLOAT32_EPS",
@@ -57,7 +57,7 @@ def symmetric_qparams(min_val, max_val, qmin: float, qmax: float,
     """``scale = max(|min|, |max|) / ((qmax - qmin) / 2)`` floored at eps;
     ``zero_point = 0``."""
     float_range = torch.maximum(torch.abs(min_val), torch.abs(max_val))
-    scale = torch.clamp_min(float_range / ((qmax - qmin) / 2.0), eps)
+    scale = torch.clamp_min(true_div(float_range, (qmax - qmin) / 2.0), eps)
     return scale, torch.zeros_like(scale)
 
 
@@ -65,7 +65,7 @@ def asymmetric_qparams(min_val, max_val, qmin: float, qmax: float,
                        eps: float = FLOAT32_EPS) -> Tuple[torch.Tensor, torch.Tensor]:
     """``scale = (max - min) / (qmax - qmin)`` floored at eps;
     ``zero_point = sign(min) * floor(|min / scale| + 0.5)``."""
-    scale = torch.clamp_min((max_val - min_val) / (qmax - qmin), eps)
+    scale = torch.clamp_min(true_div(max_val - min_val, qmax - qmin), eps)
     zero_point = torch.sign(min_val) * torch.floor(torch.abs(min_val / scale) + 0.5)
     return scale, zero_point
 
@@ -75,8 +75,9 @@ def fake_quant_codes(x, scale, zero_point, qmin: float, qmax: float,
     """The integer codes ``clamp(round(x/s - zp), qmin, qmax)`` as f32,
     such that ``fake_quant(x, ...) == (codes + zp) * s`` bit for bit. The
     gradient with respect to ``x`` is the clip-STE one over ``1/s``: it
-    passes inside the observer range (bounds included), carried by
-    ``clamp(v, lo, hi)`` under the exact ``(base - base.detach())`` form."""
+    passes inside the observer range and is halved on its bounds, as
+    ``jnp.clip`` gives it, carried by ``clip(v, lo, hi)`` under the exact
+    ``(base - base.detach())`` form."""
     x = x.to(torch.float32)
     scale = scale.detach()
     zero_point = zero_point.detach()
@@ -86,7 +87,7 @@ def fake_quant_codes(x, scale, zero_point, qmin: float, qmax: float,
         bound = torch.maximum(torch.abs(lo), torch.abs(hi))
         lo, hi = -bound, bound
     v = x / scale - zero_point
-    base = torch.clamp(v, lo, hi)
+    base = clip(v, lo, hi)
     q_val = torch.clamp(round_half_away(v.detach()), qmin, qmax)
     return (base - base.detach()) + q_val
 

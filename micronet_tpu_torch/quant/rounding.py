@@ -14,14 +14,38 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["round_half_away", "ste_round", "clip_ste_round", "binary_act", "binary_weight",
-           "ternary"]
+__all__ = ["round_half_away", "clip", "true_div", "ste_round", "clip_ste_round", "binary_act",
+           "binary_weight", "ternary"]
 
 
 def round_half_away(x: torch.Tensor) -> torch.Tensor:
     """``sign(x) * floor(|x| + 0.5)``: round_half_away(0.5) == 1,
     round_half_away(-1.5) == -2."""
     return torch.sign(x) * torch.floor(torch.abs(x) + 0.5)
+
+
+def _like(x: torch.Tensor, v) -> torch.Tensor:
+    """``v`` (a number or a tensor) as a tensor of ``x``'s dtype on its
+    device; a number is filled there, with no copy from the host."""
+    if isinstance(v, torch.Tensor):
+        return v.to(dtype=x.dtype, device=x.device)
+    return torch.full((), v, dtype=x.dtype, device=x.device)
+
+
+def clip(x: torch.Tensor, lo, hi) -> torch.Tensor:
+    """``jnp.clip``'s value and gradient: ``minimum(maximum(x, lo), hi)``.
+    An element equal to a bound gets half the gradient, as the JAX
+    package's ``jnp.clip`` gives it (``torch.clamp`` would pass it whole).
+    ``lo``/``hi`` are numbers or tensors that take no gradient."""
+    return torch.minimum(torch.maximum(x, _like(x, lo)), _like(x, hi))
+
+
+def true_div(x: torch.Tensor, c: float) -> torch.Tensor:
+    """``x / c`` as one rounded division, as XLA divides. On the card
+    PyTorch divides by a Python number as ``x * (1 / c)``, an ulp off on
+    some elements (then a code at a .5 edge moves); a 0-dim tensor on
+    ``x``'s device is divided by truly."""
+    return x / _like(x, c)
 
 
 def ste_round(x: torch.Tensor) -> torch.Tensor:

@@ -19,7 +19,7 @@ from typing import Tuple
 
 import torch
 
-from .rounding import binary_act, binary_weight, ternary
+from .rounding import binary_act, binary_weight, clip, ternary
 
 __all__ = ["mean_center_clamp", "quantize_weight", "quantize_activation"]
 
@@ -32,7 +32,7 @@ def mean_center_clamp(w: torch.Tensor) -> torch.Tensor:
     """Subtract each (out, h, w) filter's mean over input channels, then
     clamp to [-1, 1]."""
     mean = torch.mean(w, dim=_INPUT_CHANNEL_AXIS, keepdim=True)
-    return torch.clamp(w - mean, -1.0, 1.0)
+    return clip(w - mean, -1.0, 1.0)
 
 
 def _binary_quantize(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -1,0 +1,320 @@
+"""Training loop (QAT, PTQ, QAFT and float): the counterpart of
+``micronet_tpu/train/loop.py``.
+
+Eager PyTorch with autograd doing the backward. A training step is:
+augmentation on the device, forward in training mode (observers and BN
+statistics update inside the forward, under ``torch.no_grad``), mean
+cross-entropy, backward, an optional gradient hook (``-sr``'s BN L1
+term), then one optimizer step. The optimizer is the JAX package's
+``optax.adam`` (``optax.adamw``, decoupled weight decay, when
+``weight_decay`` is set), in optax's arithmetic (``optim.Adam``), over
+every ``nn.Parameter``, as optax updates every ``nnx.Param``: a parameter
+that took no gradient takes a zero one. The learning rate is set per
+epoch (``lr_at_epoch``).
+
+Kept from the JAX package: LR x0.1 at the milestones; PTQ as
+forward-only steps over at most ``ptq_batch`` batches an epoch (capped at
+2 epochs with ``ptq_control``) and the KL thresholds resolved after each
+calibration epoch; checkpoints on a better test accuracy (and every epoch
+with ``keep_latest``); ``grad_accum`` microbatches whose gradients
+average into one update.
+
+Random draws (epoch permutation seeds, crop offsets, flips) come from one
+CPU ``torch.Generator`` seeded with ``seed``, so a run on the card and
+on the CPU sees the same batches; they cannot be JAX's ``jax.random``
+draws. Not ported: ``mesh=`` (data parallelism) and ``remat``; both
+raise, naming their ROADMAP items.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Callable, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as TF
+from torch import nn
+
+from .._device import resolve_device
+from ..nn.modules import eval_mode, train_mode
+from ..utils.metrics import MetricsLogger
+from . import data as data_lib
+from .checkpoint import save_state, save_state_async, wait_for_saves
+from .optim import Adam
+
+__all__ = ["TrainConfig", "Trainer", "lr_at_epoch", "scaled_milestones"]
+
+MILESTONES = (80, 130, 180, 230, 280)
+
+
+def lr_at_epoch(base_lr: float, epoch: int, milestones=MILESTONES) -> float:
+    """Step decay: x0.1 at each milestone crossed."""
+    lr = base_lr
+    for m in milestones:
+        if epoch >= m:
+            lr *= 0.1
+    return lr
+
+
+def scaled_milestones(epochs: int, reference_epochs: int = 300):
+    """The milestone schedule for a shorter budget: the reference epochs
+    as they are from ``reference_epochs`` on, else two decays at 60 % and
+    85 % of the budget."""
+    if epochs >= reference_epochs:
+        return MILESTONES
+    return tuple(sorted({max(1, round(0.60 * epochs)), max(2, round(0.85 * epochs))}))
+
+
+@dataclasses.dataclass
+class TrainConfig:
+    lr: float = 1e-3
+    weight_decay: float = 0.0
+    batch_size: int = 256
+    epochs: int = 300
+    milestones: tuple = MILESTONES
+    seed: int = 1
+    ptq: bool = False
+    ptq_batch: int = 200  # forward-only calibration batches an epoch
+    ptq_control: bool = False  # cap a PTQ run at 2 epochs
+    calib_cache: Optional[str] = None  # KL calibration table file
+    metrics_path: Optional[str] = None  # JSONL metrics file
+    async_checkpoint: bool = False  # write checkpoints on a background thread
+    keep_latest: bool = False  # also write <save>.latest.npz every epoch
+    log_every: int = 100  # per-batch log cadence; <= 0 turns it off
+    # recompute activations in the backward: not ported (it would run every
+    # observer and BN update twice); raises
+    remat: bool = False
+    grad_accum: int = 1  # microbatches per optimizer step
+
+
+class _StepClock:
+    """Per-step times without a sync per step: CUDA events on the card,
+    the host clock on the CPU; read once the epoch has synced."""
+
+    def __init__(self, dev: torch.device):
+        self.cuda = dev.type == "cuda"
+        self.marks = []
+
+    def mark(self) -> None:
+        if self.cuda:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            self.marks.append(ev)
+        else:
+            self.marks.append(time.perf_counter())
+
+    def step_ms(self):
+        m = self.marks
+        if self.cuda:
+            return [m[i].elapsed_time(m[i + 1]) for i in range(len(m) - 1)]
+        return [(m[i + 1] - m[i]) * 1e3 for i in range(len(m) - 1)]
+
+
+class Trainer:
+    """Drives QAT, PTQ, QAFT or float training of a prepared (or float)
+    model on ``device`` (None = CUDA, which raises without a card).
+
+    ``grad_hook(model)``, when set, runs between the backward and the
+    optimizer step (the CLI's ``-sr`` sets ``bn_l1_grad_update`` there).
+    """
+
+    def __init__(self, model: nn.Module, cfg: TrainConfig,
+                 dataset: Optional[data_lib.Cifar10] = None, mesh=None, *, device=None):
+        if mesh is not None:
+            raise NotImplementedError(
+                "data-parallel training (mesh=) is not ported yet (ROADMAP.md, Queue 1 "
+                "item 12: parallelism)")
+        if cfg.remat:
+            raise NotImplementedError(
+                "remat is not ported (ROADMAP.md, Queue 1 item 5: remat): a recomputed "
+                "forward would update every observer and BN statistic twice")
+        self.device = resolve_device(device)
+        self.model = model.to(self.device)
+        self.cfg = cfg
+        self.metrics = MetricsLogger(cfg.metrics_path)
+        self.data = dataset or data_lib.load_cifar10()
+        self.best_acc = 0.0
+        self.epoch = 0
+        self.params = list(model.parameters())
+        self.optimizer = Adam(self.params, lr=cfg.lr, weight_decay=cfg.weight_decay)
+        self.gen = torch.Generator().manual_seed(cfg.seed)
+        self.grad_hook: Optional[Callable[[nn.Module], None]] = None
+        self._dev_data = None
+
+    # -- steps --------------------------------------------------------------
+
+    def _loss(self, x: torch.Tensor, labels: torch.Tensor):
+        logits = self.model(x)
+        return TF.cross_entropy(logits, labels), logits
+
+    def train_step(self, x: torch.Tensor, labels: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One optimizer step on the augmented batch ``x``; returns the
+        (mean loss, accuracy) as device tensors."""
+        accum = max(int(self.cfg.grad_accum), 1)
+        for p in self.params:
+            p.grad = None
+        if accum == 1:
+            loss, logits = self._loss(x, labels)
+            loss.backward()
+            acc = (logits.argmax(-1) == labels).to(torch.float32).mean()
+        else:
+            # microbatches in order: observers and BN statistics update per
+            # microbatch, the gradients sum, then average
+            n = x.shape[0] - x.shape[0] % accum
+            m = n // accum
+            loss, correct = 0.0, 0
+            for i in range(accum):
+                li, logits = self._loss(x[i * m:(i + 1) * m], labels[i * m:(i + 1) * m])
+                li.backward()
+                loss = loss + li.detach()
+                correct = correct + (logits.argmax(-1) == labels[i * m:(i + 1) * m]).sum()
+            for p in self.params:
+                if p.grad is not None:
+                    p.grad.div_(accum)
+            loss, acc = loss / accum, correct.to(torch.float32) / n
+        for p in self.params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        if self.grad_hook is not None:
+            self.grad_hook(self.model)
+        self.optimizer.step()
+        return loss.detach(), acc
+
+    @torch.no_grad()
+    def forward_step(self, x: torch.Tensor, labels: torch.Tensor):
+        """A PTQ calibration step: the forward updates the observers."""
+        loss, logits = self._loss(x, labels)
+        return loss, (logits.argmax(-1) == labels).to(torch.float32).mean()
+
+    @torch.no_grad()
+    def eval_step(self, images_u8: torch.Tensor, labels: torch.Tensor):
+        logits = self.model(data_lib.normalize_batch(images_u8))
+        loss = TF.cross_entropy(logits, labels, reduction="sum")
+        return loss, (logits.argmax(-1) == labels).sum()
+
+    # -- data ---------------------------------------------------------------
+
+    def _device_dataset(self):
+        """The whole set, uploaded once; batches are gathered on the device."""
+        if self._dev_data is None:
+            d, dev = self.data, self.device
+            self._dev_data = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (
+                d.train_images, d.train_labels.astype(np.int64), d.test_images,
+                d.test_labels.astype(np.int64)))
+        return self._dev_data
+
+    def _train_batches(self, batch_size: int):
+        tx, tl, _, _ = self._device_dataset()
+        n = tx.shape[0]
+        idx = np.arange(n)
+        np.random.RandomState(data_lib.perm_seed(self.gen)).shuffle(idx)
+        idx = torch.from_numpy(idx).to(self.device)
+        xp, lp = tx[idx], tl[idx]
+        for i in range(0, (n // batch_size) * batch_size, batch_size):
+            yield xp[i:i + batch_size], lp[i:i + batch_size]
+
+    def _eval_batches(self):
+        _, _, ex, el = self._device_dataset()
+        bs = self.cfg.batch_size
+        for i in range(0, ex.shape[0], bs):
+            yield ex[i:i + bs], el[i:i + bs]
+
+    # -- epochs -------------------------------------------------------------
+
+    def train_epoch(self, epoch: int, log: Callable[[str], None] = print) -> float:
+        cfg = self.cfg
+        train_mode(self.model)
+        lr = lr_at_epoch(cfg.lr, epoch, cfg.milestones)
+        for group in self.optimizer.param_groups:
+            group["lr"] = lr
+        losses = []
+        clock = _StepClock(self.device)
+        t0 = time.time()
+        for i, (xb, yb) in enumerate(self._train_batches(cfg.batch_size)):
+            if cfg.ptq and i >= cfg.ptq_batch:
+                break
+            clock.mark()
+            offsets, flips = data_lib.draw_augment(self.gen, xb.shape[0])
+            x = data_lib.apply_augment(xb, offsets, flips)
+            if cfg.ptq:
+                loss, acc = self.forward_step(x, yb)
+            else:
+                loss, acc = self.train_step(x, yb)
+            # the loss stays on the device: no sync per step
+            losses.append(loss)
+            if cfg.log_every > 0 and i % cfg.log_every == 0:
+                log(f"epoch {epoch} batch {i}: loss {float(loss):.4f} acc {float(acc):.4f} "
+                    f"lr {lr:.2e}")
+        clock.mark()
+        if losses:
+            losses = [float(v) for v in torch.stack(losses).cpu()]
+        dt = time.time() - t0
+        n_img = len(losses) * cfg.batch_size
+        log(f"epoch {epoch} done in {dt:.1f}s ({n_img / max(dt, 1e-9):.1f} img/s)")
+        if cfg.ptq:
+            self._maybe_finalize_entropy(log)
+        mean_loss = float(np.mean(losses)) if losses else float("nan")
+        self.metrics.log("epoch", epoch=epoch, loss=mean_loss, lr=lr,
+                         img_per_s=round(n_img / max(dt, 1e-9), 1), seconds=round(dt, 2),
+                         step_ms=clock.step_ms(), step_loss=losses)
+        return mean_loss
+
+    def _maybe_finalize_entropy(self, log: Callable[[str], None]) -> None:
+        """KL PTQ: resolve the thresholds after each calibration epoch."""
+        from ..nn.qat_iao import FakeQuantizer
+        from ..quant.calibrate import finalize_entropy_calibration
+
+        if any(isinstance(m, FakeQuantizer) and m.observer == "entropy"
+               for m in self.model.modules()):
+            table = finalize_entropy_calibration(self.model, cache=self.cfg.calib_cache)
+            log(f"entropy calibration resolved {len(table)} thresholds")
+
+    def evaluate(self) -> Tuple[float, float]:
+        """(mean loss, accuracy) over the test set, in eval mode."""
+        eval_mode(self.model)
+        total_loss, total_correct, n = 0.0, 0, 0
+        for xb, yb in self._eval_batches():
+            loss, correct = self.eval_step(xb, yb)
+            total_loss = total_loss + loss
+            total_correct = total_correct + correct
+            n += len(yb)
+        return float(total_loss) / max(n, 1), int(total_correct) / max(n, 1)
+
+    def fit(self, epochs: Optional[int] = None, checkpoint_path: Optional[str] = None,
+            log: Callable[[str], None] = print, checkpoint_extra: Optional[dict] = None,
+            restore_best: bool = False) -> float:
+        """Train; returns the best test accuracy seen. ``restore_best``
+        keeps the best epoch's state in memory and loads it back before
+        returning, so the model handed on is the one ``best_acc``
+        describes."""
+        cfg = self.cfg
+        end = epochs if epochs is not None else cfg.epochs
+        if cfg.ptq and cfg.ptq_control:
+            end = min(end, 2)
+        best_state = None
+        saver = save_state_async if cfg.async_checkpoint else save_state
+        for epoch in range(self.epoch, end):
+            self.train_epoch(epoch, log)
+            _, acc = self.evaluate()
+            log(f"epoch {epoch}: test acc {acc * 100:.2f}% (best {self.best_acc * 100:.2f}%)")
+            self.metrics.log("eval", epoch=epoch, acc=acc, best_acc=max(acc, self.best_acc))
+            if acc > self.best_acc:
+                self.best_acc = acc
+                if restore_best:
+                    best_state = {k: v.detach().clone()
+                                  for k, v in self.model.state_dict().items()}
+                if checkpoint_path:
+                    saver(checkpoint_path, self.model, optimizer=self.optimizer, step=epoch,
+                          best_acc=self.best_acc, extra=checkpoint_extra)
+                    log(f"saved best checkpoint to {checkpoint_path}")
+            if checkpoint_path and cfg.keep_latest:
+                saver(checkpoint_path + ".latest.npz", self.model, optimizer=self.optimizer,
+                      step=epoch, best_acc=self.best_acc, extra=checkpoint_extra)
+            self.epoch = epoch + 1
+        if cfg.async_checkpoint:
+            wait_for_saves()
+        if restore_best and best_state is not None:
+            self.model.load_state_dict(best_state)
+        return self.best_acc

@@ -780,3 +780,90 @@ def test_ternary_conv_card_route_exact(cuda, cin, size, cout, k, pad, groups):
     assert acc.dtype == torch.int32 and torch.equal(acc.cpu().double(), ref)
     cpu = TernaryConv2d(w_t.cpu(), alpha.cpu(), bias.cpu(), (1, 1), (pad, pad), (1, 1), groups)
     assert torch.equal(conv(x).cpu(), cpu(x.cpu()))
+
+
+# -------------------------------------------------- slice 5: training
+
+
+def _smoke():
+    """``chip_smoke.py`` at the repository's root, for its card-vs-CPU
+    training-step check."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("label", ["float", "iao", "dorefa", "wbwtab"])
+def test_train_step_on_card_equals_cpu(cuda, label):
+    """One step of each method on NIN-GC (cfg 64) at batch 8, the card
+    against the CPU block by block (``chip_smoke.step_card_vs_cpu``:
+    losses within 1e-4 relative, gradients within 1e-4 x max|g|)."""
+    cs = _smoke()
+    flags = dict(cs.TRAIN_METHODS)[label]
+    res = cs.step_card_vs_cpu(flags, 8, cuda, 0, cfg_widths=[64] * 8)
+    assert res["blocks"] == 12 and res["loss_rel_diff"] <= 1e-4
+
+
+def test_ptq_observers_on_card_equal_cpu(cuda):
+    """The percentile (``torch.topk``) and entropy (``torch.bincount``)
+    observers on the card: the percentile and absmax equal the CPU's, the
+    counts within an f32 rounding of the rescale's sums (atomics add in
+    any order)."""
+    from micronet_tpu_torch.quant import observers as obs
+
+    gen = torch.Generator().manual_seed(0)
+    es, ec = obs.init_entropy_state(2048), obs.init_entropy_state(2048, device=cuda)
+    for scale in (1.0, 4.0, 0.5, 9.0):
+        x = torch.randn((64, 64, 32, 32), generator=gen) * scale
+        assert float(obs.percentile_absmax(x.to(cuda), 0.9999)) == float(
+            obs.percentile_absmax(x, 0.9999))
+        es, ec = obs.entropy_update(es, x), obs.entropy_update(ec, x.to(cuda))
+        assert float(ec.absmax) == float(es.absmax)
+        torch.testing.assert_close(ec.counts.cpu(), es.counts, rtol=1e-6, atol=1e-3)
+
+
+def test_trainer_fit_on_card_and_checkpoint_on_cpu(cuda, tmp_path):
+    """``Trainer.fit`` on the card (LeNet, IAO with BN folding, 2 epochs,
+    ``restore_best``); its checkpoint loads into the same model on the CPU
+    with the same forward."""
+    from micronet_tpu_torch.models.lenet import LeNet
+    from micronet_tpu_torch.nn import eval_mode, prepare
+    from micronet_tpu_torch.quant.config import QuantConfig
+    from micronet_tpu_torch.train import TrainConfig, Trainer, data, load_state
+
+    tx, ty, ex, ey = data._synthetic(256, 64)
+    ds = data.Cifar10(tx, ty, ex, ey, source="synthetic")
+    cfg = QuantConfig(bn_fuse=True)
+    model = prepare(LeNet(device=cuda), cfg, device=cuda)
+    tr = Trainer(model, TrainConfig(batch_size=32, epochs=2, log_every=0), dataset=ds,
+                 device=cuda)
+    tr.fit(checkpoint_path=str(tmp_path / "c.npz"), log=lambda s: None, restore_best=True)
+    cpu = prepare(LeNet(device="cpu"), cfg, device="cpu")
+    load_state(str(tmp_path / "c.npz"), cpu)
+    x = torch.randn((8, 32, 32, 3), generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        want = eval_mode(model)(x.to(cuda)).cpu()
+        got = eval_mode(cpu)(x)
+    # restore_best: the model in memory is the saved best epoch's; a
+    # fake-quant code at a .5 edge may round otherwise on the card
+    torch.testing.assert_close(got, want, rtol=0, atol=2e-2 * max(1.0, want.abs().max()))
+
+
+def test_true_div_on_card_equals_cpu(cuda):
+    """The quant path's divisions by a constant (``rounding.true_div``):
+    bit for bit the CPU's true division on the card, where dividing by a
+    Python number would multiply by its reciprocal."""
+    from micronet_tpu_torch.quant.rounding import true_div
+    from micronet_tpu_torch.quant.quantizers import symmetric_qparams
+
+    x = torch.randn(1 << 20, generator=torch.Generator().manual_seed(0)) * 10
+    for c in (127.5, 255.0, 127.0, 1.0 / 255.0, 2048.0):
+        assert torch.equal(true_div(x.to(cuda), c).cpu(), true_div(x, c))
+    lo, hi = -x.abs()[:64].reshape(64, 1), x.abs()[64:128].reshape(64, 1)
+    card = symmetric_qparams(lo.to(cuda), hi.to(cuda), -128.0, 127.0)[0].cpu()
+    assert torch.equal(card, symmetric_qparams(lo, hi, -128.0, 127.0)[0])

@@ -20,6 +20,9 @@ from micronet_tpu_torch.models.resnet import resnet18
 from micronet_tpu_torch.quant.kv_cache import init_kv_cache
 from micronet_tpu_torch.quant.paged_kv import init_paged_kv
 from micronet_tpu_torch.serve import ServeLoop
+from micronet_tpu_torch import cli
+from micronet_tpu_torch.models.lenet import LeNet
+from micronet_tpu_torch.train import TrainConfig, Trainer
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -27,11 +30,15 @@ ROOT = Path(__file__).resolve().parents[1]
 def test_port_and_chip_smoke_import_no_jax():
     mods = sorted(m.name for m in pkgutil.walk_packages(
         micronet_tpu_torch.__path__, "micronet_tpu_torch."))
-    assert "micronet_tpu_torch.serve.scheduler" in mods and len(mods) >= 32
+    assert "micronet_tpu_torch.serve.scheduler" in mods and len(mods) >= 48
     for m in ("infer.engine", "infer.dataflow", "infer.bn_fuse", "nn.qat_iao", "nn.transform",
               "ops.int_matmul", "models.resnet", "models.nin_gc", "quant.observers",
               "ops.paged_attention", "quant.paged_kv", "quant.wbwtab", "nn.qat_wbwtab",
-              "models.nin", "ops.int4_matmul", "quant.weight_only"):
+              "models.nin", "ops.int4_matmul", "quant.weight_only", "quant.dorefa",
+              "nn.qat_dorefa", "quant.calibrate", "models.lenet", "selftest", "cli",
+              "prune", "prune.slimming", "utils", "utils.metrics", "train", "train.data",
+              "train.native_loader", "train.checkpoint", "train.loop", "train.optim",
+              "infer.evaluate", "infer.dump"):
         assert f"micronet_tpu_torch.{m}" in mods
     code = "\n".join(
         ["import sys", "preloaded = set(sys.modules)"]
@@ -53,7 +60,8 @@ def test_port_and_chip_smoke_import_no_jax():
 
 @pytest.mark.parametrize("entry", ["llama", "serve_loop", "paged_serve_loop", "kv_cache",
                                    "paged_kv", "resnet18", "nin_gc", "nin", "prepare_wbwtab",
-                                   "fuse_bn_wbwtab", "freeze_wbwtab"])
+                                   "fuse_bn_wbwtab", "freeze_wbwtab", "lenet", "prepare_dorefa",
+                                   "trainer", "cli", "quant_test_auto"])
 def test_entry_points_default_to_cuda_and_raise_without_card(monkeypatch, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cpu_model = Llama(llama_tiny(8), device="cpu")
@@ -71,6 +79,11 @@ def test_entry_points_default_to_cuda_and_raise_without_card(monkeypatch, entry)
         "fuse_bn_wbwtab": lambda: fuse_bn_wbwtab(prepare(cpu_nin, method="wbwtab",
                                                          device="cpu"), QuantConfig()),
         "freeze_wbwtab": lambda: freeze_wbwtab(cpu_nin),
+        "lenet": lambda: LeNet(),
+        "prepare_dorefa": lambda: prepare(cpu_nin, method="dorefa"),
+        "trainer": lambda: Trainer(cpu_nin, TrainConfig(), dataset=object()),
+        "cli": lambda: cli.main(["prune", "--cfg", "8,8,8,8,8,8,8,8"]),
+        "quant_test_auto": lambda: micronet_tpu_torch.quant_test_auto(),
     }
     with pytest.raises(RuntimeError, match="CUDA"):
         calls[entry]()

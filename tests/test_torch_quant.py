@@ -252,10 +252,20 @@ def test_quant_add_union_scale_bit_exact():
 
 
 def test_ptq_and_other_methods_raise_not_ported():
-    from micronet_tpu_torch.nn import prepare
+    """PTQ and DoReFa are ported now (tests/test_torch_calibrate.py,
+    tests/test_torch_dorefa.py): ``ptq=True`` builds the histogram or
+    entropy observers, symmetric, and ``prepare(method="dorefa")`` runs.
+    What is still not ported raises and names its ROADMAP item."""
+    from micronet_tpu_torch.nn import prepare, qat_dorefa
     from micronet_tpu_torch.nn.modules import Linear
 
+    lin = tqat.QuantLinear(4, 4, cfg=QuantConfig(ptq=True, q_type=1), device="cpu")
+    assert lin.activation_quantizer.observer == "histogram"
+    assert lin.activation_quantizer.symmetric and lin.weight_quantizer.symmetric
+    kl = tqat.QuantLinear(4, 4, cfg=QuantConfig(ptq=True, ptq_observer="kl"), device="cpu")
+    assert kl.activation_quantizer.ent_counts.shape == (2048,)
+    assert type(prepare(Linear(4, 4, device="cpu"), method="dorefa", device="cpu")) is Linear
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tqat.QuantLinear(4, 4, cfg=QuantConfig(ptq=True), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        prepare(Linear(4, 4, device="cpu"), method="dorefa", device="cpu")
+        qat_dorefa.QuantConvTranspose2d(4, 4, 3, cfg=QuantConfig())
+    with pytest.raises(ValueError, match="per-tensor"):
+        tqat.FakeQuantizer(8, observer="entropy", stat_shape=(4, 1, 1, 1), device="cpu")
