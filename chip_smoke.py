@@ -31,8 +31,10 @@ Phases, each fatal on failure (non-zero exit, no final line):
    show every kernel ran as often as the path calls it;
 6. with ``--profile``, a traced run of 5 decode steps at 8 busy slots
    (``torch.profiler``): device busy share and kernel time by name (and
-   the same for 3 forwards of each engine in phases 9 and 13, and for both
-   loops of phase 11);
+   the same for 3 forwards of each engine in phases 9, 13, 16 and 17, and
+   for both loops of phase 11); the traces of phases 6, 9 and 11 are
+   taken after phase 12's device readings (after a traced serving run,
+   those readings' traces lost kernels);
 7. K1 (``int8_matmul_dequant``) against its twin, bit for bit, at the
    engine's call, a large call and a ragged A4 call with zp != 0: the
    public wrapper in the regime ``_k1_regime`` picks (logged) and each of
@@ -103,7 +105,25 @@ Phases, each fatal on failure (non-zero exit, no final line):
    ResNet-18, ``cli freeze-int``, the engine at batch 512 (K1 once per
    forward, the card against the CPU on 8 images); then NIN's ``train -sr``
    -> ``prune --percent 0.5`` -> ``train --prune_quant``;
-16. the kernels line (JSON), then the final line
+16. the asymmetric engine (slice 6's main path): the ACC_TABLE recipe
+   ``iao_w4a4_asym_fl8`` (``q_type=1``, W4A4, first and last layers at 8
+   bits, BN folded). ``cli train`` on full-width NIN-GC (8 steps at batch
+   256), ``cli freeze-int`` with the same flags, the engine rebuilt from
+   the checkpoint (equal to the saved one key for key) at batch 1024,
+   within QUANT_ATOL of its fake-quant model; then full-width ResNet-18
+   through phase 9's engine path at batch 512 (its fc an asymmetric
+   ``IntLinear``: K1 launches 0 times). Both: no hand-written kernel on
+   the path (every count 0); on 8 images the card equal to the CPU layer
+   by layer, each asymmetric accumulator within its f32 rounding of the
+   exact integer value (``engine.exact_zero_point_acc``); img/s beside
+   phase 9's symmetric engine of the same model and the fp32 eval;
+17. ConvTranspose and Concat: the transposed-conv route against f64
+   ``conv_transpose2d`` at five shapes, then UpNet (conv, stride-2
+   transposed conv, 1x1 conv) and the concat net at 32 x 32, q_type 0 and
+   1, engines at batch 256: card = CPU layer by layer, within QUANT_ATOL
+   of the fake-quant model, the symmetric concat net's three chained
+   modules;
+18. the kernels line (JSON), then the final line
    ``{"ok": true, "device": {...}}``.
 
 Details of every measurement go to ``<out>/chip_smoke.json`` (``--out``,
@@ -729,7 +749,16 @@ def trace(step, steps: int, what: str, table: Path) -> dict:
                                 device_ms=e.self_device_time_total / 1e3) for e in top])
 
 
-def serve(dev, seed, report, profile_dir=None):
+def _when(later, fn):
+    """Run ``fn`` now, or, where the caller passes its ``later`` list,
+    after phase 12's device readings."""
+    if later is None:
+        fn()
+    else:
+        later.append(fn)
+
+
+def serve(dev, seed, report, profile_dir=None, later=None):
     from micronet_tpu_torch.models.llama import Llama, llama3_8b
     from micronet_tpu_torch.ops import decode_attention as da
     from micronet_tpu_torch.ops import int4_matmul as im
@@ -811,7 +840,7 @@ def serve(dev, seed, report, profile_dir=None):
     log(f"serve: launches {launches} (serving loop alone: {served}); "
         f"request 0 matches its isolated generate run")
     if profile_dir is not None:
-        profile_decode(model, dev, reqs, report, profile_dir)
+        _when(later, lambda: profile_decode(model, dev, reqs, report, profile_dir))
     return launches
 
 
@@ -1043,13 +1072,19 @@ def _forward_ms(model, x, iters):
 
 
 @torch.no_grad()
-def engine_path(name, build, cfg, batch, dev, seed, report, profile_dir=None):
+def engine_path(name, build, cfg, batch, dev, seed, report, profile_dir=None, later=None,
+                exact=False):
     """One IAO engine flow at full width on the card: random weights from a
     seeded generator, ``prepare``, calibration forwards in train mode,
     ``fuse_bn_iao``, ``freeze_int`` with an example input, then the engine
     at ``batch``. The kernel counts are zeroed just before the engine
     forwards and read just after. The same engine on the CPU (the
-    wrappers' twins, f64 convs) must agree on a few images."""
+    wrappers' twins, f64 convs) must agree on a few images. With ``exact``
+    (an asymmetric engine, no f32 first layer) the card must equal the CPU
+    layer by layer (:func:`_layers_card_vs_cpu`) and each layer's
+    accumulator the exact integer value within the rounding of the f32
+    correction order (:func:`_layers_vs_exact`); the whole model's gap to
+    its fake-quant model is reported, not held (see ``asym_resnet18``)."""
     import copy
 
     from micronet_tpu_torch.infer import freeze_int, fuse_bn_iao
@@ -1082,25 +1117,32 @@ def engine_path(name, build, cfg, batch, dev, seed, report, profile_dir=None):
         fail(f"{name}: engine output {tuple(out.shape)}, finite={bool(torch.isfinite(out).all())}")
     fp32(x)
     fp32_ms = _forward_ms(fp32, x, ENGINE_ITERS)
-    if profile_dir is not None:
-        report[f"{name}_profile"] = trace(lambda: engine(x), 3, f"{name} engine forwards",
-                                          profile_dir / f"chip_smoke_{name}_profile.txt")
+    _when(later, lambda: _profile_engine(name, engine, x, report, profile_dir))
     fq = fused(x)
     fq_agree = (out.argmax(-1) == fq.argmax(-1)).float().mean().item()
-    fq_diff = _agree(f"{name}: engine vs its fake-quant model", out[:CPU_BATCH],
-                     fq[:CPU_BATCH], FQ_TOL)
-    cpu_engine = copy.deepcopy(engine).to("cpu")
-    t1 = time.perf_counter()
-    ref = cpu_engine(x[:CPU_BATCH].cpu())
-    cpu_s = time.perf_counter() - t1
-    diff = _agree(f"{name}: engine on the card vs on the CPU", out[:CPU_BATCH].cpu(), ref,
-                  CARD_CPU_TOL)
+    checks = {}
+    if exact:
+        fq_diff = (out[:CPU_BATCH] - fq[:CPU_BATCH]).abs().max().item()
+        checks.update(_layers_vs_exact(name, engine, x[:CPU_BATCH]))
+        t1 = time.perf_counter()
+        checks.update(_layers_card_vs_cpu(name, engine, x[:CPU_BATCH]))
+        cpu_s = time.perf_counter() - t1
+        diff = checks["logits_max_abs"]
+    else:
+        fq_diff = _agree(f"{name}: engine vs its fake-quant model", out[:CPU_BATCH],
+                         fq[:CPU_BATCH], FQ_TOL)
+        cpu_engine = copy.deepcopy(engine).to("cpu")
+        t1 = time.perf_counter()
+        ref = cpu_engine(x[:CPU_BATCH].cpu())
+        cpu_s = time.perf_counter() - t1
+        diff = _agree(f"{name}: engine on the card vs on the CPU", out[:CPU_BATCH].cpu(), ref,
+                      CARD_CPU_TOL)
     res = dict(batch=batch, setup_s=setup_s, chained_layers=len(chained), launches=launches,
                forwards=forwards, engine_ms=engine_ms, engine_img_s=batch / engine_ms * 1e3,
                fp32_ms=fp32_ms, fp32_img_s=batch / fp32_ms * 1e3,
                engine_vs_fake_quant_max_abs=fq_diff, engine_vs_fake_quant_argmax_agree=fq_agree,
                card_vs_cpu_max_abs=diff, cpu_rows=CPU_BATCH, cpu_engine_s=cpu_s,
-               peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9, **checks)
     report[name] = res
     log(f"{name}: setup {setup_s:.1f} s, {len(chained)} chained layers; engine at batch "
         f"{batch}: {engine_ms:.2f} ms = {res['engine_img_s']:.0f} img/s, port fp32 eval "
@@ -1140,13 +1182,13 @@ def _all_kernels():
             i8.binary_act_matmul, im.int4_matmul, im.int4_matmul_grouped)
 
 
-def resnet_engine(dev, seed, report, profile_dir=None):
+def resnet_engine(dev, seed, report, profile_dir=None, later=None):
     from micronet_tpu_torch.models.resnet import resnet18
     from micronet_tpu_torch.quant.config import QuantConfig
 
     launches, forwards = engine_path("resnet18_w8a8", resnet18,
                                      QuantConfig(a_bits=8, w_bits=8, bn_fuse=True),
-                                     RESNET_BATCH, dev, seed, report, profile_dir)
+                                     RESNET_BATCH, dev, seed, report, profile_dir, later)
     want = {k.__name__: 0 for k in _all_kernels()}
     want["int8_matmul_dequant"] = forwards  # the fc, once per forward
     if launches != want:
@@ -1154,13 +1196,13 @@ def resnet_engine(dev, seed, report, profile_dir=None):
     return launches
 
 
-def nin_engine(dev, seed, report, profile_dir=None):
+def nin_engine(dev, seed, report, profile_dir=None, later=None):
     from micronet_tpu_torch.models.nin_gc import Net
     from micronet_tpu_torch.quant.config import QuantConfig
 
     # NIN-GC's classifier is a 1x1 conv: this path runs no hand-written kernel
     engine_path("nin_gc_w4a4", Net, QuantConfig(a_bits=4, w_bits=4, bn_fuse=True),
-                NIN_BATCH, dev, seed, report, profile_dir)
+                NIN_BATCH, dev, seed, report, profile_dir, later)
 
 
 # ---------------------------------------------------------------- phase 10
@@ -1319,7 +1361,7 @@ def _loop_stats(timed, wall, peak, kv_bytes, deferred):
                 kv_bytes=kv_bytes, peak_gb=peak / 1e9, deferred_admissions=deferred)
 
 
-def serve_long(dev, seed, card, report, profile_dir=None):
+def serve_long(dev, seed, card, report, profile_dir=None, later=None):
     """Slice 3's main path: W4 Llama-3-8B at its 8,192-token context through
     the dense and the paged ServeLoop, then one long request alone."""
     from micronet_tpu_torch.models.llama import Llama, llama3_8b
@@ -1407,7 +1449,8 @@ def serve_long(dev, seed, card, report, profile_dir=None):
         f"launches {launches}")
     if profile_dir is not None:  # the first eight requests, both long ones among them
         for mode, kw in (("dense", {}), ("paged", dict(paged=True, page_size=PAGE))):
-            profile_decode(model, dev, reqs, report, profile_dir, f"profile_long_{mode}", **kw)
+            _when(later, lambda mode=mode, kw=kw: profile_decode(
+                model, dev, reqs, report, profile_dir, f"profile_long_{mode}", **kw))
     return launches
 
 
@@ -2076,6 +2119,400 @@ def prune_nin(dev, seed, out_dir: Path, card: str, report):
                     "test_acc_last": r["test_acc_last"]}))
 
 
+# ---------------------------------------------------------------- phases 16, 17
+
+
+# slice 6: the ACC_TABLE recipe iao_w4a4_asym_fl8 (benchmarks/acc_table.py:611-615,
+# and on ResNet-18 :654-660): asymmetric W4A4, first and last layers at 8 bits
+ASYM_FLAGS = ["--q_type", 1, "--a_bits", 4, "--w_bits", 4, "--first_layer_a_bits", 8,
+              "--first_layer_w_bits", 8, "--last_layer_a_bits", 8, "--last_layer_w_bits", 8]
+ASYM_CFG = dict(q_type=1, a_bits=4, w_bits=4, first_layer_a_bits=8, first_layer_w_bits=8,
+                last_layer_a_bits=8, last_layer_w_bits=8)
+ASYM_TRAIN_EPOCHS = 1  # 8 steps at batch 256 on the synthetic set
+# the engine against its fake-quant model: the tests' bound
+# (tests/_torch_engine_flow.py QUANT_ATOL), relative to max(1, max|ref|)
+QUANT_ATOL = 2e-2
+# an f32 average (pools of up to 64 values; the card sums in f32, the CPU
+# in f64) or a sigmoid, card against CPU, relative to max(1, max|ref|)
+FLOAT_LAYER_RTOL = 1e-5
+# phase 17: the engine matrix's UpNet and the dataflow tests' concat net
+# (tests/test_engine_matrix.py:30-40, tests/test_engine_dataflow.py:24-33)
+UPCAT_BATCH, UPCAT_SIZE = 256, 32
+CONVT_CASES = [(16, 8, 4, 2, 1, 0, 1, 1), (8, 6, 3, 2, 1, 1, 1, 1), (8, 12, 3, 2, 0, 0, 1, 4),
+               (6, 4, 3, 1, 2, 0, 2, 1), (6, 6, 3, 2, 3, 1, 1, 2)]
+
+
+def _engine_layer_types():
+    from micronet_tpu_torch.infer import engine as te
+    from micronet_tpu_torch.nn import qat_iao as qi
+
+    exact = (te.IntConv2d, te.IntConvTranspose2d, te.IntLinear, te.IntMaxPool2d, te.IntAdd,
+             te.IntConcat, qi.QuantMaxPool2d, qi.QuantAdd, qi.QuantConcat, qi.QuantLeakyReLU)
+    averaged = (te.IntAvgPool2d, qi.QuantAvgPool2d, qi.QuantAdaptiveAvgPool2d, qi.QuantSigmoid)
+    return exact, averaged
+
+
+def _recorded(model, types, x):
+    """``model(x)`` and ``{name: (args, output)}`` of its modules of
+    ``types`` (each called once)."""
+    seen = {}
+
+    def keep(name):
+        def hook(module, args, out):
+            seen.setdefault(name, (args, out))
+        return hook
+
+    hooks = [m.register_forward_hook(keep(n)) for n, m in model.named_modules()
+             if isinstance(m, types)]
+    try:
+        out = model(x)
+    finally:
+        for h in hooks:
+            h.remove()
+    return out, seen
+
+
+@torch.no_grad()
+def _layers_card_vs_cpu(name, engine, x):
+    """The engine on the card against a copy on the CPU, each layer fed the
+    card's input to it: every integer layer and every fake-quant layer
+    left between them equal bit for bit, the f32 averages and sigmoids
+    within FLOAT_LAYER_RTOL; then the whole output, CPU from the input on,
+    within FLOAT_LAYER_RTOL (bit for bit where no average sits at the
+    end)."""
+    import copy
+
+    exact, averaged = _engine_layer_types()
+    out, seen = _recorded(engine, exact + averaged, x)
+    cpu = copy.deepcopy(engine).to("cpu")
+    n_exact = n_avg = 0
+    worst_avg = 0.0
+    for n, (args, o) in seen.items():
+        m = cpu.get_submodule(n)
+        got = m(*[a.cpu() for a in args])
+        if got.dtype != o.dtype:
+            fail(f"{name}: layer {n} gives {o.dtype} on the card, {got.dtype} on the CPU")
+        err = (o.cpu().double() - got.double()).abs().max().item()
+        if isinstance(m, exact):
+            n_exact += 1
+            if err != 0:
+                fail(f"{name}: layer {n} on the card differs from the CPU from the same input "
+                     f"(max|diff| {err:.3e})")
+        else:
+            n_avg += 1
+            worst_avg = max(worst_avg, err)
+            if err > FLOAT_LAYER_RTOL * max(1.0, got.abs().max().item()):
+                fail(f"{name}: layer {n} (an f32 average) card vs CPU max|diff| {err:.3e}")
+    ref = cpu(x.cpu())
+    logits_err = (out.cpu() - ref).abs().max().item()
+    if logits_err > FLOAT_LAYER_RTOL * max(1.0, ref.abs().max().item()):
+        fail(f"{name}: output on the card vs the CPU max|diff| {logits_err:.3e}")
+    return dict(layers_equal=n_exact, layers_averaged=n_avg, averaged_max_abs=worst_avg,
+                logits_max_abs=logits_err)
+
+
+@torch.no_grad()
+def _layers_vs_exact(name, engine, x):
+    """Each asymmetric conv and transposed conv of the engine, on the card's
+    input codes to it: its f32 accumulator with the zero-point terms
+    within the rounding bound of the JAX package's f32 order
+    (``engine.exact_zero_point_acc``) of the exact integer value. Returns
+    how many layers rounded at all and the largest ratio of an error to
+    its bound."""
+    from micronet_tpu_torch.infer import engine as te
+
+    layers = (te.IntConv2d, te.IntConvTranspose2d)
+    _, seen = _recorded(engine, layers, x)
+    rounded, worst, n = 0, 0.0, 0
+    for name_, (args, _) in seen.items():
+        layer = engine.get_submodule(name_)
+        if layer.symmetric and layer.w_symmetric:
+            continue
+        x_q = te._act_codes(args[0], layer.act_scale, layer.act_zero_point, layer.a_qmin,
+                            layer.a_qmax, layer.symmetric)
+        got = layer._zero_point_acc(x_q).double().cpu()
+        exact, bound = te.exact_zero_point_acc(layer, x_q)
+        err = (got - exact).abs()
+        n += 1
+        rounded += bool(err.max() > 0)
+        worst = max(worst, (err / bound.clamp_min(1e-30)).max().item())
+        if not bool((err <= bound).all()):
+            fail(f"{name}: layer {name_}'s accumulator is past the f32 rounding bound of the "
+                 f"exact value (max|err| {err.max().item():.3e})")
+    return dict(asym_layers_vs_exact=n, layers_rounded=rounded, worst_err_over_bound=worst)
+
+
+def _close(what, got, ref, rtol):
+    err = (got - ref).abs().max().item()
+    if err > rtol * max(1.0, ref.abs().max().item()):
+        fail(f"{what}: max|diff| {err:.3e}")
+    return err
+
+
+def _profile_engine(name, engine, x, report, profile_dir):
+    if profile_dir is not None:
+        report[f"{name}_profile"] = trace(lambda: engine(x), 3, f"{name} engine forwards",
+                                          profile_dir / f"chip_smoke_{name}_profile.txt")
+
+
+def asym_nin_gc(dev, seed, out_dir: Path, card: str, report, profile_dir=None):
+    """Slice 6's main path on NIN-GC: ``cli train`` with the asymmetric
+    W4A4 first/last-8 recipe at full width (8 steps at batch 256), ``cli
+    freeze-int`` with the same flags, then the engine rebuilt from the
+    checkpoint as freeze-int builds it (it must hold the state freeze-int
+    saved, key for key) at batch 1024. No hand-written kernel on this
+    path: every count zeroed before the CLI and still 0 after the
+    forwards."""
+    import copy
+
+    from micronet_tpu_torch.infer import freeze_int, fuse_bn_iao
+    from micronet_tpu_torch.models.nin_gc import Net
+    from micronet_tpu_torch.nn import eval_mode, prepare
+    from micronet_tpu_torch.quant.config import QuantConfig
+    from micronet_tpu_torch.train import load_state
+    from micronet_tpu_torch.train.checkpoint import state_to_arrays
+
+    name = "nin_gc_asym_w4a4_fl8"
+    ck, eng_ck, metrics = (out_dir / f"{name}{s}" for s in (".npz", "_engine.npz", ".jsonl"))
+    metrics.unlink(missing_ok=True)
+    model = ["--model_type", 1, "--bn_fuse"]
+    kernels = _all_kernels()
+    for kern in kernels:
+        kern.launches = 0
+    # cuDNN's deterministic algorithms for the training steps: its default
+    # weight-gradient convolutions sum in an order that varies between
+    # runs, and the engine checked below is this run's trained net
+    torch.backends.cudnn.deterministic = True
+    # -- the main path: cli train, cli freeze-int, the engine ------------
+    try:
+        _, train_s = _cli(["train", "--device", str(dev), "--method", "iao", *model,
+                           *ASYM_FLAGS, "--epochs", ASYM_TRAIN_EPOCHS, "--train_batch_size",
+                           TRAIN_BATCH, "--seed", seed, "--save", ck, "--metrics", metrics],
+                          f"train {name}")
+    finally:
+        torch.backends.cudnn.deterministic = False
+    _, freeze_s = _cli(["freeze-int", "--device", str(dev), *model, *ASYM_FLAGS, "--model", ck,
+                        "--save", eng_ck], f"freeze-int {name}")
+    cfg = QuantConfig(bn_fuse=True, **ASYM_CFG)
+    q = prepare(Net(device=dev, generator=torch.Generator(device=dev).manual_seed(0)), cfg,
+                inplace=True, device=dev)
+    load_state(ck, q)
+    fused = eval_mode(fuse_bn_iao(q, cfg, device=dev))
+    engine = eval_mode(freeze_int(fused, example_input=torch.zeros((1, 32, 32, 3), device=dev),
+                                  device=dev))
+    x = torch.randn((NIN_BATCH, 32, 32, 3), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(seed))
+    with torch.no_grad():
+        out = engine(x)
+        engine_ms = _forward_ms(engine, x, ENGINE_ITERS)
+    launches = {k.__name__: k.launches for k in kernels}
+    # ------------------------------------------------------------------
+    if any(launches.values()):
+        fail(f"{name}: launch counts {launches}, expected none (no kernel on this path)")
+    saved = dict(np.load(eng_ck))
+    rebuilt = state_to_arrays(engine)
+    if {k for k in saved if k.startswith("model/")} != {f"model/{k}" for k in rebuilt}:
+        fail(f"{name}: the saved engine's keys differ from the rebuilt one's")
+    for k, v in rebuilt.items():
+        if not np.array_equal(saved[f"model/{k}"], v):
+            fail(f"{name}: the saved engine's {k} differs from the rebuilt one")
+    zp_keys = sum(k.endswith(("/act_zero_point/.value", "/w_zp/.value")) for k in saved)
+    convs = [m for m in engine.modules() if type(m).__name__ == "IntConv2d"]
+    if len(convs) != 9 or any(m.symmetric or m.w_symmetric or m.chained for m in convs):
+        fail(f"{name}: expected 9 asymmetric unchained IntConv2d")
+    if tuple(out.shape) != (NIN_BATCH, 10) or not torch.isfinite(out).all():
+        fail(f"{name}: engine output {tuple(out.shape)}")
+    with torch.no_grad():
+        fq = fused(x)
+        fq_diff = _agree(f"{name}: engine vs its fake-quant model", out[:CPU_BATCH],
+                         fq[:CPU_BATCH], QUANT_ATOL)
+        fq_tol = QUANT_ATOL * max(1.0, fq[:CPU_BATCH].abs().max().item())
+        checks = _layers_vs_exact(name, engine, x[:CPU_BATCH])
+        checks.update(_layers_card_vs_cpu(name, engine, x[:CPU_BATCH]))
+        _profile_engine(name, engine, x, report, profile_dir)
+    r = _train_numbers(metrics, TRAIN_BATCH)
+    sym = report["nin_gc_w4a4"]
+    img_s = NIN_BATCH / engine_ms * 1e3
+    res = dict(card=card, train_s=train_s, freeze_int_s=freeze_s, train_img_s=r["img_s"],
+               first_loss=r["first_loss"], last_loss=r["last_loss"], batch=NIN_BATCH,
+               engine_ms=engine_ms, engine_img_s=img_s,
+               phase9_sym_engine_img_s=sym["engine_img_s"], fp32_img_s=sym["fp32_img_s"],
+               vs_sym_engine=img_s / sym["engine_img_s"], vs_fp32=img_s / sym["fp32_img_s"],
+               launches=launches, zero_point_keys=zp_keys, engine_vs_fake_quant_max_abs=fq_diff,
+               engine_vs_fake_quant_tol=fq_tol,
+               top1_agree_with_fake_quant=(out.argmax(-1) == fq.argmax(-1)).float().mean().item(),
+               **checks)
+    report[name] = res
+    log(json.dumps({"phase": 16, "model": "nin_gc", **{k: res[k] for k in (
+        "card", "engine_img_s", "phase9_sym_engine_img_s", "fp32_img_s", "vs_sym_engine",
+        "vs_fp32", "engine_vs_fake_quant_max_abs", "engine_vs_fake_quant_tol",
+        "top1_agree_with_fake_quant", "layers_rounded", "layers_equal", "logits_max_abs",
+        "train_img_s", "first_loss", "last_loss")}}))
+
+
+def asym_resnet18(dev, seed, card, report, profile_dir=None):
+    """The same recipe on ResNet-18 at full width through phase 9's engine
+    path at batch 512 (random weights, 4 calibration forwards). Its fc is
+    an asymmetric ``IntLinear`` on ``torch._int_mm``: K1 launches 0
+    times."""
+    from micronet_tpu_torch.models.resnet import resnet18
+    from micronet_tpu_torch.quant.config import QuantConfig
+
+    name = "resnet18_asym_w4a4_fl8"
+    launches, _ = engine_path(name, resnet18, QuantConfig(bn_fuse=True, **ASYM_CFG),
+                              RESNET_BATCH, dev, seed, report, profile_dir, exact=True)
+    if any(launches.values()):
+        fail(f"{name}: launch counts {launches}, expected none (the asymmetric fc runs "
+             f"torch._int_mm)")
+    res = report[name]
+    sym = report["resnet18_w8a8"]
+    res.update(card=card, phase9_sym_engine_img_s=sym["engine_img_s"],
+               vs_sym_engine=res["engine_img_s"] / sym["engine_img_s"],
+               vs_fp32=res["engine_img_s"] / res["fp32_img_s"])
+    log(json.dumps({"phase": 16, "model": "resnet18", **{k: res[k] for k in (
+        "card", "engine_img_s", "phase9_sym_engine_img_s", "fp32_img_s", "vs_sym_engine",
+        "vs_fp32", "engine_vs_fake_quant_max_abs", "engine_vs_fake_quant_argmax_agree",
+        "layers_rounded", "worst_err_over_bound", "layers_equal", "logits_max_abs")}}))
+
+
+def _upcat_nets(dev, gen):
+    from micronet_tpu_torch.nn import modules as M
+
+    class UpNet(torch.nn.Module):
+        """conv -> stride-2 transposed conv (k 4, p 1) -> 1x1 conv."""
+
+        def __init__(self):
+            super().__init__()
+            self.c1 = M.Conv2d(6, 16, 3, padding=1, device=dev, generator=gen)
+            self.up = M.ConvTranspose2d(16, 8, 4, stride=2, padding=1, device=dev,
+                                        generator=gen)
+            self.c2 = M.Conv2d(8, 4, 1, device=dev, generator=gen)
+
+        def forward(self, x):
+            return self.c2(self.up(self.c1(x.permute(0, 3, 1, 2)))).permute(0, 2, 3, 1)
+
+    class CatNet(torch.nn.Module):
+        """two 1x1 convs into a channel concat, then a 1x1 conv."""
+
+        def __init__(self):
+            super().__init__()
+            self.c1 = M.Conv2d(8, 16, 1, device=dev, generator=gen)
+            self.c2 = M.Conv2d(8, 16, 1, device=dev, generator=gen)
+            self.cat = M.Concat(-1)
+            self.c3 = M.Conv2d(32, 8, 1, device=dev, generator=gen)
+
+        def forward(self, x):
+            x = x.permute(0, 3, 1, 2)
+            return self.c3(self.cat(self.c1(x), self.c2(x))).permute(0, 2, 3, 1)
+
+    return {"upnet": (UpNet, 6), "catnet": (CatNet, 8)}
+
+
+def check_convt_routes(dev, gen, report):
+    """The card's integer transposed conv (zero-inserted, padded or
+    cropped input through im2col + ``torch._int_mm``) and its window sums
+    against f64 ``conv_transpose2d``s of the same codes, bit for bit:
+    UpNet's upsampler, output_padding 1, groups 4, dilation 2 and padding
+    past d (k - 1), at batch 64 of 16 x 16."""
+    import torch.nn.functional as TF
+
+    from micronet_tpu_torch.infer.engine import IntConvTranspose2d
+
+    for cin, co, k, s, p, op, d, g in CONVT_CASES:
+        w = torch.randint(-128, 128, (cin, co // g, k, k), dtype=torch.int8, device=dev,
+                          generator=gen)
+        x = torch.randint(-128, 128, (64, cin, 16, 16), dtype=torch.int8, device=dev,
+                          generator=gen)
+        layer = IntConvTranspose2d(w, 1.0, 1.0, 0.0, None, (s, s), (p, p), (op, op), (d, d), g,
+                                   -128.0, 127.0)
+        acc, sums = layer.int_acc(x, group_sums=True)
+        xc, wc = x.cpu().double(), w.cpu().double()
+        ref = TF.conv_transpose2d(xc, wc, None, s, p, op, g, d)
+        ref_sums = TF.conv_transpose2d(xc, torch.ones((cin, 1, k, k), dtype=torch.float64),
+                                       None, s, p, op, g, d)
+        if not (acc.dtype == torch.int32 and torch.equal(acc.cpu().double(), ref)
+                and torch.equal(sums.cpu().double(), ref_sums)):
+            fail(f"transposed conv route {cin}->{co} k{k} s{s} p{p} op{op} d{d} g{g}: "
+                 f"max|err| {(acc.cpu().double() - ref).abs().max().item():.3e}")
+    report["convt_routes"] = len(CONVT_CASES)
+    log(f"transposed-conv routes: {len(CONVT_CASES)} shapes at batch 64, accumulators and "
+        f"window sums equal the f64 conv_transpose2d bit for bit")
+
+
+@torch.no_grad()
+def upcat_engines(dev, seed, report, profile_dir=None):
+    """Phase 17: UpNet and the concat net at 32 x 32, q_type 0 and 1:
+    ``prepare``, 4 calibration forwards at batch 64, ``fuse_bn_iao`` (the
+    weights pre-quantized), ``freeze_int`` with an example input, the
+    engine at batch 256 (no hand-written kernel: every count zeroed just
+    before and still 0 just after); the card equal to the CPU layer by
+    layer, each asymmetric accumulator within its f32 rounding of the
+    exact value, the output on 8 images within QUANT_ATOL of the
+    fake-quant model (over the batch: reported); the
+    symmetric concat net chains c1 and c2 into the concat and the concat
+    into c3."""
+    from micronet_tpu_torch.infer import freeze_int, fuse_bn_iao
+    from micronet_tpu_torch.infer.engine import IntConcat, IntConvTranspose2d
+    from micronet_tpu_torch.nn import eval_mode, prepare, train_mode
+    from micronet_tpu_torch.nn.qat_iao import QuantConcat
+    from micronet_tpu_torch.quant.config import QuantConfig
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    check_convt_routes(dev, gen, report)
+    kernels = _all_kernels()
+    for net, (cls, cin) in _upcat_nets(dev, gen).items():
+        for q_type in (0, 1):
+            name = f"{net}_q{q_type}"
+            cfg = QuantConfig(a_bits=8, w_bits=8, q_type=q_type)
+            q = train_mode(prepare(cls(), cfg, device=dev))
+            for _ in range(CALIB_STEPS):
+                q(torch.randn((CALIB_BATCH, UPCAT_SIZE, UPCAT_SIZE, cin), device=dev,
+                              generator=gen))
+            fused = eval_mode(fuse_bn_iao(eval_mode(q), cfg, device=dev))
+            x = torch.randn((UPCAT_BATCH, UPCAT_SIZE, UPCAT_SIZE, cin), device=dev,
+                            generator=gen)
+            engine = eval_mode(freeze_int(fused, example_input=x[:1], device=dev))
+            for kern in kernels:
+                kern.launches = 0
+            # -- the main path: engine forwards ------------------------
+            out = engine(x)
+            engine_ms = _forward_ms(engine, x, ENGINE_ITERS)
+            launches = {k.__name__: k.launches for k in kernels}
+            # ----------------------------------------------------------
+            if any(launches.values()):
+                fail(f"{name}: launch counts {launches}, expected none")
+            # an asymmetric concat stays fake-quant, as in the JAX package
+            want = IntConvTranspose2d if net == "upnet" else (
+                IntConcat if q_type == 0 else QuantConcat)
+            if not any(isinstance(m, want) for m in engine.modules()):
+                fail(f"{name}: no {want.__name__} in the engine")
+            chained = sorted(n for n, m in engine.named_modules()
+                             if getattr(m, "chained", False))
+            if chained != (["c1", "c2", "cat"] if (net, q_type) == ("catnet", 0) else []):
+                fail(f"{name}: chained {chained}")
+            fq = fused(x)
+            fq_diff = _close(f"{name}: engine vs its fake-quant model", out[:CPU_BATCH],
+                             fq[:CPU_BATCH], QUANT_ATOL)
+            fq_tol = QUANT_ATOL * max(1.0, fq[:CPU_BATCH].abs().max().item())
+            cmp = _layers_vs_exact(name, engine, x[:CPU_BATCH])
+            cmp.update(_layers_card_vs_cpu(name, engine, x[:CPU_BATCH]))
+            fused_ms = _forward_ms(fused, x, ENGINE_ITERS)
+            res = dict(batch=UPCAT_BATCH, chained=chained, engine_ms=engine_ms,
+                       engine_img_s=UPCAT_BATCH / engine_ms * 1e3, fake_quant_ms=fused_ms,
+                       fake_quant_img_s=UPCAT_BATCH / fused_ms * 1e3,
+                       engine_vs_fake_quant_max_abs=fq_diff, engine_vs_fake_quant_tol=fq_tol,
+                       engine_vs_fake_quant_max_abs_batch=(out - fq).abs().max().item(),
+                       launches=launches, **cmp)
+            report[name] = res
+            _profile_engine(name, engine, x, report, profile_dir)
+            log(f"{name}: engine at batch {UPCAT_BATCH}: {engine_ms:.3f} ms = "
+                f"{res['engine_img_s']:.0f} img/s (fake-quant model {fused_ms:.3f} ms); "
+                f"chained {chained}; vs fake-quant max|diff| {fq_diff:.3e} (tol {fq_tol:.3e}); "
+                f"card = CPU on "
+                f"{cmp['layers_equal']} layers bit for bit, output max|diff| "
+                f"{cmp['logits_max_abs']:.3e}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2119,16 +2556,20 @@ def main() -> int:
     out_dir = args.out
     out_dir.mkdir(parents=True, exist_ok=True)
     profile_dir = out_dir if args.profile else None
-    launches = serve(dev, args.seed, report, profile_dir)
+    # --profile's traces of phases 6, 9 and 11, taken after phase 12's
+    # device readings: after a traced serving run, those readings lost
+    # kernels from their traces
+    later = []
+    launches = serve(dev, args.seed, report, profile_dir, later)
     k1 = check_k1(dev, gen, report)
     check_conv_routes(dev, gen, report)
     # each kernel's count from its own slice's main path
-    launches["int8_matmul_dequant"] = resnet_engine(dev, args.seed, report,
-                                                    profile_dir)["int8_matmul_dequant"]
-    nin_engine(dev, args.seed, report, profile_dir)
+    launches["int8_matmul_dequant"] = resnet_engine(dev, args.seed, report, profile_dir,
+                                                    later)["int8_matmul_dequant"]
+    nin_engine(dev, args.seed, report, profile_dir, later)
     long_att = check_long_attention(dev, gen, report)
-    launches.update({k: v for k, v in serve_long(dev, args.seed, card, report,
-                                                 profile_dir).items()
+    launches.update({k: v for k, v in serve_long(dev, args.seed, card, report, profile_dir,
+                                                 later).items()
                      if k in LONG_KERNELS})
     k2 = check_k2(dev, gen, report)
     wo = check_k8_k9(dev, gen, report)
@@ -2139,11 +2580,18 @@ def main() -> int:
     k2_row = {k: v for k, v in k2["path"].items()
               if k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err")}
     int8_device_times(dev, gen, report, k1_row, k2_row)
+    for run in later:
+        run()
+    later.clear()
+    torch.cuda.empty_cache()
     launches.update({k: v for k, v in wbwtab_engine(dev, args.seed, report, profile_dir).items()
                      if k in WBWTAB_KERNELS})
     train_nin_gc(dev, args.seed, out_dir, card, report)
     k1_phase15 = ptq_resnet18(dev, args.seed, out_dir, card, report)
     prune_nin(dev, args.seed, out_dir, card, report)
+    asym_nin_gc(dev, args.seed, out_dir, card, report, profile_dir)
+    asym_resnet18(dev, args.seed, card, report, profile_dir)
+    upcat_engines(dev, args.seed, report, profile_dir)
 
     src = "micronet_tpu_torch/ops/csrc/"
     long_per = (f"one call, G={ATT_G} R={ATT_R} D={ATT_D} S={LONG_CTX}, bounds 0..{LONG_CTX}")

@@ -100,7 +100,8 @@ def pre_quantize_weights(model: nn.Module) -> nn.Module:
     that with ``quant_inference=True`` only the activation fake-quant
     remains at run time."""
     for m in model.modules():
-        if isinstance(m, (qat_iao.QuantConv2d, qat_iao.QuantLinear)):
+        if isinstance(m, (qat_iao.QuantConv2d, qat_iao.QuantConvTranspose2d,
+                          qat_iao.QuantLinear)):
             wq = m.weight_quantizer
             if wq.bits in (1, 32):
                 continue
@@ -108,7 +109,11 @@ def pre_quantize_weights(model: nn.Module) -> nn.Module:
                                       wq.min_val, wq.max_val, wq.symmetric))
         elif isinstance(m, qat_wbwtab.QuantConv2d):
             m.weight.copy_(wbwtab.quantize_weight(m.weight, m.W)[0])
-        elif isinstance(m, (qat_dorefa.QuantConv2d, qat_dorefa.QuantLinear)):
+        elif isinstance(m, qat_wbwtab.QuantConvTranspose2d):
+            m.weight.copy_(qat_wbwtab.transposed_weight(
+                lambda w: wbwtab.quantize_weight(w, m.W)[0], m.weight))
+        elif isinstance(m, (qat_dorefa.QuantConv2d, qat_dorefa.QuantConvTranspose2d,
+                            qat_dorefa.QuantLinear)):
             m.weight.copy_(dorefa.quantize_weight(m.weight, m.w_bits))
     return model
 

@@ -2,10 +2,11 @@
 counterpart of ``micronet_tpu/infer/dataflow.py``.
 
 The int8 chain planner must know which module consumes each module's
-output; definition order is wrong for branching graphs (residual adds).
-One eager forward on an example input runs with a forward hook on every
-module of the node types, recording ``(module, input producers)`` and
-the output's producer. Containers need no hook: they return their last
+output; definition order is wrong for branching graphs (residual adds,
+concats). One eager forward on an example input runs with a forward hook
+on every module of the node types, recording ``(module, input
+producers)`` for every tensor argument (both inputs of an add or a
+concat) and the output's producer. Containers need no hook: they return their last
 child's output tensor object. ``channel_shuffle`` is value-preserving on
 int8 codes and registers an alias. Any other untracked op (a bare
 ``torch.relu`` in a model's forward) breaks provenance, which fails

@@ -1,30 +1,52 @@
 """Integer inference engine: the counterpart of
-``micronet_tpu/infer/engine.py`` (symmetric paths).
+``micronet_tpu/infer/engine.py``.
 
 ``freeze_int`` turns a BN-fused, weight-pre-quantized model (from
 :func:`..infer.fuse_bn_iao`) into integer layers holding int8 weights
-``round(w / s_w)``, their scales, and the activation scale. Activations
-quantize to int8 on the fly, products accumulate exactly in int32, and
-an f32 epilogue dequantizes and adds the bias, or requantizes straight
-to the next layer's scale when the planner chains the two ("int8
-chains": activations stay one byte between layers).
+``round(w / s_w)``, their scales, and the activation scale and zero
+point. Activations quantize to int8 on the fly, products accumulate
+exactly in int32, and an f32 epilogue dequantizes and adds the bias, or
+requantizes straight to the next layer's scale when the planner chains
+the two ("int8 chains": activations stay one byte between layers).
+
+Asymmetric (``q_type=1``) quantizers have unsigned codes: activations in
+[0, 2^b - 1], weights in [0, 2^b - 2], with ``x_int = q0 + zp``. The
+engine stores ``q0 - 128`` in int8 (b <= 8) and folds the shift ``128 +
+zp`` into correction terms added to the f32 accumulator in the JAX
+package's order: for a conv ``acc + (128 + zp) * conv(1, w)``, then ``+
+(128 + zp_w) * sum_x`` (the window sum of each output's group), then ``+
+(128 + zp) * (128 + zp_w) * count`` (the window's size); for a linear
+``acc + sh_w * rowsum_x + sh_x * colsum_w + (K * sh_x) * sh_w``. An
+asymmetric layer quantizes from f32 and writes f32: it neither emits nor
+receives an int8 chain, and pools, adds and concats with an asymmetric
+quantizer stay fake-quant, as in the JAX package.
 
 Convolutions run outside any hand-written kernel, as in the JAX package,
 with exact integer accumulation:
 
 - on the card, im2col over the int8 codes and ``torch._int_mm`` (cuBLAS
   int8 with int32 accumulators), one GEMM for every layer; a grouped
-  conv runs as one GEMM over a block-diagonal weight;
-- on the CPU, an f64 convolution over the codes (exact for every int32
-  accumulator);
+  conv runs as one GEMM over a block-diagonal weight. The correction
+  terms are no GEMMs: ``conv(1, w)`` and ``count`` depend only on the
+  input's spatial shape and come from one image of ones through the same
+  route; ``sum_x`` is a row sum of the patch matrix the GEMM reads;
+- on the CPU, f64 convolutions over the codes (exact for every int32
+  accumulator), the correction terms as the JAX package computes them;
+- a transposed conv is the convolution of the input dilated by
+  ``stride`` and edge-padded by ``d * (k - 1) - p`` (cropped where that
+  is negative, ``+ output_padding`` on the high side) with the flipped
+  kernel, in and out swapped: on the card through the same im2col GEMM,
+  on the CPU an f64 ``conv_transpose2d``;
 - the first layer (``groups == 1`` and fewer than 8 input channels per
-  group) convolves the dequantized values in f32, as the JAX package
-  does; on the card as im2col and one f32 matmul with TF32 off for the
-  call.
+  group, symmetric) convolves the dequantized values in f32, as the JAX
+  package does; on the card as im2col and one f32 matmul with TF32 off
+  for the call.
 
 The JAX package's bf16-codes lowering is a TPU choice; here both integer
-routes are exact at any window size. ``IntLinear`` runs the hand-written
-kernel K1 (``ops/int_matmul.py::int8_matmul_dequant``).
+routes are exact at any window size. A symmetric ``IntLinear`` runs the
+hand-written kernel K1 (``ops/int_matmul.py::int8_matmul_dequant``); an
+asymmetric one, as in the JAX package, a plain integer matmul
+(``torch._int_mm`` on the card) with rank-1 corrections.
 
 The wbwtab engine (``freeze_wbwtab``) turns each binary-range conv into a
 :class:`TernaryConv2d`: its {-1, +1} inputs cast to int8 exactly and run
@@ -32,14 +54,14 @@ through the same two integer routes as ``IntConv2d`` (a cuDNN conv over
 +-1 values would not be exact: its algorithm choice, Winograd or FFT,
 rounds), then ``f32(acc) * alpha + bias``.
 
-Not ported yet: the asymmetric (``q_type=1``) paths (``freeze_int``
-raises), ``IntConcat``, ``IntConvTranspose2d``, and the JAX package's
-``pallas_pointwise`` and ``pointwise_dot`` options.
+Not ported: the JAX package's ``pallas_pointwise`` and ``pointwise_dot``
+options (TPU lowerings, off by default there).
 """
 
 from __future__ import annotations
 
 import contextlib
+import copy
 from typing import Optional, Tuple
 
 import torch
@@ -55,8 +77,8 @@ from ..ops.int4_matmul import pack_int4, unpack_int4
 from ..ops.int_matmul import int8_linear
 from ..quant.rounding import round_half_away
 
-__all__ = ["IntConv2d", "IntLinear", "IntMaxPool2d", "IntAvgPool2d", "IntAdd", "freeze_int",
-           "TernaryConv2d", "freeze_wbwtab"]
+__all__ = ["IntConv2d", "IntConvTranspose2d", "IntLinear", "IntMaxPool2d", "IntAvgPool2d",
+           "IntAdd", "IntConcat", "freeze_int", "TernaryConv2d", "freeze_wbwtab"]
 
 
 def _scalar_buffer(v, dev) -> torch.Tensor:
@@ -70,6 +92,25 @@ def _requant(out: torch.Tensor, scale: torch.Tensor, qmin: float, qmax: float) -
 def _quantize_weight_int8(w: torch.Tensor, scale: torch.Tensor, qmin: float = -127.0,
                           qmax: float = 127.0) -> torch.Tensor:
     return torch.clamp(round_half_away(w / scale), qmin, qmax).to(torch.int8)
+
+
+def _shifted_weight_codes(w: torch.Tensor, scale: torch.Tensor, zero_point: torch.Tensor,
+                          qmin: float, qmax: float) -> torch.Tensor:
+    """Asymmetric weight codes ``clamp(round(w / s - zp_w), qmin, qmax)``
+    stored as ``q0 - 128`` in int8."""
+    q0 = torch.clamp(round_half_away(w / scale - zero_point), qmin, qmax)
+    return (q0 - 128.0).to(torch.int8)
+
+
+def _act_codes(x: torch.Tensor, scale: torch.Tensor, zero_point: torch.Tensor, qmin: float,
+               qmax: float, symmetric: bool) -> torch.Tensor:
+    """int8 activation codes: ``clamp(round(x / s), qmin, qmax)``, or for
+    an asymmetric quantizer ``q0 - 128`` with ``q0 = clamp(round(x / s) -
+    zp, qmin, qmax)`` (the value is ``x_int = q0 + zp``)."""
+    q = round_half_away(x.to(torch.float32) / scale)
+    if symmetric:
+        return torch.clamp(q, qmin, qmax).to(torch.int8)
+    return (torch.clamp(q - zero_point, qmin, qmax) - 128.0).to(torch.int8)
 
 
 @contextlib.contextmanager
@@ -104,12 +145,31 @@ def _int_mm_exact(a: torch.Tensor, b_t: torch.Tensor) -> torch.Tensor:
     return torch._int_mm(a.contiguous(), b_t.contiguous().t())[:m, :n]
 
 
+def _nhwc(t: torch.Tensor) -> torch.Tensor:
+    """(N, C, H, W) -> an (N, H, W, C) view: contiguous for the card
+    route's outputs, which permute a GEMM's (N*H*W, C) rows."""
+    return t.permute(0, 2, 3, 1)
+
+
+def _add_per_group(acc: torch.Tensor, coef: torch.Tensor, per_group: torch.Tensor) -> torch.Tensor:
+    """``acc + coef[o] * per_group[g(o)]``: ``acc`` (N, H, W, O) f32,
+    ``coef`` (O,), ``per_group`` (N or 1, H, W, G) integers, one value for
+    all the output channels of a group. Each element is one f32 product
+    and one f32 add, as the JAX package's repeated form computes it."""
+    n, h, w, co = acc.shape
+    g = per_group.shape[-1]
+    term = coef.reshape(g, co // g) * per_group.to(torch.float32)[..., None]
+    return (acc.reshape(n, h, w, g, co // g) + term).reshape(n, h, w, co)
+
+
 class _IntConvRoutes(nn.Module):
     """The exact integer accumulation of a conv over int8 codes, shared by
-    :class:`IntConv2d` and :class:`TernaryConv2d`. A subclass sets
-    ``w_shape`` (O, cg, kh, kw), ``stride``, ``padding``, ``dilation``,
+    :class:`IntConv2d`, :class:`IntConvTranspose2d` and
+    :class:`TernaryConv2d`. A subclass sets ``w_shape`` (O, cg, kh, kw) of
+    the convolution the GEMM runs, ``stride``, ``padding``, ``dilation``,
     ``groups`` and ``_gemm_cache``, and defines ``_codes`` (the stored
-    weight buffer) and ``_weights_hwio``."""
+    weight buffer), ``_weights_hwio`` (the GEMM's convolution kernel) and
+    ``_f64`` (its own operation in f64, the CPU route)."""
 
     def _codes(self) -> torch.Tensor:
         raise NotImplementedError
@@ -117,9 +177,29 @@ class _IntConvRoutes(nn.Module):
     def _weights_hwio(self) -> torch.Tensor:
         raise NotImplementedError
 
+    def _f64(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        """The layer's own operation in f64 on the codes ``x`` and the
+        kernel ``w`` (in the layout of :meth:`_weights`)."""
+        return TF.conv2d(x.to(torch.float64), w.to(torch.float64), None, self.stride,
+                         self.padding, self.dilation, self.groups)
+
     def _weights(self) -> torch.Tensor:
-        """OIHW int8 codes."""
+        """The int8 kernel in torch's layout: OIHW."""
         return self._weights_hwio().permute(3, 2, 0, 1)
+
+    def _ones_kernel(self, dev: torch.device) -> torch.Tensor:
+        """The kernel of ones (in :meth:`_weights`'s layout) whose output is
+        one window sum per group."""
+        _, cg, kh, kw = self.w_shape
+        return torch.ones((self.groups, cg, kh, kw), dtype=torch.int8, device=dev)
+
+    def _gemm_geometry(self):
+        """(stride, padding, dilation) of the convolution the GEMM runs."""
+        return self.stride, self.padding, self.dilation
+
+    def _gemm_input(self, x: torch.Tensor) -> torch.Tensor:
+        """The input of the convolution the GEMM runs."""
+        return x
 
     def _gemm_weight(self) -> torch.Tensor:
         """(O, kh*kw*C) int8: row o holds output channel o's codes in im2col
@@ -146,7 +226,7 @@ class _IntConvRoutes(nn.Module):
         column order, and (N, Ho, Wo). Padding is zero codes."""
         n, c, h, w = x.shape
         _, _, kh, kw = self.w_shape
-        (sh, sw), (ph, pw), (dh, dw) = self.stride, self.padding, self.dilation
+        (sh, sw), (ph, pw), (dh, dw) = self._gemm_geometry()
         xh = x.permute(0, 2, 3, 1)  # NHWC
         if ph or pw:
             xh = TF.pad(xh, (0, 0, pw, pw, ph, ph))
@@ -158,41 +238,116 @@ class _IntConvRoutes(nn.Module):
         p = p[..., ::dh, ::dw]  # (N, Ho, Wo, C, kh, kw)
         return p.permute(0, 1, 2, 4, 5, 3).reshape(n * ho * wo, kh * kw * c), (n, ho, wo)
 
-    def _int_acc_im2col(self, x_q: torch.Tensor) -> torch.Tensor:
-        cols, (n, ho, wo) = self._im2col(x_q)
+    def _int_acc_im2col(self, x_q: torch.Tensor, group_sums: bool = False):
+        """The card's route (it runs on CPU tensors too): the accumulator
+        as int32, and with ``group_sums`` each output position's window
+        sum per group, (N, G, Ho, Wo) int32, from the same patch matrix."""
+        cols, (n, ho, wo) = self._im2col(self._gemm_input(x_q))
         acc = _int_mm_exact(cols, self._gemm_weight())
-        return acc.reshape(n, ho, wo, self.w_shape[0]).permute(0, 3, 1, 2)
+        acc = acc.reshape(n, ho, wo, self.w_shape[0]).permute(0, 3, 1, 2)
+        if not group_sums:
+            return acc
+        _, _, kh, kw = self.w_shape
+        sums = cols.reshape(cols.shape[0], kh * kw, self.groups, -1).sum(dim=(1, 3),
+                                                                         dtype=torch.int32)
+        return acc, sums.reshape(n, ho, wo, self.groups).permute(0, 3, 1, 2)
 
-    def int_acc(self, x_q: torch.Tensor) -> torch.Tensor:
-        """The exact accumulator of the codes ``x_q`` (N, C, H, W) int8:
-        int32 on the card (im2col + ``torch._int_mm``), f64 on the CPU (an
-        f64 convolution), both exact."""
+    def int_acc(self, x_q: torch.Tensor, group_sums: bool = False):
+        """The exact accumulator of the codes ``x_q`` (N, C, H, W) int8, and
+        with ``group_sums`` the window sums per group: int32 on the card
+        (im2col + ``torch._int_mm``), f64 on the CPU (f64 convolutions),
+        both exact."""
         if x_q.device.type == "cuda":
-            return self._int_acc_im2col(x_q)
-        return TF.conv2d(x_q.to(torch.float64), self._weights().to(torch.float64), None,
-                         self.stride, self.padding, self.dilation, self.groups)
+            return self._int_acc_im2col(x_q, group_sums)
+        acc = self._f64(x_q, self._weights())
+        if not group_sums:
+            return acc
+        return acc, self._f64(x_q, self._ones_kernel(x_q.device))
+
+    def _zero_point_acc(self, x_q: torch.Tensor) -> torch.Tensor:
+        """The f32 accumulator of ``x_int . w_int``: the codes' product,
+        then the zero-point terms in the JAX package's order. ``conv(1, w)``
+        and ``count`` come from one image of ones (they depend on the
+        spatial shape only). The terms are added channels last, the card
+        route's own layout (a view of its GEMM's rows), and the result is
+        an NCHW view of it."""
+        if self.w_symmetric:
+            acc = self.int_acc(x_q).to(torch.float32)
+        else:
+            acc, sum_x = self.int_acc(x_q, group_sums=True)
+            acc = acc.to(torch.float32)
+        if self.symmetric and self.w_symmetric:
+            return acc
+        ones = torch.ones((1,) + tuple(x_q.shape[1:]), dtype=torch.int8, device=x_q.device)
+        corr_w, count = self.int_acc(ones, group_sums=True)
+        sh_x = 128.0 + self.act_zero_point
+        acc = _nhwc(acc)
+        if not self.symmetric:
+            acc = acc + sh_x * _nhwc(corr_w).to(torch.float32)
+        if not self.w_symmetric:
+            sh_w = (128.0 + self.w_zp).expand(self.w_shape[0])
+            acc = _add_per_group(acc, sh_w, _nhwc(sum_x))
+            if not self.symmetric:
+                acc = _add_per_group(acc, sh_x * sh_w, _nhwc(count))
+        return acc.permute(0, 3, 1, 2)
+
+
+@torch.no_grad()
+def exact_zero_point_acc(layer: _IntConvRoutes, x_q: torch.Tensor):
+    """For an :class:`IntConv2d` or :class:`IntConvTranspose2d` and its
+    input codes ``x_q``: the exact value of its accumulator with the
+    zero-point terms (f64, on the CPU), and a bound, per element, of how
+    far its f32 sequence (the JAX package's order) can lie from it. That
+    sequence rounds at most seven times (the accumulator's cast, three
+    products, three sums), each by at most 2^-24 of a value no larger than
+    the sum ``M`` of the four terms' magnitudes: the bound is ``7 * 2^-24
+    * M``. With sub-8-bit codes stored near -128 and windows of thousands
+    of codes the terms reach 1e8 and cancel to a small sum, so the
+    rounding can reach units of the accumulator."""
+    layer = copy.deepcopy(layer).cpu()
+    x_q = x_q.cpu()
+    acc, sum_x = layer.int_acc(x_q, group_sums=True)
+    ones = torch.ones((1,) + tuple(x_q.shape[1:]), dtype=torch.int8)
+    corr_w, count = layer.int_acc(ones, group_sums=True)
+    co = layer.w_shape[0]
+    og = co // layer.groups
+    sh_x = 0.0 if layer.symmetric else 128.0 + float(layer.act_zero_point)
+    sh_w = torch.zeros(co, dtype=torch.float64) if layer.w_symmetric else (
+        128.0 + layer.w_zp.double()).expand(co)
+    sh_w = sh_w[:, None, None]
+    terms = (acc.double(), sh_x * corr_w.double(),
+             sh_w * sum_x.double().repeat_interleave(og, dim=1),
+             sh_x * sh_w * count.double().repeat_interleave(og, dim=1))
+    exact = sum(terms)
+    return exact, 7 * 2.0 ** -24 * sum(t.abs() for t in terms)
 
 
 class IntConv2d(_IntConvRoutes):
     """Integer conv: int8 in, int8 weights, exact int32-valued
     accumulation, f32 epilogue (or a requant to int8 when chained).
-    ``w_q`` is OIHW; with W <= 4 it is stored nibble-packed
-    (``w_packed``) as the (kh*kw*cg/2, O) bytes of the JAX package."""
+    ``w_q`` is OIHW; with symmetric W <= 4 it is stored nibble-packed
+    (``w_packed``) as the (kh*kw*cg/2, O) bytes of the JAX package.
+    Asymmetric weights (``w_symmetric`` False) are stored ``q0 - 128``
+    with their per-out-channel zero point ``w_zp``."""
 
     def __init__(self, w_q: torch.Tensor, w_scale: torch.Tensor, act_scale, bias,
                  stride: Tuple[int, int], padding: Tuple[int, int],
-                 dilation: Tuple[int, int], groups: int, a_qmin: float, a_qmax: float):
+                 dilation: Tuple[int, int], groups: int, a_qmin: float, a_qmax: float,
+                 act_zero_point=0.0):
         super().__init__()
         dev = w_q.device
         self.register_buffer("w_q", w_q)
         self.register_buffer("w_scale", w_scale.to(torch.float32).clone())
         self.register_buffer("act_scale", _scalar_buffer(act_scale, dev))
+        self.register_buffer("act_zero_point", _scalar_buffer(act_zero_point, dev))
+        self.register_buffer("w_zp", torch.zeros(w_q.shape[0], device=dev))
         self.register_buffer("bias", None if bias is None else bias.clone())
         self.register_buffer("out_scale", torch.ones((), device=dev))
         self.stride, self.padding, self.dilation = stride, padding, dilation
         self.groups = groups
         self.a_qmin, self.a_qmax = a_qmin, a_qmax
         self.symmetric = a_qmin < 0
+        self.w_symmetric = True
         # set by the chain planner: requantize the output to the next
         # layer's activation scale
         self.chained = False
@@ -200,6 +355,7 @@ class IntConv2d(_IntConvRoutes):
         self.w_shape = tuple(w_q.shape)  # (O, cg, kh, kw)
         self.w_packed = False
         # the image-input layer: f32 conv over the dequantized codes
+        # (symmetric activations and weights only)
         self.f32_dequant = groups == 1 and self.w_shape[1] < 8
         self._gemm_cache: Optional[Tuple[Tuple, torch.Tensor]] = None
 
@@ -241,17 +397,104 @@ class IntConv2d(_IntConvRoutes):
             # chained: already quantized with this layer's scale upstream
             x_q = x
         else:
-            x_q = torch.clamp(round_half_away(x.to(torch.float32) / s_x), self.a_qmin,
-                              self.a_qmax).to(torch.int8)
-        if self.f32_dequant:
+            x_q = _act_codes(x, s_x, self.act_zero_point, self.a_qmin, self.a_qmax,
+                             self.symmetric)
+        if self.f32_dequant and self.symmetric and self.w_symmetric:
             return self._finish(self.dequant_conv(x_q))
-        acc = self.int_acc(x_q).to(torch.float32)
+        acc = self._zero_point_acc(x_q)
         return self._finish(acc * (s_x * self.w_scale)[:, None, None])
 
 
+class IntConvTranspose2d(_IntConvRoutes):
+    """Integer transposed conv (``QuantConvTranspose2d`` frozen): int8 in,
+    int8 weights with one layer-level scale (``w_scale`` and ``w_zp`` are
+    scalars), exact accumulation, f32 epilogue; the zero points fold into
+    the same correction terms as :class:`IntConv2d`'s. ``w_q`` has torch's
+    transposed layout (in, out // groups, kh, kw); the GEMM runs the
+    equivalent convolution (``w_shape`` is its (O, in // groups, kh,
+    kw))."""
+
+    transposed_kernels = ("w_q",)
+
+    def __init__(self, w_q: torch.Tensor, w_scale, act_scale, act_zero_point, bias,
+                 stride: Tuple[int, int], padding: Tuple[int, int],
+                 output_padding: Tuple[int, int], dilation: Tuple[int, int], groups: int,
+                 a_qmin: float, a_qmax: float):
+        super().__init__()
+        dev = w_q.device
+        cin, og, kh, kw = w_q.shape
+        self.register_buffer("w_q", w_q)
+        self.register_buffer("w_scale", _scalar_buffer(w_scale, dev))
+        self.register_buffer("act_scale", _scalar_buffer(act_scale, dev))
+        self.register_buffer("act_zero_point", _scalar_buffer(act_zero_point, dev))
+        self.register_buffer("w_zp", torch.zeros((), device=dev))
+        self.register_buffer("bias", None if bias is None else bias.clone())
+        self.stride, self.padding, self.dilation = stride, padding, dilation
+        self.output_padding = output_padding
+        self.groups = groups
+        self.a_qmin, self.a_qmax = a_qmin, a_qmax
+        self.symmetric = a_qmin < 0
+        self.w_symmetric = True
+        self.w_shape = (og * groups, cin // groups, kh, kw)
+        self._gemm_cache: Optional[Tuple[Tuple, torch.Tensor]] = None
+
+    def _codes(self) -> torch.Tensor:
+        return self.w_q
+
+    def _weights(self) -> torch.Tensor:
+        return self.w_q
+
+    def _weights_hwio(self) -> torch.Tensor:
+        """The equivalent convolution's (kh, kw, in // groups, O) kernel:
+        spatially flipped, in and out swapped within each group."""
+        cin, og, kh, kw = self.w_q.shape
+        g = self.groups
+        w = torch.flip(self.w_q.reshape(g, cin // g, og, kh, kw), dims=(3, 4))
+        return w.permute(3, 4, 1, 0, 2).reshape(kh, kw, cin // g, g * og)
+
+    def _ones_kernel(self, dev: torch.device) -> torch.Tensor:
+        _, _, kh, kw = self.w_q.shape
+        return torch.ones((self.w_q.shape[0], 1, kh, kw), dtype=torch.int8, device=dev)
+
+    def _f64(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        return TF.conv_transpose2d(x.to(torch.float64), w.to(torch.float64), None, self.stride,
+                                   self.padding, self.output_padding, self.groups,
+                                   self.dilation)
+
+    def _gemm_geometry(self):
+        return (1, 1), (0, 0), self.dilation
+
+    def _gemm_input(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` dilated by the stride (zeros between its pixels), then
+        edge-padded by ``d * (k - 1) - p`` (a crop where negative) and
+        ``output_padding`` more on the high side."""
+        n, c, h, w = x.shape
+        (sh, sw), (ph, pw) = self.stride, self.padding
+        (oph, opw), (dh, dw) = self.output_padding, self.dilation
+        _, _, kh, kw = self.w_shape
+        if (sh, sw) != (1, 1):
+            xd = torch.zeros((n, c, (h - 1) * sh + 1, (w - 1) * sw + 1), dtype=x.dtype,
+                             device=x.device)
+            xd[:, :, ::sh, ::sw] = x
+            x = xd
+        lo_h, lo_w = dh * (kh - 1) - ph, dw * (kw - 1) - pw
+        return TF.pad(x, (lo_w, lo_w + opw, lo_h, lo_h + oph))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x_q = x if x.dtype == torch.int8 else _act_codes(
+            x, self.act_scale, self.act_zero_point, self.a_qmin, self.a_qmax, self.symmetric)
+        out = self._zero_point_acc(x_q) * (self.act_scale * self.w_scale)
+        if self.bias is not None:
+            out = out + self.bias[:, None, None]
+        return out
+
+
 class IntLinear(nn.Module):
-    """Integer linear on kernel K1 (``int8_linear``): w_q (in, out) int8,
-    or nibble-packed (in/2, out) with W <= 4."""
+    """Integer linear: w_q (in, out) int8, or nibble-packed (in/2, out)
+    with symmetric W <= 4. Symmetric activations and weights run kernel
+    K1 (``int8_linear``); otherwise, as the JAX package does, codes are
+    stored ``q0 - 128`` and one plain integer matmul (``torch._int_mm`` on
+    the card, f64 on the CPU) takes the rank-1 corrections."""
 
     def __init__(self, w_q: torch.Tensor, w_scale: torch.Tensor, act_scale, act_zero_point,
                  bias, a_qmin: float, a_qmax: float):
@@ -261,9 +504,11 @@ class IntLinear(nn.Module):
         self.register_buffer("w_scale", w_scale.to(torch.float32).clone())
         self.register_buffer("act_scale", _scalar_buffer(act_scale, dev))
         self.register_buffer("act_zero_point", _scalar_buffer(act_zero_point, dev))
+        self.register_buffer("w_zp", torch.zeros(w_q.shape[1], device=dev))
         self.register_buffer("bias", None if bias is None else bias.clone())
         self.a_qmin, self.a_qmax = a_qmin, a_qmax
         self.symmetric = a_qmin < 0
+        self.w_symmetric = True
         self.w_packed = False
         self.w_shape = tuple(w_q.shape)
 
@@ -271,8 +516,31 @@ class IntLinear(nn.Module):
         return unpack_int4(self.w_q) if self.w_packed else self.w_q
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return int8_linear(x, self._weights(), self.w_scale, self.act_scale,
-                           self.act_zero_point, self.bias, qmin=self.a_qmin, qmax=self.a_qmax)
+        if self.symmetric and self.w_symmetric:
+            return int8_linear(x, self._weights(), self.w_scale, self.act_scale,
+                               self.act_zero_point, self.bias, qmin=self.a_qmin,
+                               qmax=self.a_qmax)
+        lead, k = x.shape[:-1], x.shape[-1]
+        x_q = _act_codes(x.reshape(-1, k), self.act_scale, self.act_zero_point, self.a_qmin,
+                         self.a_qmax, self.symmetric)
+        sh_x = 0.0 if self.symmetric else 128.0 + self.act_zero_point
+        w_q = self._weights()
+        if x_q.device.type == "cuda":
+            acc = _int_mm_exact(x_q, w_q.t()).to(torch.float32)
+        else:
+            acc = (x_q.to(torch.float64) @ w_q.to(torch.float64)).to(torch.float32)
+        colsum_w = torch.sum(w_q, dim=0, dtype=torch.int32).to(torch.float32)
+        if self.w_symmetric:
+            acc = acc + sh_x * colsum_w[None, :]
+        else:
+            sh_w = 128.0 + self.w_zp
+            rowsum_x = torch.sum(x_q, dim=1, dtype=torch.int32).to(torch.float32)
+            acc = (acc + sh_w[None, :] * rowsum_x[:, None] + sh_x * colsum_w[None, :]
+                   + float(k) * sh_x * sh_w[None, :])
+        out = acc * (self.act_scale * self.w_scale)[None, :]
+        if self.bias is not None:
+            out = out + self.bias
+        return out.reshape(*lead, w_q.shape[1])
 
 
 class IntMaxPool2d(nn.Module):
@@ -325,10 +593,11 @@ class IntAvgPool2d(nn.Module):
         return F.avg_pool2d(xf, self.kernel_size, self.stride, self.padding)
 
 
-class IntAdd(nn.Module):
-    """Frozen ``QuantAdd``: both addends share one scale, so the codes add
-    in int32 with no rescale; the result dequantizes or requantizes to
-    the consumer's scale."""
+class _IntUnion(nn.Module):
+    """Two inputs at one shared scale (``QuantAdd`` / ``QuantConcat``
+    frozen): each arrives chained int8 (already at that scale) or f32
+    (quantized here); the result dequantizes or requantizes to the
+    consumer's scale."""
 
     def __init__(self, act_scale, a_qmin: float, a_qmax: float):
         super().__init__()
@@ -345,13 +614,31 @@ class IntAdd(nn.Module):
         return torch.clamp(round_half_away(x.to(torch.float32) / self.act_scale), self.a_qmin,
                            self.a_qmax).to(torch.int8)
 
-    def forward(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-        s = self.act_scale
-        acc = self._inq(a).to(torch.int32) + self._inq(b).to(torch.int32)
+    def _out(self, codes: torch.Tensor) -> torch.Tensor:
         if self.chained:
-            q = round_half_away(acc.to(torch.float32) * (s / self.out_scale))
+            q = round_half_away(codes.to(torch.float32) * (self.act_scale / self.out_scale))
             return torch.clamp(q, self.out_qmin, self.out_qmax).to(torch.int8)
-        return acc.to(torch.float32) * s
+        return codes.to(torch.float32) * self.act_scale
+
+
+class IntAdd(_IntUnion):
+    """Frozen ``QuantAdd``: the codes add in int32 with no rescale."""
+
+    def forward(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        return self._out(self._inq(a).to(torch.int32) + self._inq(b).to(torch.int32))
+
+
+class IntConcat(_IntUnion):
+    """Frozen ``QuantConcat``: the codes concatenate as a copy. ``axis`` is
+    the JAX package's NHWC axis."""
+
+    def __init__(self, axis: int, act_scale, a_qmin: float, a_qmax: float):
+        super().__init__(act_scale, a_qmin, a_qmax)
+        self.axis = axis
+
+    def forward(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        return self._out(torch.cat([self._inq(a), self._inq(b)],
+                                   dim=M.nchw_axis(self.axis, a.dim())))
 
 
 def _check_bits(wq: qat_iao.FakeQuantizer, aq: qat_iao.FakeQuantizer) -> None:
@@ -361,17 +648,52 @@ def _check_bits(wq: qat_iao.FakeQuantizer, aq: qat_iao.FakeQuantizer) -> None:
             "values ride int8 with narrower clip ranges)")
 
 
+def _int8_activation(aq: qat_iao.FakeQuantizer) -> bool:
+    """An activation-only layer freezes where its quantizer is symmetric at
+    2..8 bits; otherwise it stays fake-quant, as in the JAX package."""
+    return 1 < aq.bits <= 8 and aq.symmetric
+
+
 @torch.no_grad()
 def _freeze_conv(m: qat_iao.QuantConv2d) -> IntConv2d:
     wq, aq = m.weight_quantizer, m.activation_quantizer
     _check_bits(wq, aq)
     co = m.weight.shape[0]
     w_scale = torch.broadcast_to(wq.scale.reshape(-1), (co,))
-    w_q = _quantize_weight_int8(m.weight, w_scale[:, None, None, None], wq.qmin, wq.qmax)
+    per_out = w_scale[:, None, None, None]
+    if wq.symmetric:
+        w_q = _quantize_weight_int8(m.weight, per_out, wq.qmin, wq.qmax)
+    else:
+        w_zp = torch.broadcast_to(wq.zero_point.reshape(-1), (co,))
+        w_q = _shifted_weight_codes(m.weight, per_out, w_zp[:, None, None, None], wq.qmin,
+                                    wq.qmax)
     out = IntConv2d(w_q, w_scale, aq.scale, m.bias, m.stride, m.padding, m.dilation,
-                    m.groups, aq.qmin, aq.qmax)
-    if wq.bits <= 4:
+                    m.groups, aq.qmin, aq.qmax, act_zero_point=aq.zero_point)
+    if not wq.symmetric:
+        # asymmetric codes are never packed
+        out.w_symmetric = False
+        out.w_zp.copy_(w_zp)
+    elif wq.bits <= 4:
         _maybe_pack_w4(out, out._weights_hwio().reshape(-1, co))
+    return out
+
+
+@torch.no_grad()
+def _freeze_convt(m: qat_iao.QuantConvTranspose2d) -> IntConvTranspose2d:
+    wq, aq = m.weight_quantizer, m.activation_quantizer
+    _check_bits(wq, aq)
+    w_scale = wq.scale.reshape(())  # layer-level
+    if wq.symmetric:
+        w_q = _quantize_weight_int8(m.weight, w_scale, wq.qmin, wq.qmax)
+    else:
+        w_q = _shifted_weight_codes(m.weight, w_scale, wq.zero_point.reshape(()), wq.qmin,
+                                    wq.qmax)
+    out = IntConvTranspose2d(w_q, w_scale, aq.scale, aq.zero_point, m.bias, m.stride,
+                             m.padding, m.output_padding, m.dilation, m.groups, aq.qmin,
+                             aq.qmax)
+    if not wq.symmetric:
+        out.w_symmetric = False
+        out.w_zp.copy_(wq.zero_point.reshape(()))
     return out
 
 
@@ -380,9 +702,16 @@ def _freeze_linear(m: qat_iao.QuantLinear) -> IntLinear:
     wq, aq = m.weight_quantizer, m.activation_quantizer
     _check_bits(wq, aq)
     w_scale = torch.broadcast_to(wq.scale.reshape(-1), (m.weight.shape[1],))
-    w_q = _quantize_weight_int8(m.weight, w_scale, wq.qmin, wq.qmax)
+    if wq.symmetric:
+        w_q = _quantize_weight_int8(m.weight, w_scale, wq.qmin, wq.qmax)
+    else:
+        w_zp = torch.broadcast_to(wq.zero_point.reshape(-1), (m.weight.shape[1],))
+        w_q = _shifted_weight_codes(m.weight, w_scale, w_zp, wq.qmin, wq.qmax)
     out = IntLinear(w_q, w_scale, aq.scale, aq.zero_point, m.bias, aq.qmin, aq.qmax)
-    if wq.bits <= 4:
+    if not wq.symmetric:
+        out.w_symmetric = False
+        out.w_zp.copy_(w_zp)
+    elif wq.bits <= 4:
         _maybe_pack_w4(out, w_q)
     return out
 
@@ -395,15 +724,19 @@ def _maybe_pack_w4(mod, w_q_2d: torch.Tensor) -> None:
         mod.w_packed = True
 
 
-def _freeze_maxpool(m: qat_iao.QuantMaxPool2d) -> IntMaxPool2d:
+def _freeze_maxpool(m: qat_iao.QuantMaxPool2d):
     aq = m.activation_quantizer
+    if not _int8_activation(aq):
+        return m
     pool = IntMaxPool2d(m.kernel_size, m.stride, m.padding, aq.scale)
     pool.a_qmin, pool.a_qmax = aq.qmin, aq.qmax
     return pool
 
 
-def _freeze_avgpool(m) -> IntAvgPool2d:
+def _freeze_avgpool(m):
     aq = m.activation_quantizer
+    if not _int8_activation(aq):
+        return m
     if isinstance(m, qat_iao.QuantAdaptiveAvgPool2d):
         pool = IntAvgPool2d(None, None, None, aq.scale, m.output_size)
     else:
@@ -413,18 +746,25 @@ def _freeze_avgpool(m) -> IntAvgPool2d:
     return pool
 
 
-def _freeze_add(m: qat_iao.QuantAdd) -> IntAdd:
+def _freeze_add(m: qat_iao.QuantAdd):
     aq = m.activation_quantizer
-    return IntAdd(aq.scale, aq.qmin, aq.qmax)
+    return IntAdd(aq.scale, aq.qmin, aq.qmax) if _int8_activation(aq) else m
+
+
+def _freeze_concat(m: qat_iao.QuantConcat):
+    aq = m.activation_quantizer
+    return IntConcat(m.axis, aq.scale, aq.qmin, aq.qmax) if _int8_activation(aq) else m
 
 
 _FREEZERS = {
     qat_iao.QuantConv2d: _freeze_conv,
+    qat_iao.QuantConvTranspose2d: _freeze_convt,
     qat_iao.QuantLinear: _freeze_linear,
     qat_iao.QuantMaxPool2d: _freeze_maxpool,
     qat_iao.QuantAvgPool2d: _freeze_avgpool,
     qat_iao.QuantAdaptiveAvgPool2d: _freeze_avgpool,
     qat_iao.QuantAdd: _freeze_add,
+    qat_iao.QuantConcat: _freeze_concat,
 }
 
 
@@ -432,22 +772,20 @@ def freeze_int(model: nn.Module, *, inplace: bool = False, chain_int8: bool = Tr
                example_input: Optional[torch.Tensor] = None, device=None) -> nn.Module:
     """Convert a BN-fused, weight-pre-quantized inference model to the
     integer engine, on ``device`` (None = CUDA, which raises without a
-    card). Symmetric quantization at 2..8 bits, W <= 4 nibble-packed.
+    card). Symmetric and asymmetric (q_type 0 and 1) quantization at 2..8
+    bits, symmetric W <= 4 nibble-packed; convs, transposed convs and
+    linears freeze, and pools, adds and concats with a symmetric
+    quantizer.
 
     With ``chain_int8`` the planner wires each emitter's requantizing
     epilogue to the next quantized layer's activation scale wherever only
     order-preserving modules (ReLU, MaxPool, Identity, Flatten) sit
     between them. Pass ``example_input`` (NHWC, batch may be 1) to trace
-    the real dataflow, which branching graphs need: residual adds then
-    chain through :class:`IntAdd`. Without it, a leaf-order fallback
-    handles single-path graphs only.
+    the real dataflow, which branching graphs need: residual adds and
+    concats then chain through :class:`IntAdd` and :class:`IntConcat`.
+    Without it, a leaf-order fallback handles single-path graphs only.
     """
     dev = resolve_device(device)
-    if any(isinstance(m, qat_iao.FakeQuantizer) and not m.symmetric
-           for m in model.modules()):
-        raise NotImplementedError(
-            "asymmetric (q_type=1) engine paths are not ported yet "
-            "(ROADMAP.md, Queue 1: asymmetric engine paths)")
     if not inplace:
         model = _copy_model(model)
     model.to(dev)
@@ -476,13 +814,14 @@ _PASSTHROUGH = (M.ReLU, M.MaxPool2d, M.Identity, M.Flatten)
 
 def _is_emitter(m) -> bool:
     """Emitters can requantize their output to a receiver's int8 scale."""
-    return (isinstance(m, IntConv2d) and m.symmetric) or isinstance(m, (IntMaxPool2d, IntAdd))
+    return (isinstance(m, IntConv2d) and m.symmetric) or isinstance(
+        m, (IntMaxPool2d, IntAdd, IntConcat))
 
 
 def _is_receiver(m) -> bool:
     """Receivers accept chained int8 quantized at their own act_scale."""
     return (isinstance(m, IntConv2d) and m.symmetric) or isinstance(
-        m, (IntMaxPool2d, IntAvgPool2d, IntAdd))
+        m, (IntMaxPool2d, IntAvgPool2d, IntAdd, IntConcat))
 
 
 @torch.no_grad()
@@ -495,10 +834,11 @@ def _link(emitter, receiver) -> None:
 
 def _plan_chains_leaf_order(model: nn.Module) -> None:
     """Chain along definition order. Only sound for single-path graphs (the
-    last conv of a residual branch is followed in leaf order by a sibling
-    branch's module, not by its consumer), so it does nothing on a graph
-    with an add."""
-    if any(isinstance(m, (IntAdd, qat_iao.QuantAdd)) for m in model.modules()):
+    last conv of a residual or concat branch is followed in leaf order by
+    a sibling branch's module, not by its consumer), so it does nothing
+    on a graph with an add or a concat."""
+    if any(isinstance(m, (IntAdd, IntConcat, qat_iao.QuantAdd, qat_iao.QuantConcat))
+           for m in model.modules()):
         return
     ordered: list = []
 
@@ -523,18 +863,20 @@ def _plan_chains_leaf_order(model: nn.Module) -> None:
 def _plan_chains_dataflow(model: nn.Module, example_input: torch.Tensor) -> None:
     """Trace the real consumer graph and chain every emitter whose output
     feeds exactly one receiver (directly or through passthrough modules).
-    Each producer into an IntAdd requantizes to the add's shared scale
-    independently; an output that fans out to several consumers stays
-    f32."""
+    Each producer into an IntAdd or IntConcat requantizes to its shared
+    scale independently; an output that fans out to several consumers
+    stays f32."""
     from .dataflow import trace_dataflow
 
     node_types = [
-        IntConv2d, IntLinear, IntMaxPool2d, IntAvgPool2d, IntAdd,
+        IntConv2d, IntConvTranspose2d, IntLinear, IntMaxPool2d, IntAvgPool2d, IntAdd,
+        IntConcat, TernaryConv2d,
         # unfrozen fake-quant layers are opaque f32 nodes: chains never
         # jump across them
-        qat_iao.QuantConv2d, qat_iao.QuantLinear, qat_iao.QuantReLU,
+        qat_iao.QuantConv2d, qat_iao.QuantConvTranspose2d, qat_iao.QuantLinear,
+        qat_iao.QuantReLU, qat_iao.QuantLeakyReLU, qat_iao.QuantSigmoid,
         qat_iao.QuantMaxPool2d, qat_iao.QuantAvgPool2d, qat_iao.QuantAdaptiveAvgPool2d,
-        qat_iao.QuantAdd,
+        qat_iao.QuantAdd, qat_iao.QuantConcat,
     ] + list(_PASSTHROUGH)
     trace = trace_dataflow(model, example_input, node_types)
     consumers = trace.consumers()

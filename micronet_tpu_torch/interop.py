@@ -12,18 +12,40 @@ Linear weights are (in, out) in both packages and the W4 weights are the
 same hl8 bytes, so those move as they are. Convolutions are the one
 layout change (``docs/design.md``, Layouts): the JAX package keeps conv
 kernels HWIO and per-out-channel conv statistics (1, 1, 1, O); the port
-keeps them OIHW and (O, 1, 1, 1). Every 4-D array therefore moves
-through the same transpose (3, 2, 0, 1).
+keeps them OIHW and (O, 1, 1, 1), so a 4-D array moves through the
+transpose (3, 2, 0, 1). Transposed-conv kernels are the exception: the
+JAX package keeps them (kh, kw, in, out // groups), the port torch's
+(in, out // groups, kh, kw), a transpose (2, 3, 0, 1). Where ``in ==
+out // groups`` the shape cannot tell the two apart, so the layout comes
+from the module: :func:`transposed_kernel_keys` of the port model names
+the tensors of the second layout (each module lists them in
+``transposed_kernels``).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Tuple
+from typing import Dict, FrozenSet, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
-__all__ = ["llama_state_from_numpy", "cnn_state_from_numpy"]
+__all__ = ["llama_state_from_numpy", "cnn_state_from_numpy", "transposed_kernel_keys"]
+
+# JAX layout -> port layout of a 4-D array, and back
+HWIO_TO_OIHW = (3, 2, 0, 1)
+OIHW_TO_HWIO = (2, 3, 1, 0)
+KKIO_TO_IOKK = (2, 3, 0, 1)  # transposed-conv kernels, both ways
+
+
+def transposed_kernel_keys(model: Optional[nn.Module]) -> FrozenSet[str]:
+    """``state_dict`` keys of ``model``'s transposed-conv kernels: every
+    tensor a module names in its ``transposed_kernels``."""
+    if model is None:
+        return frozenset()
+    return frozenset(f"{name}.{attr}" if name else attr
+                     for name, m in model.named_modules()
+                     for attr in getattr(m, "transposed_kernels", ()))
 
 
 def llama_state_from_numpy(
@@ -47,18 +69,24 @@ def llama_state_from_numpy(
     return state
 
 
-def cnn_state_from_numpy(flat: Mapping[Tuple, np.ndarray]) -> Dict[str, torch.Tensor]:
+def cnn_state_from_numpy(flat: Mapping[Tuple, np.ndarray],
+                         model: Optional[nn.Module] = None) -> Dict[str, torch.Tensor]:
     """The port's ``state_dict`` (CPU tensors) for a JAX CNN's variables in
     ``flat``: the float weights and BN statistics of a plain model, or a
     prepared model's quantizer state (``min_val``, ``max_val``, ``scale``,
     ``zero_point``, ``initialized``) and fused-BN state (``gamma``,
-    ``beta``, ``running_*``, ``bn_initialized``). Load it with
-    ``load_state_dict`` (strict) into the port model of the same
-    architecture and stage."""
+    ``beta``, ``running_*``, ``bn_initialized``), or a frozen engine's
+    (``w_q``, ``w_scale``, ``act_scale``, ``act_zero_point``, ``w_zp``,
+    ...). Load it with ``load_state_dict`` (strict) into the port model of
+    the same architecture and stage. ``model`` is that port model: it says
+    which kernels are transposed convolutions' (needed only where the net
+    has one)."""
+    transposed = transposed_kernel_keys(model)
     state: Dict[str, torch.Tensor] = {}
     for path, value in flat.items():
+        key = ".".join(str(p) for p in path)
         arr = np.asarray(value)
-        if arr.ndim == 4:  # HWIO kernel or (1, 1, 1, O) statistics -> OIHW
-            arr = arr.transpose(3, 2, 0, 1)
-        state[".".join(str(p) for p in path)] = torch.from_numpy(np.array(arr, order="C"))
+        if arr.ndim == 4:  # a kernel, or (1, 1, 1, O) statistics
+            arr = arr.transpose(KKIO_TO_IOKK if key in transposed else HWIO_TO_OIHW)
+        state[key] = torch.from_numpy(np.array(arr, order="C"))
     return state

@@ -4,7 +4,8 @@ The JAX package runs NHWC activations and HWIO kernels; the port runs
 NCHW activations and OIHW kernels inside its models (their public
 ``forward`` takes NHWC, as the JAX models do). Semantics are torch's:
 symmetric integer padding, ``count_include_pad=True`` average pooling.
-Transposed convolution is not ported yet.
+Transposed convolutions take torch's weight layout (in, out // groups,
+kh, kw); the JAX package's is (kh, kw, in, out // groups).
 """
 
 from __future__ import annotations
@@ -18,7 +19,9 @@ import torch.nn.functional as TF
 __all__ = [
     "sqrt",
     "conv2d",
+    "conv_transpose2d",
     "linear",
+    "leaky_relu",
     "max_pool2d",
     "avg_pool2d",
     "adaptive_avg_pool2d",
@@ -50,12 +53,33 @@ def conv2d(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor] =
     return y if bias is None else y + bias[:, None, None]
 
 
+def conv_transpose2d(x: torch.Tensor, weight: torch.Tensor,
+                     bias: Optional[torch.Tensor] = None, stride: IntPair = 1,
+                     padding: IntPair = 0, output_padding: IntPair = 0, dilation: IntPair = 1,
+                     groups: int = 1) -> torch.Tensor:
+    """Transposed convolution, NCHW x (in, out // groups, kh, kw) -> NCHW,
+    torch semantics: the gradient of ``conv2d`` with respect to its input.
+    The JAX package computes it as a convolution of the input dilated by
+    ``stride`` with the flipped kernel and edge padding ``d * (k - 1) - p``
+    (``+ output_padding`` on the high side), a crop where that is
+    negative; the values are the same. The bias is added after."""
+    y = TF.conv_transpose2d(x, weight, None, _pair(stride), _pair(padding),
+                            _pair(output_padding), groups, _pair(dilation))
+    return y if bias is None else y + bias[:, None, None]
+
+
 def linear(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``x @ weight (+ bias)`` with weight (in, out)."""
     y = x.to(torch.float32) @ weight.to(torch.float32)
     if bias is not None:
         y = y + bias
     return y.to(x.dtype)
+
+
+def leaky_relu(x: torch.Tensor, negative_slope: float) -> torch.Tensor:
+    """``x`` where ``x >= 0``, else ``negative_slope * x`` (``jax.nn``'s
+    form)."""
+    return torch.where(x >= 0, x, negative_slope * x)
 
 
 def max_pool2d(x: torch.Tensor, kernel_size: IntPair, stride: Optional[IntPair] = None,

@@ -30,13 +30,17 @@ __all__ = [
     "train_mode",
     "eval_mode",
     "Conv2d",
+    "ConvTranspose2d",
     "Linear",
     "BatchNorm2d",
     "ReLU",
+    "LeakyReLU",
+    "Sigmoid",
     "MaxPool2d",
     "AvgPool2d",
     "AdaptiveAvgPool2d",
     "Add",
+    "Concat",
     "Identity",
     "Flatten",
     "Sequential",
@@ -87,6 +91,41 @@ class Conv2d(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.conv2d(x, self.weight, self.bias, self.stride, self.padding,
                         self.dilation, self.groups)
+
+
+class ConvTranspose2d(nn.Module):
+    """2-D transposed convolution with torch's weight layout (in,
+    out // groups, kh, kw), weight and bias drawn uniform in +-1/sqrt(fan)
+    with torch's fan ``(out // groups) * kh * kw``. ``transposed_kernels``
+    names the tensors of that layout for the state converters
+    (``interop.py``, ``train/checkpoint.py``): the JAX package keeps them
+    (kh, kw, in, out // groups)."""
+
+    transposed_kernels = ("weight",)
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: IntPair,
+                 stride: IntPair = 1, padding: IntPair = 0, output_padding: IntPair = 0,
+                 groups: int = 1, bias: bool = True, dilation: IntPair = 1, *,
+                 device: Device = None, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        dev = resolve_device(device)
+        kh, kw = _pair(kernel_size)
+        self.in_channels = in_channels
+        self.out_channels = out_channels
+        self.kernel_size = (kh, kw)
+        self.stride = _pair(stride)
+        self.padding = _pair(padding)
+        self.output_padding = _pair(output_padding)
+        self.dilation = _pair(dilation)
+        self.groups = groups
+        bound = 1.0 / math.sqrt((out_channels // groups) * kh * kw)
+        self.weight = _uniform((in_channels, out_channels // groups, kh, kw), bound, dev,
+                               generator)
+        self.bias = _uniform((out_channels,), bound, dev, generator) if bias else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.conv_transpose2d(x, self.weight, self.bias, self.stride, self.padding,
+                                  self.output_padding, self.dilation, self.groups)
 
 
 class Linear(nn.Module):
@@ -149,6 +188,20 @@ class ReLU(nn.Module):
         return torch.relu(x)
 
 
+class LeakyReLU(nn.Module):
+    def __init__(self, negative_slope: float = 0.01):
+        super().__init__()
+        self.negative_slope = negative_slope
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.leaky_relu(x, self.negative_slope)
+
+
+class Sigmoid(nn.Module):
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.sigmoid(x)
+
+
 class MaxPool2d(nn.Module):
     def __init__(self, kernel_size: IntPair, stride: Optional[IntPair] = None,
                  padding: IntPair = 0):
@@ -187,6 +240,29 @@ class Add(nn.Module):
 
     def forward(self, res: torch.Tensor, shortcut: torch.Tensor) -> torch.Tensor:
         return res + shortcut
+
+
+def nchw_axis(axis: int, ndim: int) -> int:
+    """The dim of an NCHW tensor that the JAX package's NHWC ``axis``
+    names (channels, -1 there, are dim 1 here); other ranks keep their
+    axis, their layout being the same in both packages."""
+    if ndim != 4:
+        return axis
+    return (0, 2, 3, 1)[axis % 4]
+
+
+class Concat(nn.Module):
+    """Concatenation of two tensors, the anchor ``prepare`` rewrites into
+    ``QuantConcat``. ``axis`` is the JAX package's NHWC axis (``-1``, the
+    default, is channels), so a model written from a JAX one concatenates
+    the same values."""
+
+    def __init__(self, axis: int = -1):
+        super().__init__()
+        self.axis = axis
+
+    def forward(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        return torch.cat([a, b], dim=nchw_axis(self.axis, a.dim()))
 
 
 class Identity(nn.Module):

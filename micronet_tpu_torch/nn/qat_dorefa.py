@@ -7,9 +7,7 @@ quantizer (``pre_quantize_weights`` stored the quantized weights).
 
 Every config runs the exact f32 composition; the JAX package's
 code-storage lowering (``act_codes``) is an accelerator lowering of the
-same values and is not ported. ``QuantConvTranspose2d`` waits for the
-port's ``ConvTranspose2d`` (ROADMAP.md, Queue 1 item 7) and raises until
-then.
+same values and is not ported.
 """
 
 from __future__ import annotations
@@ -19,7 +17,7 @@ import torch
 from ..quant import dorefa
 from ..quant.config import QuantConfig
 from . import functional as F
-from .modules import Conv2d, Linear
+from .modules import Conv2d, ConvTranspose2d, Linear
 
 __all__ = ["QuantConv2d", "QuantConvTranspose2d", "QuantLinear"]
 
@@ -40,13 +38,23 @@ class QuantConv2d(Conv2d):
                         self.stride, self.padding, self.dilation, self.groups)
 
 
-class QuantConvTranspose2d:
-    """Not ported: the port has no ``ConvTranspose2d`` yet."""
+class QuantConvTranspose2d(ConvTranspose2d):
+    """ConvTranspose2d with DoReFa fake-quant on the input and the weight
+    (the weight's max-normalization spans the whole tensor, so its layout
+    does not matter)."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "DoReFa QuantConvTranspose2d is not ported yet: it waits for the port's "
-            "ConvTranspose2d (ROADMAP.md, Queue 1 item 7: ConvTranspose and Concat)")
+    def __init__(self, *args, cfg: QuantConfig, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.a_bits = cfg.a_bits
+        self.w_bits = cfg.w_bits
+        self.quant_inference = cfg.quant_inference
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w = self.weight if self.quant_inference else dorefa.quantize_weight(self.weight,
+                                                                             self.w_bits)
+        return F.conv_transpose2d(dorefa.quantize_activation(x, self.a_bits), w, self.bias,
+                                  self.stride, self.padding, self.output_padding,
+                                  self.dilation, self.groups)
 
 
 class QuantLinear(Linear):

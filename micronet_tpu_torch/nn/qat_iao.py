@@ -20,14 +20,17 @@ PTQ forces symmetric quantizers. While an entropy quantizer streams (in
 training mode, not ``qaft``) it passes its input through unquantized and
 leaves its qparams alone: they exist only once calibration resolves them.
 
+``QuantConvTranspose2d`` quantizes its weight per layer only, as the
+JAX package does. ``QuantAdd`` and ``QuantConcat`` share one (union)
+scale between their two inputs.
+
 Not ported yet: the ``act_codes`` and ``bn_stats`` lowerings (every
-config runs the exact f32 composition), ``QuantConvTranspose2d``,
-``QuantConcat``, ``QuantLeakyReLU`` and ``QuantSigmoid`` (ROADMAP.md,
-Queue 1 items 7 and 8).
+config runs the exact f32 composition; ROADMAP.md, Queue 1 item 8).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Tuple
 
 import torch
@@ -40,18 +43,22 @@ from ..quant.observers import (EntropyState, HistogramState, MinMaxState, ema_mi
 from ..quant.quantizers import asymmetric_qparams, fake_quant, quant_range, symmetric_qparams
 from . import functional as F
 from .functional import IntPair, _pair
-from .modules import Conv2d, Device, Linear
+from .modules import Conv2d, ConvTranspose2d, Device, Linear, nchw_axis
 
 __all__ = [
     "FakeQuantizer",
     "QuantConv2d",
+    "QuantConvTranspose2d",
     "QuantBNFuseConv2d",
     "QuantLinear",
     "QuantReLU",
+    "QuantLeakyReLU",
+    "QuantSigmoid",
     "QuantMaxPool2d",
     "QuantAvgPool2d",
     "QuantAdaptiveAvgPool2d",
     "QuantAdd",
+    "QuantConcat",
 ]
 
 _OBSERVERS = ("minmax", "ema", "histogram", "entropy")
@@ -202,6 +209,31 @@ class QuantConv2d(Conv2d):
                         self.padding, self.dilation, self.groups)
 
 
+class QuantConvTranspose2d(ConvTranspose2d):
+    """ConvTranspose2d with fake-quantized input and weight; the weight's
+    quantizer is per layer whatever ``q_level`` says."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: IntPair,
+                 stride: IntPair = 1, padding: IntPair = 0, output_padding: IntPair = 0,
+                 groups: int = 1, bias: bool = True, dilation: IntPair = 1, *,
+                 cfg: QuantConfig, device: Device = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__(in_channels, out_channels, kernel_size, stride, padding,
+                         output_padding, groups, bias, dilation, device=device,
+                         generator=generator)
+        dev = self.weight.device
+        self.quant_inference = cfg.quant_inference
+        self.activation_quantizer = _act_quantizer(cfg, dev)
+        self.weight_quantizer = _weight_quantizer(dataclasses.replace(cfg, q_level=1), (1,),
+                                                  None, dev)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w = self.weight if self.quant_inference else self.weight_quantizer(self.weight)
+        return F.conv_transpose2d(self.activation_quantizer(x), w, self.bias, self.stride,
+                                  self.padding, self.output_padding, self.dilation,
+                                  self.groups)
+
+
 def _per_out(v: torch.Tensor) -> torch.Tensor:
     """(O,) -> (O, 1, 1, 1), broadcasting over an OIHW kernel."""
     return v[:, None, None, None]
@@ -333,6 +365,21 @@ class QuantReLU(_QuantActBase):
         return torch.relu(self.activation_quantizer(x))
 
 
+class QuantLeakyReLU(_QuantActBase):
+    def __init__(self, negative_slope: float = 0.01, *, cfg: QuantConfig,
+                 device: Device = None):
+        super().__init__(cfg, device)
+        self.negative_slope = negative_slope
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.leaky_relu(self.activation_quantizer(x), self.negative_slope)
+
+
+class QuantSigmoid(_QuantActBase):
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.sigmoid(self.activation_quantizer(x))
+
+
 class QuantMaxPool2d(_QuantActBase):
     def __init__(self, kernel_size: IntPair, stride: Optional[IntPair] = None,
                  padding: IntPair = 0, *, cfg: QuantConfig, device: Device = None):
@@ -368,32 +415,65 @@ class QuantAdaptiveAvgPool2d(_QuantActBase):
         return F.adaptive_avg_pool2d(self.activation_quantizer(x), self.output_size)
 
 
-class QuantAdd(nn.Module):
-    """Residual add with one shared (union) scale: two observers watch
-    the addends, the shared quantizer takes the union of their ranges,
-    and both addends fake-quantize with it, so the integer add needs no
-    rescale. Observers update only in training mode (and not ``qaft``),
-    as in the JAX package."""
+class _UnionQuant(nn.Module):
+    """Two inputs, one shared (union) scale: a side observer watches each
+    input, the shared quantizer takes the union of their ranges, and both
+    inputs fake-quantize with it, so the integer op needs no rescale.
+    Observers update only in training mode (and not ``qaft``), as in the
+    JAX package. ``_SIDES`` names the two observers."""
 
-    def __init__(self, *, cfg: QuantConfig, device: Device = None):
+    _SIDES: Tuple[str, str]
+
+    def __init__(self, cfg: QuantConfig, device: Device):
         super().__init__()
         dev = resolve_device(device)
         self.qaft = cfg.qaft
         kw = dict(observer=_ptq_observer(cfg) if cfg.ptq else "ema",
                   percentile=cfg.percentile, qaft=cfg.qaft, device=dev)
-        self.observer_res = FakeQuantizer(cfg.a_bits, symmetric=True, **kw)
-        self.observer_shortcut = FakeQuantizer(cfg.a_bits, symmetric=True, **kw)
+        for side in self._SIDES:
+            setattr(self, side, FakeQuantizer(cfg.a_bits, symmetric=True, **kw))
         self.activation_quantizer = FakeQuantizer(cfg.a_bits, symmetric=cfg.symmetric or cfg.ptq,
                                                   union=True, **kw)
 
-    def forward(self, res: torch.Tensor, shortcut: torch.Tensor) -> torch.Tensor:
+    def sides(self) -> Tuple[FakeQuantizer, FakeQuantizer]:
+        return tuple(getattr(self, side) for side in self._SIDES)
+
+    def _quantize_both(self, a: torch.Tensor, b: torch.Tensor):
         if self.training and not self.qaft:
-            self.observer_res.observe(res)
-            self.observer_shortcut.observe(shortcut)
+            sa, sb = self.sides()
+            sa.observe(a)
+            sb.observe(b)
             aq = self.activation_quantizer
             with torch.no_grad():
-                aq.min_val.copy_(torch.minimum(self.observer_res.min_val,
-                                               self.observer_shortcut.min_val))
-                aq.max_val.copy_(torch.maximum(self.observer_res.max_val,
-                                               self.observer_shortcut.max_val))
-        return self.activation_quantizer(res) + self.activation_quantizer(shortcut)
+                aq.min_val.copy_(torch.minimum(sa.min_val, sb.min_val))
+                aq.max_val.copy_(torch.maximum(sa.max_val, sb.max_val))
+        return self.activation_quantizer(a), self.activation_quantizer(b)
+
+
+class QuantAdd(_UnionQuant):
+    """Residual add with one shared (union) scale."""
+
+    _SIDES = ("observer_res", "observer_shortcut")
+
+    def __init__(self, *, cfg: QuantConfig, device: Device = None):
+        super().__init__(cfg, device)
+
+    def forward(self, res: torch.Tensor, shortcut: torch.Tensor) -> torch.Tensor:
+        qa, qb = self._quantize_both(res, shortcut)
+        return qa + qb
+
+
+class QuantConcat(_UnionQuant):
+    """Concatenation with one shared (union) scale, so the integer concat
+    is a copy. ``axis`` is the JAX package's NHWC axis, as in
+    :class:`..modules.Concat`."""
+
+    _SIDES = ("observer_a", "observer_b")
+
+    def __init__(self, axis: int = -1, *, cfg: QuantConfig, device: Device = None):
+        super().__init__(cfg, device)
+        self.axis = axis
+
+    def forward(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        qa, qb = self._quantize_both(a, b)
+        return torch.cat([qa, qb], dim=nchw_axis(self.axis, qa.dim()))

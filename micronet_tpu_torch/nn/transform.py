@@ -2,14 +2,15 @@
 ``micronet_tpu/nn/transform.py`` (IAO, DoReFa and wbwtab).
 
 IAO: Conv2d -> QuantConv2d, or with ``bn_fuse`` the pair (Conv2d,
-following sibling BatchNorm2d) -> (QuantBNFuseConv2d, Identity); Linear,
-the pools and Add -> their quant variants. A plain ReLU is left alone.
+following sibling BatchNorm2d) -> (QuantBNFuseConv2d, Identity);
+ConvTranspose2d, Linear, LeakyReLU, Sigmoid, the pools, Add and Concat ->
+their quant variants. A plain ReLU is left alone.
 
-DoReFa: every Conv2d and Linear but the first quantizable one -> its
-DoReFa layer (no observers, nothing else changes).
+DoReFa: every Conv2d, ConvTranspose2d and Linear but the first
+quantizable one -> its DoReFa layer (no observers, nothing else changes).
 
-wbwtab: every Conv2d but the first and the last -> the wbwtab
-QuantConv2d; every ReLU after the first conv and before the last ->
+wbwtab: every Conv2d and ConvTranspose2d but the first and the last ->
+its wbwtab layer; every ReLU after the first conv and before the last ->
 ``ActivationQuantizer``. BatchNorms stay (``fuse_bn_wbwtab`` folds them).
 The walk visits children in insertion order, flattening a
 ``Sequential``'s ``layers`` list into the ``Sequential``'s scope, so
@@ -65,6 +66,13 @@ def _conv_args(c: M.Conv2d) -> dict:
                 dilation=c.dilation, groups=c.groups, bias=c.bias is not None)
 
 
+def _convt_args(c: M.ConvTranspose2d) -> dict:
+    return dict(in_channels=c.in_channels, out_channels=c.out_channels,
+                kernel_size=c.kernel_size, stride=c.stride, padding=c.padding,
+                output_padding=c.output_padding, groups=c.groups, bias=c.bias is not None,
+                dilation=c.dilation)
+
+
 @torch.no_grad()
 def _copy_wb(dst: nn.Module, src: nn.Module) -> None:
     dst.weight.copy_(src.weight)
@@ -73,9 +81,10 @@ def _copy_wb(dst: nn.Module, src: nn.Module) -> None:
 
 
 def _count_quantizable_iao(module: nn.Module, bn_fuse: bool) -> int:
-    """Number of conv/linear layers :func:`_add_quant_op_iao` quantizes,
-    by the same walk (with ``bn_fuse`` a Conv2d counts only when a
-    following sibling BatchNorm2d pairs with it)."""
+    """Number of conv, transposed-conv and linear layers
+    :func:`_add_quant_op_iao` quantizes, by the same walk (with
+    ``bn_fuse`` a Conv2d counts only when a following sibling BatchNorm2d
+    pairs with it)."""
     total = 0
     pending = False
     for _, child, _ in _children(module):
@@ -87,7 +96,7 @@ def _count_quantizable_iao(module: nn.Module, bn_fuse: bool) -> int:
         elif type(child) is M.BatchNorm2d and bn_fuse and pending:
             pending = False
             total += 1
-        elif type(child) is M.Linear:
+        elif type(child) in (M.ConvTranspose2d, M.Linear):
             total += 1
         else:
             total += _count_quantizable_iao(child, bn_fuse)
@@ -143,11 +152,19 @@ def _add_quant_op_iao(module: nn.Module, cfg: QuantConfig, dev: torch.device,
                 q.running_var.copy_(child.running_var)
             set_conv(q)
             set_child(M.Identity())
+        elif type(child) is M.ConvTranspose2d:
+            q = qat_iao.QuantConvTranspose2d(cfg=next_cfg(), device=dev, **_convt_args(child))
+            _copy_wb(q, child)
+            set_child(q)
         elif type(child) is M.Linear:
             q = qat_iao.QuantLinear(child.in_features, child.out_features,
                                     bias=child.bias is not None, cfg=next_cfg(), device=dev)
             _copy_wb(q, child)
             set_child(q)
+        elif type(child) is M.LeakyReLU:
+            set_child(qat_iao.QuantLeakyReLU(child.negative_slope, cfg=cfg, device=dev))
+        elif type(child) is M.Sigmoid:
+            set_child(qat_iao.QuantSigmoid(cfg, dev))
         elif type(child) is M.MaxPool2d:
             set_child(qat_iao.QuantMaxPool2d(child.kernel_size, child.stride, child.padding,
                                              cfg=cfg, device=dev))
@@ -158,6 +175,8 @@ def _add_quant_op_iao(module: nn.Module, cfg: QuantConfig, dev: torch.device,
             set_child(qat_iao.QuantAdaptiveAvgPool2d(child.output_size, cfg=cfg, device=dev))
         elif type(child) is M.Add:
             set_child(qat_iao.QuantAdd(cfg=cfg, device=dev))
+        elif type(child) is M.Concat:
+            set_child(qat_iao.QuantConcat(child.axis, cfg=cfg, device=dev))
         else:
             _add_quant_op_iao(child, cfg, dev, _ctr, _total)
 
@@ -181,6 +200,12 @@ def _add_quant_op_dorefa(module: nn.Module, cfg: QuantConfig, dev: torch.device,
             counter[0] += 1
             if counter[0] > 1:  # skip the first quantizable layer
                 q = qat_dorefa.QuantConv2d(cfg=cfg, device=dev, **_conv_args(child))
+                _copy_wb(q, child)
+                set_child(q)
+        elif type(child) is M.ConvTranspose2d:
+            counter[0] += 1
+            if counter[0] > 1:
+                q = qat_dorefa.QuantConvTranspose2d(cfg=cfg, device=dev, **_convt_args(child))
                 _copy_wb(q, child)
                 set_child(q)
         elif type(child) is M.Linear:
@@ -208,7 +233,7 @@ def prepare_dorefa(model: nn.Module, cfg: QuantConfig, *, inplace: bool = False,
 def _count_convs(module: nn.Module) -> int:
     n = 0
     for _, child, _ in _children(module):
-        n += 1 if type(child) is M.Conv2d else _count_convs(child)
+        n += 1 if type(child) in (M.Conv2d, M.ConvTranspose2d) else _count_convs(child)
     return n
 
 
@@ -219,6 +244,12 @@ def _add_quant_op_wbwtab(module: nn.Module, cfg: QuantConfig, dev: torch.device,
             counter[0] += 1
             if 1 < counter[0] < layer_num:  # skip the first AND the last
                 q = qat_wbwtab.QuantConv2d(cfg=cfg, device=dev, **_conv_args(child))
+                _copy_wb(q, child)
+                set_child(q)
+        elif type(child) is M.ConvTranspose2d:
+            counter[0] += 1
+            if 1 < counter[0] < layer_num:
+                q = qat_wbwtab.QuantConvTranspose2d(cfg=cfg, device=dev, **_convt_args(child))
                 _copy_wb(q, child)
                 set_child(q)
         elif type(child) is M.ReLU:

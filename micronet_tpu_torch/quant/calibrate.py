@@ -161,15 +161,16 @@ def finalize_entropy_calibration(model: nn.Module, cache: Optional[str] = None,
 
 @torch.no_grad()
 def _refresh_union_scales(model: nn.Module) -> None:
-    """Set each ``QuantAdd``'s shared quantizer to the union of its two
-    (now resolved) entropy observers: while the histograms streamed, the
-    union written in the forward was meaningless."""
-    from ..nn.qat_iao import QuantAdd
+    """Set each ``QuantAdd``'s and ``QuantConcat``'s shared quantizer to
+    the union of its two (now resolved) entropy observers: while the
+    histograms streamed, the union written in the forward was
+    meaningless."""
+    from ..nn.qat_iao import QuantAdd, QuantConcat
 
     for mod in model.modules():
-        if not isinstance(mod, QuantAdd):
+        if not isinstance(mod, (QuantAdd, QuantConcat)):
             continue
-        sides = (mod.observer_res, mod.observer_shortcut)
+        sides = mod.sides()
         if any(s.observer != "entropy" for s in sides):
             continue
         uq = mod.activation_quantizer

@@ -8,8 +8,9 @@ parameter and buffer, ``opt/<key>`` for the optimizer state and a JSON
 pruned model's ``cfg``). Model keys and layouts are the JAX package's:
 the nnx state path joined with ``/`` and ending in ``/.value``
 (``model/layers/0/conv/weight/.value``), conv kernels HWIO and
-per-channel conv statistics (1, 1, 1, O): every 4-D tensor moves through
-the inverse of ``interop.cnn_state_from_numpy``'s transpose. The
+per-channel conv statistics (1, 1, 1, O), transposed-conv kernels (kh,
+kw, in, out // groups): every 4-D tensor moves through the inverse of
+``interop.cnn_state_from_numpy``'s transpose, chosen by its module. The
 optimizer state is the port's own (``optim.Adam``'s ``mu``, ``nu`` and
 ``count`` per parameter key); a reader that does not know a key keeps its
 own state for it, in both packages.
@@ -25,6 +26,9 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 from torch import nn
+
+from ..interop import (HWIO_TO_OIHW, KKIO_TO_IOKK, OIHW_TO_HWIO,
+                       transposed_kernel_keys)
 
 __all__ = ["save_state", "save_state_async", "wait_for_saves", "load_state",
            "state_to_arrays", "arrays_to_state", "jax_key", "port_key"]
@@ -45,19 +49,25 @@ def port_key(key: str) -> str:
     return key.replace("/", ".")
 
 
-def _to_jax_layout(t: torch.Tensor) -> np.ndarray:
+def _to_jax_layout(t: torch.Tensor, transposed: bool) -> np.ndarray:
     arr = t.detach().cpu().numpy()
-    return np.ascontiguousarray(arr.transpose(2, 3, 1, 0)) if arr.ndim == 4 else arr
+    if arr.ndim != 4:
+        return arr
+    return np.ascontiguousarray(arr.transpose(KKIO_TO_IOKK if transposed else OIHW_TO_HWIO))
 
 
-def _from_jax_layout(arr: np.ndarray) -> np.ndarray:
-    return np.ascontiguousarray(arr.transpose(3, 2, 0, 1)) if arr.ndim == 4 else arr
+def _from_jax_layout(arr: np.ndarray, transposed: bool) -> np.ndarray:
+    if arr.ndim != 4:
+        return arr
+    return np.ascontiguousarray(arr.transpose(KKIO_TO_IOKK if transposed else HWIO_TO_OIHW))
 
 
 def state_to_arrays(model: nn.Module) -> Dict[str, np.ndarray]:
     """Every parameter and buffer as a flat ``{JAX key: array}`` dict in
     the JAX package's layouts."""
-    return {jax_key(k): _to_jax_layout(v) for k, v in model.state_dict().items()}
+    transposed = transposed_kernel_keys(model)
+    return {jax_key(k): _to_jax_layout(v, k in transposed)
+            for k, v in model.state_dict().items()}
 
 
 @torch.no_grad()
@@ -65,10 +75,11 @@ def arrays_to_state(model: nn.Module, arrays: Dict[str, np.ndarray]) -> None:
     """Load flat arrays (keys with or without ``/.value``) into ``model``
     in place; every key of the model must be there, with its shape."""
     by_key = {port_key(k): v for k, v in arrays.items()}
+    transposed = transposed_kernel_keys(model)
     for key, t in model.state_dict().items():
         if key not in by_key:
             raise KeyError(f"checkpoint missing {jax_key(key)}")
-        arr = _from_jax_layout(np.asarray(by_key[key]))
+        arr = _from_jax_layout(np.asarray(by_key[key]), key in transposed)
         if tuple(arr.shape) != tuple(t.shape):
             raise ValueError(f"shape mismatch for {jax_key(key)}: ckpt {arr.shape} vs model "
                              f"{tuple(t.shape)}")

@@ -1,9 +1,11 @@
-"""Shared flow of ``test_torch_engine.py`` (ResNet) and
-``test_torch_engine_nin_gc.py`` (NIN-GC): the IAO engine path of the
-port against the JAX package, stage by stage (float model -> ``prepare``
--> calibration -> ``fuse_bn_iao`` -> ``freeze_int`` -> engine).
+"""Shared flow of the engine tests (``test_torch_engine*.py``: ResNet,
+NIN-GC, the asymmetric recipe and the small nets of the engine matrix):
+the IAO engine path of the port against the JAX package, stage by stage
+(float model -> ``prepare`` -> calibration -> ``fuse_bn_iao`` ->
+``freeze_int`` -> engine).
 
-The JAX weights move to the port through ``cnn_state_from_numpy``. After
+The JAX weights move to the port through ``cnn_state_from_numpy`` (given
+the port model, which names its transposed-conv kernels). After
 calibration each stage starts from the JAX state of the stage before it,
 so every comparison isolates one stage. On the CPU the JAX side
 dominates the time, so each file builds its model's flow once.
@@ -17,13 +19,14 @@ from flax import nnx
 from micronet_tpu.infer import freeze_int as jfreeze
 from micronet_tpu.infer import fuse_bn_iao as jfuse
 from micronet_tpu.infer.engine import IntConv2d as JIntConv2d
+from micronet_tpu.infer.engine import IntConvTranspose2d as JIntConvTranspose2d
 from micronet_tpu.infer.engine import IntLinear as JIntLinear
 from micronet_tpu.nn import eval_mode as jeval
 from micronet_tpu.nn import prepare as jprepare
 from micronet_tpu.nn import train_mode as jtrain
 from micronet_tpu.quant.config import QuantConfig as JQuantConfig
 from micronet_tpu_torch.infer import freeze_int, fuse_bn_iao
-from micronet_tpu_torch.infer.engine import IntConv2d, IntLinear
+from micronet_tpu_torch.infer.engine import IntConv2d, IntConvTranspose2d, IntLinear
 from micronet_tpu_torch.interop import cnn_state_from_numpy
 from micronet_tpu_torch.nn import eval_mode, prepare, train_mode
 from micronet_tpu_torch.ops import int_matmul as tim8
@@ -66,7 +69,8 @@ class Flow:
         jeval(jmodel)
         self.jfloat_out = np.asarray(jmodel(jnp.asarray(self.x)))
         self.tfloat = tmodel
-        self.float_load_keys = tmodel.load_state_dict(cnn_state_from_numpy(_flat(jmodel)))
+        self.float_load_keys = tmodel.load_state_dict(cnn_state_from_numpy(_flat(jmodel),
+                                                                           tmodel))
         eval_mode(tmodel)
         # prepare and calibrate both from the same float weights
         self.jq = jprepare(jmodel, jcfg, method="iao")
@@ -85,7 +89,7 @@ class Flow:
         self.tq_calibrated = {k: v.clone() for k, v in self.tq.state_dict().items()}
         self.jq_out = np.asarray(self.jq(jnp.asarray(self.x)))
         # from here on the port starts each stage from JAX's state
-        self.tq.load_state_dict(cnn_state_from_numpy(self.jq_calibrated))
+        self.tq.load_state_dict(cnn_state_from_numpy(self.jq_calibrated, self.tq))
         self.tq_out = run(self.tq, self.x)
         self.jfused = jfuse(self.jq, jcfg)
         jeval(self.jfused)
@@ -115,7 +119,7 @@ def check_prepared_state(flow):
     """``prepare`` builds the same tree: every JAX variable has its port
     buffer or parameter of the same name, and before calibration every
     value is equal bit for bit."""
-    ref = cnn_state_from_numpy(flow.jq_initial)
+    ref = cnn_state_from_numpy(flow.jq_initial, flow.tq)
     assert set(flow.tq_initial) == set(ref)
     for k, v in ref.items():
         assert torch.equal(flow.tq_initial[k], v), k
@@ -124,7 +128,7 @@ def check_prepared_state(flow):
 def check_calibration_state(flow):
     """Observer ranges, qparams and running BN statistics after the
     calibration forwards."""
-    for k, v in cnn_state_from_numpy(flow.jq_calibrated).items():
+    for k, v in cnn_state_from_numpy(flow.jq_calibrated, flow.tq).items():
         got = flow.tq_calibrated[k]
         if v.dtype == torch.bool:
             assert torch.equal(got, v), k
@@ -144,7 +148,7 @@ def check_prepared_and_fused_logits(flow):
 def check_fused_state(flow):
     """Folded weights and biases, pre-quantized weights and the carried
     quantizer state: the same f32 operations on the same state."""
-    ref = cnn_state_from_numpy(_flat(flow.jfused))
+    ref = cnn_state_from_numpy(_flat(flow.jfused), flow.tfused)
     got = flow.tfused.state_dict()
     assert set(got) == set(ref)
     for k, v in ref.items():
@@ -153,24 +157,40 @@ def check_fused_state(flow):
 
 def check_frozen_weights(flow):
     jl = {".".join(map(str, p)): m for p, m in nnx.iter_modules(flow.jeng)
-          if isinstance(m, (JIntConv2d, JIntLinear))}
-    tl = {n: m for n, m in flow.teng.named_modules() if isinstance(m, (IntConv2d, IntLinear))}
+          if isinstance(m, (JIntConv2d, JIntConvTranspose2d, JIntLinear))}
+    tl = {n: m for n, m in flow.teng.named_modules()
+          if isinstance(m, (IntConv2d, IntConvTranspose2d, IntLinear))}
     assert set(tl) == set(jl) and tl
     for name, t in tl.items():
         j = jl[name]
-        assert t.w_packed == j.w_packed, name
+        assert getattr(t, "w_packed", False) == getattr(j, "w_packed", False), name
+        assert (t.symmetric, t.w_symmetric) == (j.symmetric, j.w_symmetric), name
         w_t = t.w_q
         if isinstance(t, IntConv2d) and not t.w_packed:
             w_t = w_t.permute(2, 3, 1, 0)  # OIHW -> HWIO
+        elif isinstance(t, IntConvTranspose2d):
+            w_t = w_t.permute(2, 3, 0, 1)  # (in, out/g, kh, kw) -> (kh, kw, in, out/g)
         np.testing.assert_array_equal(w_t.numpy(), np.asarray(j.w_q[...]), err_msg=name)
-        np.testing.assert_array_equal(t.w_scale.numpy(), np.asarray(j.w_scale[...]))
-        np.testing.assert_array_equal(t.act_scale.numpy(), np.asarray(j.act_scale[...]))
+        for attr in ("w_scale", "act_scale", "act_zero_point", "w_zp"):
+            np.testing.assert_array_equal(getattr(t, attr).numpy(),
+                                          np.asarray(getattr(j, attr)[...]), err_msg=name)
         assert (t.a_qmin, t.a_qmax) == (j.a_qmin, j.a_qmax)
         if j.bias is not None:
             np.testing.assert_array_equal(t.bias.numpy(), np.asarray(j.bias[...]))
         if isinstance(t, IntConv2d):
             assert t.f32_dequant == j.f32_dequant
             np.testing.assert_array_equal(t.out_scale.numpy(), np.asarray(j.out_scale[...]))
+
+
+def check_engine_state(flow):
+    """The JAX engine's state, carried by ``cnn_state_from_numpy``, has
+    exactly the port engine's names and equals its own frozen state bit
+    for bit: codes, scales, zero points, the unfrozen quantizers'."""
+    ref = cnn_state_from_numpy(_flat(flow.jeng), flow.teng)
+    got = flow.teng.state_dict()
+    assert set(got) == set(ref)
+    for k, v in ref.items():
+        assert got[k].dtype == v.dtype and torch.equal(got[k], v), k
 
 
 def check_chained_layers(flow):
@@ -189,4 +209,4 @@ def check_engine_logits(flow):
 
 CHECKS = [check_float_model, check_prepared_state, check_calibration_state,
           check_prepared_and_fused_logits, check_fused_state, check_frozen_weights,
-          check_chained_layers, check_engine_logits]
+          check_engine_state, check_chained_layers, check_engine_logits]

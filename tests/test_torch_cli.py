@@ -60,6 +60,47 @@ def test_iao_train_fuse_model_test_freeze(tmp_path, capsys):
         assert any(k.endswith("w_q/.value") for k in z.files)
 
 
+def test_asym_w4a4_fl8_train_and_freeze(tmp_path, capsys):
+    """The ACC_TABLE recipe ``iao_w4a4_asym_fl8`` through the CLI: ``train
+    --q_type 1`` with 8-bit first and last layers, then ``freeze-int``
+    with the same flags builds the asymmetric engine. The saved engine
+    holds the zero points under the JAX package's names, and equals the
+    engine rebuilt from the checkpoint, key for key."""
+    from micronet_tpu_torch.infer import freeze_int, fuse_bn_iao
+    from micronet_tpu_torch.infer.engine import IntConv2d
+    from micronet_tpu_torch.models import nin_gc
+    from micronet_tpu_torch.nn import eval_mode, prepare
+    from micronet_tpu_torch.quant.config import QuantConfig
+    from micronet_tpu_torch.train import load_state
+    from micronet_tpu_torch.train.checkpoint import state_to_arrays
+
+    flags = ["--method", "iao", "--bn_fuse", "--q_type", 1, "--a_bits", 4, "--w_bits", 4,
+             "--first_layer_a_bits", 8, "--first_layer_w_bits", 8, "--last_layer_a_bits", 8,
+             "--last_layer_w_bits", 8, "--cfg", GC]
+    ck, eng = tmp_path / "asym.npz", tmp_path / "eng.npz"
+    rc, out = _run(capsys, "train", *SMALL, *flags, "--epochs", 1, "--save", ck)
+    assert rc == 0 and "best acc" in out
+    rc, _ = _run(capsys, "freeze-int", "--device", "cpu", *flags[2:], "--model", ck, "--save",
+                 eng)
+    assert rc == 0
+    cfg = QuantConfig(a_bits=4, w_bits=4, q_type=1, bn_fuse=True, first_layer_a_bits=8,
+                      first_layer_w_bits=8, last_layer_a_bits=8, last_layer_w_bits=8)
+    q = prepare(nin_gc.Net(cfg=[32] * 8, device="cpu"), cfg, device="cpu")
+    load_state(str(ck), q)
+    engine = freeze_int(eval_mode(fuse_bn_iao(q, cfg, device="cpu")),
+                        example_input=torch.zeros((1, 32, 32, 3)), device="cpu")
+    convs = [m for m in engine.modules() if isinstance(m, IntConv2d)]
+    assert len(convs) == 9 and not any(m.symmetric or m.w_symmetric for m in convs)
+    with np.load(eng) as z:
+        saved = {k: z[k] for k in z.files}
+    assert any(k.endswith("/act_zero_point/.value") for k in saved)
+    assert any(k.endswith("/w_zp/.value") for k in saved)
+    rebuilt = state_to_arrays(engine)
+    assert {k for k in saved if k.startswith("model/")} == {f"model/{k}" for k in rebuilt}
+    for k, v in rebuilt.items():
+        np.testing.assert_array_equal(saved[f"model/{k}"], v, err_msg=k)
+
+
 @pytest.mark.parametrize("method,extra", [("dorefa", []), ("wbwtab", ["--W", 3, "--A", 2])])
 def test_low_bit_train_and_model_test(tmp_path, capsys, method, extra):
     ck = tmp_path / f"{method}.npz"

@@ -648,6 +648,113 @@ def test_small_resnet_engine_on_card_matches_cpu(cuda):
     torch.testing.assert_close(out.cpu(), ref, rtol=0, atol=2e-2 * max(1.0, ref.abs().max().item()))
 
 
+# (cin, cout, k, stride, padding, output_padding, dilation, groups): UpNet's
+# upsampler, output_padding 1, groups 4, dilation 2, padding past d (k - 1)
+_CONVT_CASES = [(16, 8, 4, 2, 1, 0, 1, 1), (8, 6, 3, 2, 1, 1, 1, 1), (8, 12, 3, 2, 0, 0, 1, 4),
+                (6, 4, 3, 1, 2, 0, 2, 1), (6, 6, 3, 2, 3, 1, 1, 2)]
+
+
+@pytest.mark.parametrize("case", _CONVT_CASES)
+def test_int_conv_transpose_card_route_exact(cuda, case):
+    """The transposed conv on the card (the dilated, padded or cropped
+    input through im2col + ``torch._int_mm``) and its window sums equal
+    f64 ``conv_transpose2d``s of the same codes."""
+    from micronet_tpu_torch.infer.engine import IntConvTranspose2d
+
+    cin, co, k, s, p, op, d, g = case
+    gen = _gen(cin + co + k)
+    w = torch.randint(-128, 128, (cin, co // g, k, k), dtype=torch.int8, device=cuda,
+                      generator=gen)
+    x = torch.randint(-128, 128, (3, cin, 7, 5), dtype=torch.int8, device=cuda, generator=gen)
+    layer = IntConvTranspose2d(w, 1.0, 1.0, 0.0, None, (s, s), (p, p), (op, op), (d, d), g,
+                               -128.0, 127.0)
+    acc, sums = layer.int_acc(x, group_sums=True)
+    ref = torch.nn.functional.conv_transpose2d(x.cpu().double(), w.cpu().double(), None, s, p,
+                                               op, g, d)
+    ones = torch.ones((cin, 1, k, k), dtype=torch.float64)
+    ref_sums = torch.nn.functional.conv_transpose2d(x.cpu().double(), ones, None, s, p, op, g, d)
+    assert acc.dtype == torch.int32 and torch.equal(acc.cpu().double(), ref)
+    assert torch.equal(sums.cpu().double(), ref_sums)
+
+
+def _asym_engine(build, cfg, x, gen, cuda):
+    from micronet_tpu_torch.infer import freeze_int, fuse_bn_iao
+    from micronet_tpu_torch.nn import eval_mode, prepare, train_mode
+
+    q = train_mode(prepare(build(), cfg, device=cuda))
+    with torch.no_grad():
+        for _ in range(3):
+            q(torch.randn(x.shape, device=cuda, generator=gen))
+    fused = eval_mode(fuse_bn_iao(eval_mode(q), cfg, device=cuda))
+    return fused, eval_mode(freeze_int(fused, example_input=x[:1], device=cuda))
+
+
+@pytest.mark.parametrize("net", ["nin_gc", "resnet"])
+def test_asym_engine_on_card_equals_cpu_bit_for_bit(cuda, net):
+    """The asymmetric W4A4 recipe with 8-bit first and last layers on a
+    narrow NIN-GC and a small ResNet: the card's engine (the correction
+    terms from the patch matrix and one image of ones) equals the same
+    engine on the CPU (f64 convolutions) bit for bit, and launches no
+    hand-written kernel (the ResNet's fc is an asymmetric ``IntLinear``
+    on ``torch._int_mm``)."""
+    import copy
+
+    from micronet_tpu_torch.models import nin_gc
+    from micronet_tpu_torch.models.resnet import BasicBlock, ResNet
+    from micronet_tpu_torch.quant.config import QuantConfig
+
+    gen = _gen(21)
+    cfg = QuantConfig(a_bits=4, w_bits=4, q_type=1, bn_fuse=True, first_layer_a_bits=8,
+                      first_layer_w_bits=8, last_layer_a_bits=8, last_layer_w_bits=8)
+    build = {"nin_gc": lambda: nin_gc.Net(cfg=[64] * 8, device=cuda, generator=gen),
+             "resnet": lambda: ResNet(BasicBlock, [1, 1, 1, 1], device=cuda, generator=gen)}
+    x = torch.randn((8, 32, 32, 3), device=cuda, generator=gen)
+    _, eng = _asym_engine(build[net], cfg, x, gen, cuda)
+    before = ti8.int8_matmul_dequant.launches
+    with torch.no_grad():
+        out = eng(x)
+        torch.cuda.synchronize()
+        assert ti8.int8_matmul_dequant.launches == before
+        ref = copy.deepcopy(eng).to("cpu")(x.cpu())
+    assert torch.equal(out.cpu(), ref)
+
+
+@pytest.mark.parametrize("q_type", [0, 1])
+def test_upnet_and_concat_engines_on_card_equal_cpu(cuda, q_type):
+    """A conv, a stride-2 transposed conv and a 1x1 conv, and two 1x1
+    convs into a concat (chained when symmetric): the card's engine equals
+    the CPU's bit for bit."""
+    import copy
+
+    from micronet_tpu_torch.nn import modules as M
+    from micronet_tpu_torch.quant.config import QuantConfig
+
+    class UpCat(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.c1 = M.Conv2d(8, 16, 3, padding=1, device=cuda, generator=gen)
+            self.up = M.ConvTranspose2d(16, 8, 4, stride=2, padding=1, device=cuda,
+                                        generator=gen)
+            self.a = M.Conv2d(8, 8, 1, device=cuda, generator=gen)
+            self.b = M.Conv2d(8, 8, 1, device=cuda, generator=gen)
+            self.cat = M.Concat(-1)
+            self.c3 = M.Conv2d(16, 4, 1, device=cuda, generator=gen)
+
+        def forward(self, x):
+            h = self.up(self.c1(x.permute(0, 3, 1, 2)))
+            return self.c3(self.cat(self.a(h), self.b(h)))
+
+    gen = _gen(22)
+    x = torch.randn((4, 16, 16, 8), device=cuda, generator=gen)
+    _, eng = _asym_engine(UpCat, QuantConfig(q_type=q_type), x, gen, cuda)
+    # symmetric: a and b into the concat, the concat into c3
+    assert sum(getattr(m, "chained", False) for m in eng.modules()) == (3 if q_type == 0 else 0)
+    with torch.no_grad():
+        out = eng(x)
+        ref = copy.deepcopy(eng).to("cpu")(x.cpu())
+    assert torch.equal(out.cpu(), ref)
+
+
 # K2 calls: the engine's largest 1x1 conv as a GEMM at a small batch, a
 # ragged call with K % 128 != 0, and one of many row blocks
 _K2_CASES = [(1024, 1024, 1024), (333, 200, 19), (5, 37, 10), (2000, 256, 130)]

@@ -17,6 +17,7 @@ import pytest
 import torch
 from flax import nnx
 
+from micronet_tpu.infer.bn_fuse import pre_quantize_weights as pre_quantize_weights_j
 from micronet_tpu.models import nin as jnin
 from micronet_tpu.nn import prepare as jprepare
 from micronet_tpu.nn import qat_dorefa as jqd
@@ -202,5 +203,29 @@ def test_quant_inference_copy_equals_the_training_model():
 
 
 def test_conv_transpose_waits_for_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        qat_dorefa.QuantConvTranspose2d(4, 4, 3, cfg=QuantConfig())
+    """DoReFa's ``QuantConvTranspose2d`` (ROADMAP Queue 1 item 7, ported):
+    the JAX layer's weights carried by the interop, the same output and
+    the same pre-quantized weight (``quant_inference`` copy)."""
+    from micronet_tpu.nn import modules as JM
+
+    jl = jqd.QuantConvTranspose2d(4, 6, 4, stride=2, padding=1, cfg=JQuantConfig(a_bits=4,
+                                  w_bits=4), rngs=nnx.Rngs(3))
+    tl = qat_dorefa.QuantConvTranspose2d(4, 6, 4, stride=2, padding=1,
+                                         cfg=QuantConfig(a_bits=4, w_bits=4), device="cpu")
+    tl.load_state_dict(cnn_state_from_numpy(_flat(jl), tl))
+    np.testing.assert_array_equal(tl.weight.detach().numpy(),
+                                  np.asarray(jl.weight[...]).transpose(2, 3, 0, 1))
+    x = _np(7, (2, 5, 5, 4), 8.0)
+    jout = np.asarray(jl(jnp.asarray(x)))
+    with torch.no_grad():
+        tout = tl(torch.from_numpy(x).permute(0, 3, 1, 2)).permute(0, 2, 3, 1).numpy()
+    assert tout.shape == jout.shape == (2, 10, 10, 6)
+    np.testing.assert_allclose(tout, jout, rtol=0, atol=FWD_ATOL)
+    jq = pre_quantize_weights_j(JM.Sequential(jl)).layers[0].weight[...]
+    inf = _copy_model(tl)
+    inf.quant_inference = True
+    pre_quantize_weights(inf)
+    grid = _weight_grid(np.asarray(jl.weight[...]), 4).transpose(2, 3, 0, 1)
+    same = ~_near_half(grid)
+    np.testing.assert_array_equal(inf.weight.detach().numpy()[same],
+                                  np.asarray(jq).transpose(2, 3, 0, 1)[same])

@@ -9,12 +9,13 @@ import pytest
 import torch
 from flax import nnx
 
-from _torch_engine_flow import CHECKS, QUANT_ATOL, Flow, run
+from _torch_engine_flow import CHECKS, QUANT_ATOL, Flow, _x, run
 from micronet_tpu.models import resnet as jres
 from micronet_tpu_torch.infer import freeze_int, fuse_bn_iao
-from micronet_tpu_torch.infer.engine import IntLinear
+from micronet_tpu_torch.infer.engine import IntConv2d, IntLinear
 from micronet_tpu_torch.models import resnet as tres
-from micronet_tpu_torch.nn import prepare
+from micronet_tpu_torch.nn import eval_mode, prepare, train_mode
+from micronet_tpu_torch.nn.qat_iao import QuantAdd
 from micronet_tpu_torch.quant.config import QuantConfig
 
 
@@ -46,14 +47,28 @@ def test_resnet_fc_is_the_one_k1_layer(flow):
 
 def test_no_example_input_and_asymmetric_config(flow):
     """Without an example input the leaf-order planner leaves a graph with
-    adds unchained, and the engine stays right. q_type=1 raises."""
+    adds unchained, and the engine stays right. q_type=1 freezes: every
+    conv and the fc asymmetric in activations and weights (never packed,
+    never chained), the adds left fake-quant as in the JAX package, and
+    the engine gives its fused model's logits."""
     eng = freeze_int(flow.tfused, device="cpu")
     assert not any(getattr(m, "chained", False) for m in eng.modules())
     np.testing.assert_allclose(run(eng, flow.x), flow.teng_out, rtol=0, atol=QUANT_ATOL)
     cfg = QuantConfig(q_type=1, bn_fuse=True)
-    fused = fuse_bn_iao(prepare(flow.tfloat, cfg, device="cpu"), cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        freeze_int(fused, device="cpu")
+    q = train_mode(prepare(flow.tfloat, cfg, device="cpu"))
+    for i in range(3):
+        run(q, _x(10 + i, flow.x.shape))
+    fused = eval_mode(fuse_bn_iao(eval_mode(q), cfg, device="cpu"))
+    asym = eval_mode(freeze_int(fused, example_input=torch.from_numpy(flow.x[:1]),
+                                device="cpu"))
+    layers = [m for m in asym.modules() if isinstance(m, (IntConv2d, IntLinear))]
+    assert isinstance(asym.fc, IntLinear) and len(layers) == sum(
+        isinstance(m, (IntConv2d, IntLinear)) for m in flow.teng.modules())
+    assert not any(m.symmetric or m.w_symmetric or getattr(m, "w_packed", False)
+                   for m in layers)
+    assert sum(isinstance(m, QuantAdd) for m in asym.modules()) == 4
+    assert not any(getattr(m, "chained", False) for m in asym.modules())
+    np.testing.assert_allclose(run(asym, flow.x), run(fused, flow.x), rtol=0, atol=QUANT_ATOL)
 
 
 @pytest.mark.parametrize("entry", ["model", "prepare", "fuse", "freeze"])

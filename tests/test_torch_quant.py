@@ -255,7 +255,10 @@ def test_ptq_and_other_methods_raise_not_ported():
     """PTQ and DoReFa are ported now (tests/test_torch_calibrate.py,
     tests/test_torch_dorefa.py): ``ptq=True`` builds the histogram or
     entropy observers, symmetric, and ``prepare(method="dorefa")`` runs.
-    What is still not ported raises and names its ROADMAP item."""
+    DoReFa's ``QuantConvTranspose2d`` is a transposed conv now
+    (tests/test_torch_convt_concat.py holds it against JAX): it upsamples
+    with torch's weight layout. An entropy observer per channel raises."""
+    from micronet_tpu_torch.nn import modules as M
     from micronet_tpu_torch.nn import prepare, qat_dorefa
     from micronet_tpu_torch.nn.modules import Linear
 
@@ -265,7 +268,9 @@ def test_ptq_and_other_methods_raise_not_ported():
     kl = tqat.QuantLinear(4, 4, cfg=QuantConfig(ptq=True, ptq_observer="kl"), device="cpu")
     assert kl.activation_quantizer.ent_counts.shape == (2048,)
     assert type(prepare(Linear(4, 4, device="cpu"), method="dorefa", device="cpu")) is Linear
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        qat_dorefa.QuantConvTranspose2d(4, 4, 3, cfg=QuantConfig())
+    up = qat_dorefa.QuantConvTranspose2d(4, 6, 4, stride=2, padding=1, cfg=QuantConfig(),
+                                         device="cpu")
+    assert isinstance(up, M.ConvTranspose2d) and up.weight.shape == (4, 6, 4, 4)
+    assert up(torch.ones(1, 4, 5, 5)).shape == (1, 6, 10, 10)
     with pytest.raises(ValueError, match="per-tensor"):
         tqat.FakeQuantizer(8, observer="entropy", stat_shape=(4, 1, 1, 1), device="cpu")
