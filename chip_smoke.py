@@ -32,7 +32,8 @@ Phases, each fatal on failure (non-zero exit, no final line):
 6. with ``--profile``, a traced run of 5 decode steps at 8 busy slots
    (``torch.profiler``): device busy share and kernel time by name (and
    the same for 3 forwards of each engine in phases 9, 13, 16 and 17, and
-   for both loops of phase 11); the traces of phases 6, 9 and 11 are
+   for both loops of phase 11, and 5 decode steps of each TinyDecoder
+   form in phase 18); the traces of phases 6, 9 and 11 are
    taken after phase 12's device readings (after a traced serving run,
    those readings' traces lost kernels);
 7. K1 (``int8_matmul_dequant``) against its twin, bit for bit, at the
@@ -99,12 +100,15 @@ Phases, each fatal on failure (non-zero exit, no final line):
    count 0; each method's last loss below its first; img/s with the run's
    first step left out, step times, peak memory, losses and test accuracy
    on a line of their own), ``model-test`` on the IAO checkpoint
-   (EQUIVALENCE OK), then each method's step at batch 8 on the card
-   against the CPU, block by block from the CPU's inputs (TF32 off);
+   (EQUIVALENCE OK), each method's ``train`` again with the same seed
+   (the same checkpoint, array for array: the trainer's steps run cuDNN's
+   deterministic algorithms), then each method's step at batch 8 on the
+   card against the CPU, block by block from the CPU's inputs (TF32 off);
 15. ``cli train --ptq --ptq_observer kl --calib_cache`` on full-width
    ResNet-18, ``cli freeze-int``, the engine at batch 512 (K1 once per
    forward, the card against the CPU on 8 images); then NIN's ``train -sr``
-   -> ``prune --percent 0.5`` -> ``train --prune_quant``;
+   -> ``prune --percent 0.5`` -> ``train --prune_quant``, the first two
+   twice with the same seed (the same checkpoints and pruned widths);
 16. the asymmetric engine (slice 6's main path): the ACC_TABLE recipe
    ``iao_w4a4_asym_fl8`` (``q_type=1``, W4A4, first and last layers at 8
    bits, BN folded). ``cli train`` on full-width NIN-GC (8 steps at batch
@@ -123,7 +127,21 @@ Phases, each fatal on failure (non-zero exit, no final line):
    1, engines at batch 256: card = CPU layer by layer, within QUANT_ATOL
    of the fake-quant model, the symmetric concat net's three chained
    modules;
-18. the kernels line (JSON), then the final line
+18. TinyDecoder serving (slice 7's main path): ``examples/serve_llm.py``'s
+   configuration (vocab 256, dim 128, 8 heads, depth 4, MLP 256, max_seq
+   64), dense and MoE (8 int8 experts, top-1 and top-2), float and
+   ``quantize_decoder(group=32)`` from one generator (the W4 logits'
+   cosine against float); the W4 model behind ``ServeLoop(max_slots=4)``
+   over six mixed-length requests, two arriving late: launch counts
+   zeroed just before and read just after (per decode step per slot K3
+   24 dense, 16 MoE, and K5a 4; K3 also per prefill), every request's
+   tokens equal to its isolated ``generate`` bit for bit; the card
+   against the same weights on the CPU under teacher forcing, and prefill
+   against incremental decode on the card; decode tokens/s and step
+   times. K3 and K5a against their twins at this path's shapes, timed
+   (events and device time) beside the twin, one library call and the
+   bound, run at the end of phase 12 with the other device readings;
+19. the kernels line (JSON), then the final line
    ``{"ok": true, "device": {...}}``.
 
 Details of every measurement go to ``<out>/chip_smoke.json`` (``--out``,
@@ -318,10 +336,10 @@ def copies_for(nbytes: int) -> int:
 # ---------------------------------------------------------------- phase 3
 
 
-def _k3_bound(m, k, n):
+def _k3_bound(m, k, n, group=GROUP):
     """K3's least time (ms) for one call and what sets it: x read, the packed
     weights and scales read, the output written once; 2MKN bf16 operations."""
-    nbytes = m * k * 4 + k // 2 * n + k // GROUP * n * 4 + m * n * 4
+    nbytes = m * k * 4 + k // 2 * n + k // group * n * 4 + m * n * 4
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 2 * m * k * n / BF16_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
@@ -1934,6 +1952,19 @@ def _cli(argv, what):
     return text, seconds
 
 
+def checkpoint_diff(a: Path, b: Path) -> dict:
+    """The arrays in which two checkpoints differ, ``{key: max|difference|}``
+    (inf for a key in one only or of another shape); empty when equal."""
+    out = {}
+    with np.load(a) as za, np.load(b) as zb:
+        for k in sorted(set(za.files) | set(zb.files)):
+            if k not in za.files or k not in zb.files or za[k].shape != zb[k].shape:
+                out[k] = math.inf
+            elif not np.array_equal(za[k], zb[k], equal_nan=True):
+                out[k] = float(np.abs(za[k].astype(np.float64) - zb[k].astype(np.float64)).max())
+    return out
+
+
 def _train_numbers(metrics: Path, batch: int):
     """Step times (the run's first step left out), losses and accuracy
     from a run's metrics file."""
@@ -1953,10 +1984,17 @@ def train_nin_gc(dev, seed, out_dir: Path, card: str, report):
     """Slice 5's main path on NIN-GC: ``cli train`` at full width for each
     method (every kernel count zeroed before and still 0 after: training
     runs no hand-written kernel), then ``cli model-test`` on the IAO
-    checkpoint (EQUIVALENCE OK), then each method's step on the card
-    against the CPU's at batch 8."""
+    checkpoint (EQUIVALENCE OK), then each method's ``cli train`` again with
+    the same seed, whose checkpoint must equal the first array for array,
+    then each method's step on the card against the CPU's at batch 8."""
     res = {}
     kernels = _all_kernels()
+
+    def train(label, flags, ck, *more):
+        return _cli(["train", "--device", str(dev), *flags, "--epochs", TRAIN_EPOCHS,
+                     "--train_batch_size", TRAIN_BATCH, "--seed", seed, "--save", ck, *more],
+                    f"train {label}")
+
     for label, flags in TRAIN_METHODS:
         ck, metrics = out_dir / f"nin_gc_{label}.npz", out_dir / f"nin_gc_{label}.jsonl"
         metrics.unlink(missing_ok=True)
@@ -1964,9 +2002,7 @@ def train_nin_gc(dev, seed, out_dir: Path, card: str, report):
         for kern in kernels:
             kern.launches = 0
         # -- the main path: cli train -----------------------------------
-        _, seconds = _cli(["train", "--device", str(dev), *flags, "--epochs", TRAIN_EPOCHS,
-                           "--train_batch_size", TRAIN_BATCH, "--seed", seed, "--save", ck,
-                           "--metrics", metrics], f"train {label}")
+        _, seconds = train(label, flags, ck, "--metrics", metrics)
         launches = {k.__name__: k.launches for k in kernels}
         # ----------------------------------------------------------------
         if any(launches.values()):
@@ -1988,6 +2024,17 @@ def train_nin_gc(dev, seed, out_dir: Path, card: str, report):
     if "EQUIVALENCE OK" not in text:
         fail("model-test on the IAO NIN-GC checkpoint did not print EQUIVALENCE OK")
     res["model_test"] = [line for line in text.splitlines() if "acc" in line or "FPS" in line]
+    for label, flags in TRAIN_METHODS:
+        again = out_dir / f"nin_gc_{label}_again.npz"
+        train(f"{label} again", flags, again)
+        diff = checkpoint_diff(out_dir / f"nin_gc_{label}.npz", again)
+        if diff:
+            fail(f"train {label}: a second run with the same seed differs in {len(diff)} "
+                 f"arrays, e.g. {dict(list(diff.items())[:4])}")
+        with np.load(again) as z:
+            res[label]["repeat_equal_arrays"] = len(z.files)
+    log(f"train: a second run of each method with the same seed gives the same checkpoint, "
+        f"{[res[label]['repeat_equal_arrays'] for label, _ in TRAIN_METHODS]} arrays each")
     for label, flags in TRAIN_METHODS:
         cmp = step_card_vs_cpu(flags, STEP_BATCH, dev, seed)
         res[label]["card_vs_cpu_step"] = cmp
@@ -2089,16 +2136,31 @@ def ptq_resnet18(dev, seed, out_dir: Path, card: str, report):
 def prune_nin(dev, seed, out_dir: Path, card: str, report):
     """NIN at its default widths: ``train --method float -sr``, ``prune
     --percent 0.5 --normal_regular 1``, ``train --method iao
-    --prune_quant``; the pruned widths come back through the header."""
+    --prune_quant``; the pruned widths come back through the header. The
+    first two run twice with the same seed: the same checkpoints and the
+    same widths."""
     sr, pruned, pq = (out_dir / f"nin_{n}.npz" for n in ("sr", "pruned", "prune_quant"))
     metrics = out_dir / "nin_prune_quant.jsonl"
     metrics.unlink(missing_ok=True)
-    _, sr_s = _cli(["train", "--device", str(dev), "--method", "float", "-sr", "--s", "1e-4",
-                    "--model_type", 0, "--epochs", NIN_PRUNE_EPOCHS, "--seed", seed,
-                    "--train_batch_size", TRAIN_BATCH, "--save", sr], "train -sr nin")
-    text, _ = _cli(["prune", "--device", str(dev), "--model_type", 0, "--model", sr,
-                    "--save", pruned, "--percent", 0.5, "--normal_regular", 1], "prune nin")
-    cfg = json.loads(text.split("cfg: ")[1].splitlines()[0])
+
+    def sr_prune(sr, pruned, tag=""):
+        _, sr_s = _cli(["train", "--device", str(dev), "--method", "float", "-sr", "--s", "1e-4",
+                        "--model_type", 0, "--epochs", NIN_PRUNE_EPOCHS, "--seed", seed,
+                        "--train_batch_size", TRAIN_BATCH, "--save", sr], "train -sr nin" + tag)
+        text, _ = _cli(["prune", "--device", str(dev), "--model_type", 0, "--model", sr,
+                        "--save", pruned, "--percent", 0.5, "--normal_regular", 1],
+                       "prune nin" + tag)
+        return json.loads(text.split("cfg: ")[1].splitlines()[0]), sr_s
+
+    cfg, sr_s = sr_prune(sr, pruned)
+    sr2, pruned2 = out_dir / "nin_sr_again.npz", out_dir / "nin_pruned_again.npz"
+    cfg2, _ = sr_prune(sr2, pruned2, " again")
+    diff = {**checkpoint_diff(sr, sr2), **{f"pruned {k}": v
+                                           for k, v in checkpoint_diff(pruned, pruned2).items()}}
+    if cfg2 != cfg or diff:
+        fail(f"prune nin: the same seed again pruned to {cfg2} (first {cfg}); checkpoints "
+             f"differ in {len(diff)} arrays, e.g. {dict(list(diff.items())[:4])}")
+    log(f"prune nin: the same seed again gives the same -sr and pruned checkpoints, cfg {cfg}")
     with np.load(pruned) as z:
         if json.loads(bytes(z["__header__"]).decode())["extra"].get("cfg") != cfg:
             fail("prune nin: the pruned checkpoint's header does not hold its cfg")
@@ -2279,18 +2341,12 @@ def asym_nin_gc(dev, seed, out_dir: Path, card: str, report, profile_dir=None):
     kernels = _all_kernels()
     for kern in kernels:
         kern.launches = 0
-    # cuDNN's deterministic algorithms for the training steps: its default
-    # weight-gradient convolutions sum in an order that varies between
-    # runs, and the engine checked below is this run's trained net
-    torch.backends.cudnn.deterministic = True
     # -- the main path: cli train, cli freeze-int, the engine ------------
-    try:
-        _, train_s = _cli(["train", "--device", str(dev), "--method", "iao", *model,
-                           *ASYM_FLAGS, "--epochs", ASYM_TRAIN_EPOCHS, "--train_batch_size",
-                           TRAIN_BATCH, "--seed", seed, "--save", ck, "--metrics", metrics],
-                          f"train {name}")
-    finally:
-        torch.backends.cudnn.deterministic = False
+    # (the Trainer's steps run cuDNN's deterministic algorithms, so the
+    # engine checked below is the same trained net in every run)
+    _, train_s = _cli(["train", "--device", str(dev), "--method", "iao", *model, *ASYM_FLAGS,
+                       "--epochs", ASYM_TRAIN_EPOCHS, "--train_batch_size", TRAIN_BATCH,
+                       "--seed", seed, "--save", ck, "--metrics", metrics], f"train {name}")
     _, freeze_s = _cli(["freeze-int", "--device", str(dev), *model, *ASYM_FLAGS, "--model", ck,
                         "--save", eng_ck], f"freeze-int {name}")
     cfg = QuantConfig(bn_fuse=True, **ASYM_CFG)
@@ -2513,6 +2569,360 @@ def upcat_engines(dev, seed, report, profile_dir=None):
                 f"{cmp['logits_max_abs']:.3e}")
 
 
+# ---------------------------------------------------------------- phase 18
+
+
+# slice 7: the TinyDecoder of examples/serve_llm.py at that example's configuration, the
+# widest the repo runs the model at, W4 at group 32 (so K/2 = 64 or 128 packed rows hold
+# whole groups and every block linear reaches K3); the MoE form at the same widths with 8
+# int8 experts, top-1 and top-2, drop-free. (label, experts, top_k)
+DECODER_KW = dict(vocab=256, dim=128, heads=8, depth=4, mlp_dim=256, max_seq=64)
+DECODER_GROUP = 32
+DECODER_FORMS = [("dense", 0, 1), ("moe_top1", 8, 1), ("moe_top2", 8, 2)]
+DECODER_PROMPT = [12, 99, 7, 45]  # examples/serve_llm.py's
+DECODER_SLOTS = 4
+# (prompt length, new tokens, decode steps run before it is submitted): mixed lengths, two
+# arrivals after the loop started; six requests through four slots, so slots recycle
+DECODER_REQUESTS = [(4, 8, 0), (2, 4, 0), (17, 12, 0), (9, 20, 0), (3, 5, 1), (30, 16, 3)]
+DECODER_TF_STEPS = 24  # teacher-forced positions after the prompt
+# whole-model logits, the card against the CPU: K3's sums in another order (2e-5 relative
+# a matmul), and an activation within an f32 rounding of a bf16 boundary before a W4
+# matmul moves one term by 2^-8 (MODEL_REL_TOL's cause); relative to max(1, max|logit|)
+DECODER_CARD_CPU_TOL = MODEL_REL_TOL
+# prefill against incremental decode: decode attention rounds q and p * v_scale to bf16,
+# prefill attention stays f32 (tests/test_torch_tiny_decoder.py), relative as above
+DECODER_PREFILL_TOL = 1e-2
+# the K3 shapes of one decode step of one slot: (K, N) and calls per forward, dense (wq, wk,
+# wv, wo, up, down per block) and MoE (wq, wk, wv, wo)
+DECODER_K3 = {"dense": [((128, 128), 16), ((128, 256), 4), ((256, 128), 4)],
+              "moe": [((128, 128), 16)]}
+
+
+class _TimedForwardBatch(_Timed):
+    """:class:`_Timed` for a model without a batched decode step: the loop
+    steps through ``forward_batch``, timed as its decode steps."""
+
+    decode_batch = None
+
+    def forward_batch(self, *a):
+        return self._time(self._m.forward_batch, self.decode_s, *a)
+
+
+def _decoder(experts, top_k, dev, generator=None):
+    """A float TinyDecoder of ``DECODER_KW``, its MoE blocks routing top-k."""
+    from micronet_tpu_torch.models.tiny_decoder import TinyDecoder
+
+    model = TinyDecoder(**DECODER_KW, moe_experts=experts, device=dev, generator=generator)
+    for blk in model.blocks:
+        if blk.moe is not None:
+            blk.moe.top_k = top_k
+    return model
+
+
+def _decoder_pair(experts, top_k, dev, seed):
+    """The float decoder and its W4 form (``quantize_decoder`` at group 32,
+    int8 experts) with the same weights, from one generator."""
+    import copy
+
+    from micronet_tpu_torch.models.tiny_decoder import quantize_decoder
+
+    float_model = _decoder(experts, top_k, dev, torch.Generator(device=dev).manual_seed(seed))
+    return float_model, quantize_decoder(copy.deepcopy(float_model), group=DECODER_GROUP)
+
+
+def _cpu_copy(model, experts, top_k):
+    """The W4 ``model``'s weights in the same model on the CPU."""
+    from micronet_tpu_torch.models.tiny_decoder import quantize_decoder
+
+    cpu = quantize_decoder(_decoder(experts, top_k, "cpu"), group=DECODER_GROUP)
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    return cpu
+
+
+def _teacher_forced(model, tokens, n_prompt, prefill_all=False):
+    """Logits (len(tokens), vocab) of a prefill of the first ``n_prompt``
+    tokens, then one T = 1 forward for each later token (or, with
+    ``prefill_all``, one prefill of them all), and each MoE block's router
+    logits in that run, per block (positions, experts)."""
+    rec = []
+    hooks = [blk.moe.register_forward_hook(
+        lambda m, inp, out, i=i: rec.append((i, (inp[0] @ m.router).cpu())))
+        for i, blk in enumerate(model.blocks) if blk.moe is not None]
+    toks = torch.tensor(tokens, device=model.device)
+    n = len(tokens) if prefill_all else n_prompt
+    logits, caches = model.forward(toks[:n], model.init_cache(), 0)
+    rows = [logits]
+    for i in range(n, len(tokens)):
+        step, caches = model.forward(toks[i:i + 1], caches, i)
+        rows.append(step)
+    for h in hooks:
+        h.remove()
+    routers = {}
+    for i, r in rec:
+        routers.setdefault(i, []).append(r)
+    return torch.cat(rows).cpu(), [torch.cat(v) for _, v in sorted(routers.items())]
+
+
+def _first_route_flip(ra, rb, top_k, what):
+    """The first position where a MoE block's top-k experts differ between
+    two runs of the same stream (router logits ``ra``, ``rb`` per block),
+    or None. Fails unless, at that block and position, the first run's
+    k-th and (k + 1)-th router logits lie within twice the most any router
+    logit moved between the runs there: a tie that the runs' rounding may
+    break either way. Every position after it, in later blocks too, follows
+    the other expert."""
+    from micronet_tpu_torch.parallel.moe import _top_k
+
+    flips = []
+    for layer, (a, b) in enumerate(zip(ra, rb)):
+        differ = (_top_k(a, top_k).sort(-1).values != _top_k(b, top_k).sort(-1).values).any(-1)
+        if differ.any():
+            flips.append((int(differ.nonzero()[0]), layer))
+    if not flips:
+        return None
+    pos, layer = min(flips)
+    top = ra[layer][pos].sort(descending=True).values
+    margin = (top[top_k - 1] - top[top_k]).item()
+    moved = (ra[layer][pos] - rb[layer][pos]).abs().max().item()
+    if margin > 2 * moved:
+        fail(f"{what}: block {layer} routes position {pos} to other experts, with a margin "
+             f"{margin:.3e} over twice what its router logits moved ({moved:.3e})")
+    return dict(position=pos, block=layer, margin=margin, router_moved=moved)
+
+
+def decoder_card_vs_cpu(model, experts, top_k, what):
+    """The card's W4 decoder against the same weights on the CPU (the
+    wrappers' twins) under teacher forcing over the CPU's greedy stream
+    after ``DECODER_PROMPT``: logits within ``DECODER_CARD_CPU_TOL`` at
+    every position, the argmax equal wherever the CPU's top-2 margin
+    exceeds twice that (``_agree``); positions where the card's argmax
+    differs are listed. Then a prefill of the whole stream against that
+    incremental decode, on the card, within ``DECODER_PREFILL_TOL``. A MoE
+    block may route a token to other experts where its router sits at a
+    tie (``_first_route_flip``); logits are then compared up to that
+    position."""
+    cpu = _cpu_copy(model, experts, top_k)
+    n = len(DECODER_PROMPT)
+    stream = DECODER_PROMPT + cpu.generate(torch.tensor(DECODER_PROMPT),
+                                           DECODER_TF_STEPS).tolist()[:-1]
+    ref, ref_routes = _teacher_forced(cpu, stream, n)
+    got, routes = _teacher_forced(model, stream, n)
+    if not torch.isfinite(got).all():
+        fail(f"{what}: card logits not finite under teacher forcing")
+    flip = _first_route_flip(ref_routes, routes, top_k, f"{what}: card vs CPU")
+    upto = len(stream) if flip is None else flip["position"]
+    diff = _agree(f"{what}: card vs CPU under teacher forcing", got[:upto], ref[:upto],
+                  DECODER_CARD_CPU_TOL)
+    swapped = (got[:upto].argmax(-1) != ref[:upto].argmax(-1)).nonzero().flatten().tolist()
+    if swapped:
+        log(f"{what}: the card's argmax differs from the CPU's at positions {swapped} "
+            f"(top-2 margins within the tolerance)")
+    full, full_routes = _teacher_forced(model, stream, n, prefill_all=True)
+    pflip = _first_route_flip(full_routes, routes, top_k, f"{what}: prefill vs decode")
+    pupto = len(stream) if pflip is None else pflip["position"]
+    tol = DECODER_PREFILL_TOL * max(1.0, full.abs().max().item())
+    pre = (got[:pupto] - full[:pupto]).abs().max().item()
+    if pre > tol:
+        fail(f"{what}: prefill of {len(stream)} tokens vs incremental decode on the card: "
+             f"max|diff| {pre:.3e} > {tol:.3e} over its first {pupto} positions")
+    for name, f in (("card vs CPU", flip), ("prefill vs decode", pflip)):
+        if f is not None:
+            log(f"{what}: {name}: block {f['block']} routes position {f['position']} to "
+                f"other experts at a router tie (margin {f['margin']:.3e}, router logits "
+                f"moved {f['router_moved']:.3e}); logits compared up to it")
+    return dict(positions=len(stream), card_vs_cpu_max_abs=diff, card_vs_cpu_positions=upto,
+                card_vs_cpu_route_flip=flip, argmax_swapped=swapped,
+                prefill_vs_decode_max_abs=pre, prefill_vs_decode_tol=tol,
+                prefill_vs_decode_positions=pupto, prefill_vs_decode_route_flip=pflip)
+
+
+def decoder_kernel_times(dev, gen, report):
+    """K3 and K5a at phase 18's shapes against their twins: K3 at M = 1 (a
+    slot's decode forward) and the requests' prompt lengths (prefill, M
+    up to 30) at the three (K, N) of the dense block, group 32; K5a at G =
+    8 heads, R = 1, D = 16, S = 64 with bounds 0..64. Each timed by events
+    and by device time beside its twin, one library call (``torch.matmul``
+    on the dequantized bf16 weight; SDPA on the dequantized bf16 cache)
+    and its bound. Returns the kernels-line figures for one decode step of
+    one slot, dense and MoE."""
+    from micronet_tpu_torch.ops import decode_attention as da
+    from micronet_tpu_torch.ops import int4_matmul as im
+
+    g = DECODER_GROUP
+    k3 = {}
+    prefill_ms = sorted({p for p, _, _ in DECODER_REQUESTS} | {len(DECODER_PROMPT)})
+    for (k, n), _ in DECODER_K3["dense"]:
+        ncopy = copies_for(k // 2 * n + k // g * n * 4)
+        weights = []
+        for _ in range(ncopy):
+            w = torch.randn((k, n), device=dev, generator=gen) * 0.05
+            w_q, gs = im.quantize_int4_weight_grouped(w, g)
+            weights.append((im.pack_int4_hl8(w_q), gs))
+        w_bf16 = [(im.unpack_int4_hl8(p).float() * im.expand_gscale(s, g)).to(torch.bfloat16)
+                  for p, s in weights]
+        for m in (1,) + tuple(prefill_ms):
+            x = torch.randn((m, k), device=dev, generator=gen)
+            out = im.int4_matmul_grouped_hl8(x, *weights[0])
+            ref = im.int4_matmul_grouped_hl8_ref(x, *weights[0])
+            torch.cuda.synchronize()
+            err, scale = (out - ref).abs().max().item(), ref.abs().max().item()
+            if not (torch.isfinite(out).all() and err <= K3_REL_TOL * scale):
+                fail(f"K3 M={m} K={k} N={n} g={g}: max|err| {err:.3e} > {K3_REL_TOL} * "
+                     f"{scale:.3e}")
+            alone = im.int4_matmul_grouped_hl8(x[-1:].contiguous(), *weights[0])
+            if not torch.equal(alone[0], out[-1]):
+                fail(f"K3 M={m} K={k} N={n} g={g}: a row alone differs from its batch's")
+            case = dict(m=m, k=k, n=n, group=g, regime=im._k3_regime(m, g), max_abs_err=err,
+                        ref_max=scale)
+            if m == 1:
+                args = [(x, p, s) for p, s in weights]
+                lib_args = [(x.to(torch.bfloat16), w) for w in w_bf16]
+                bound, bound_by = _k3_bound(m, k, n, g)
+                case.update(ms=time_ms(im.int4_matmul_grouped_hl8, args, 200),
+                            plain_ms=time_ms(im.int4_matmul_grouped_hl8_ref, args, 50),
+                            library_ms=time_ms(torch.matmul, lib_args, 200),
+                            device_ms=device_ms(im.int4_matmul_grouped_hl8, args, 30),
+                            library_device_ms=device_ms(torch.matmul, lib_args, 30),
+                            bound_ms=bound, bound_by=bound_by)
+                log(f"K3 M=1 K={k} N={n} g={g} (regime {case['regime']}): err {err:.3e} "
+                    f"(tol {K3_REL_TOL * scale:.3e}), kernel {case['ms']:.4f} ms (device "
+                    f"{case['device_ms']:.4f}), plain {case['plain_ms']:.4f} ms, torch.matmul "
+                    f"bf16 {case['library_ms']:.4f} ms (device {case['library_device_ms']:.4f}), "
+                    f"bound {case['bound_ms']:.5f} ms ({case['bound_by']})")
+            k3[m, k, n] = case
+        del weights, w_bf16
+    log(f"K3 at the prefill's M {prefill_ms} (g={g}): max|err| "
+        f"{max(c['max_abs_err'] for c in k3.values()):.3e}, every row alone = its batch's")
+    # K5a: one T = 1 attend of one slot's layer
+    heads, d, s = DECODER_KW["heads"], DECODER_KW["dim"] // DECODER_KW["heads"], \
+        DECODER_KW["max_seq"]
+    bound = torch.tensor([0, 1, 15, 16, 17, 33, s - 1, s], dtype=torch.int32, device=dev)
+    caches = [(torch.randint(-127, 128, (heads, s, d), dtype=torch.int8, device=dev,
+                             generator=gen),
+               torch.rand((heads, s), device=dev, generator=gen) * 0.02 + 1e-3,
+               torch.randint(-127, 128, (heads, s, d), dtype=torch.int8, device=dev,
+                             generator=gen),
+               torch.rand((heads, s), device=dev, generator=gen) * 0.02 + 1e-3)
+              for _ in range(16)]
+    q = torch.randn((heads, d), device=dev, generator=gen)
+    args = [(*c, q, bound) for c in caches]
+    got = da.decode_attend_q8kv(*args[0])
+    ref = da.decode_attend_q8kv_ref(*args[0])
+    torch.cuda.synchronize()
+    err = (got - ref).abs().max().item()
+    if not (torch.isfinite(got).all() and err <= ATT_ABS_TOL) or got[0].abs().max() != 0:
+        fail(f"K5a G={heads} R=1 D={d} S={s}: max|err| {err:.3e} > {ATT_ABS_TOL}, or bound 0 "
+             f"not zero")
+    lib, bnd = attention_yardsticks(q[:, None, :], *caches[0], bound)
+    k5a = dict(ms=time_ms(da.decode_attend_q8kv, args, 200),
+               plain_ms=time_ms(da.decode_attend_q8kv_ref, args, 50), library_ms=lib,
+               device_ms=device_ms(da.decode_attend_q8kv, args, 30), max_abs_err=err, **bnd)
+    log(f"K5a G={heads} R=1 D={d} S={s} (bounds 0..{s}, {bnd['visible_rows']} visible rows): "
+        f"err {err:.3e} (tol {ATT_ABS_TOL}), kernel {k5a['ms']:.4f} ms (device "
+        f"{k5a['device_ms']:.4f}), plain {k5a['plain_ms']:.4f} ms, sdpa bf16 {lib:.4f} ms, "
+        f"bound {bnd['bound_ms']:.5f} ms")
+    del caches
+    report["decoder_kernels"] = dict(k3=[dict(v) for v in k3.values()], k5a=k5a)
+    step = {}
+    for form, shapes in DECODER_K3.items():
+        step[form] = {key: sum(k3[1, k, n][key] * calls for (k, n), calls in shapes)
+                      for key in ("ms", "device_ms", "plain_ms", "library_ms",
+                                  "library_device_ms", "bound_ms")}
+    return dict(k3_per_slot_step=step, k3_max_abs_err=max(c["max_abs_err"] for c in k3.values()),
+                k5a=k5a)
+
+
+def serve_decoder(dev, seed, card, report, profile_dir=None):
+    """Slice 7's main path: for the dense, MoE top-1 and MoE top-2 forms,
+    the float decoder and its W4 form from one generator (the W4 logits'
+    cosine against float on ``DECODER_PROMPT``), then the W4 model behind
+    ``ServeLoop(max_slots=4)`` over mixed-length requests, two arriving
+    late: counts zeroed just before the loop and read just after, K3
+    ``depth x (6 dense, 4 MoE)`` and K5a ``depth`` times per forward of
+    each slot at each decode step (idle slots step too), K3 also per
+    prefill, no other kernel; every request's tokens equal its isolated
+    ``generate`` bit for bit (both decode at M = 1 in regime A); then the
+    card against the CPU (:func:`decoder_card_vs_cpu`); with ``--profile``
+    a traced run of 5 decode steps at 4 busy slots."""
+    from micronet_tpu_torch.serve import Request, ServeLoop
+
+    kernels = _all_kernels()
+    depth = DECODER_KW["depth"]
+    rng = np.random.default_rng(seed)
+    res, launches_by_form = {}, {}
+    for label, experts, top_k in DECODER_FORMS:
+        float_model, model = _decoder_pair(experts, top_k, dev, seed)
+        prompt = torch.tensor(DECODER_PROMPT, device=dev)
+        lf, _ = float_model.forward(prompt, float_model.init_cache(), 0)
+        lq, _ = model.forward(prompt, model.init_cache(), 0)
+        cos = (lf * lq).sum().item() / (lf.norm() * lq.norm()).item()
+        del float_model
+        reqs = [(Request(i, rng.integers(0, DECODER_KW["vocab"], p).tolist(), new), after)
+                for i, (p, new, after) in enumerate(DECODER_REQUESTS)]
+        timed = _TimedForwardBatch(model)
+        loop = ServeLoop(timed, DECODER_SLOTS, device=dev)
+        for kern in kernels:
+            kern.launches = 0
+        # -- the main path: the serving loop ----------------------------
+        t0 = time.perf_counter()
+        steps = 0
+        while (any(after >= steps for _, after in reqs) or loop.queue
+               or any(r is not None for r in loop.slot_req)):
+            for r, after in reqs:
+                if after == steps:
+                    loop.submit(r)
+            loop.step()
+            steps += 1
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+        launches = {k.__name__: k.launches for k in kernels}
+        # ----------------------------------------------------------------
+        done = loop.finished
+        if sorted(done) != list(range(len(reqs))):
+            fail(f"decoder {label}: served {sorted(done)} of {len(reqs)} requests")
+        steps, prefills = len(timed.decode_s), len(timed.prefill_s)
+        per_fwd = depth * (4 if experts else 6)
+        want = {k.__name__: 0 for k in kernels}
+        want["int4_matmul_grouped_hl8"] = per_fwd * (prefills + DECODER_SLOTS * steps)
+        want["decode_attend_q8kv"] = depth * DECODER_SLOTS * steps
+        if launches != want:
+            fail(f"decoder {label}: launch counts {launches}, expected {want}")
+        for r, _ in reqs:
+            iso = model.generate(torch.tensor(r.prompt, device=dev), r.max_new_tokens).tolist()
+            if done[r.rid].output != iso or not all(0 <= t < DECODER_KW["vocab"] for t in iso):
+                fail(f"decoder {label}: request {r.rid} served {done[r.rid].output} but alone "
+                     f"{iso}")
+        check = decoder_card_vs_cpu(model, experts, top_k, f"decoder {label}")
+        tokens = sum(len(r.output) - 1 for r in done.values())
+        step_ms = sorted(1e3 * x for x in timed.decode_s)
+        r = dict(card=card, form=label, experts=experts, top_k=top_k, group=DECODER_GROUP,
+                 cosine_w4_vs_float=cos, requests=len(reqs), slots=DECODER_SLOTS,
+                 decode_steps=steps, prefills=prefills, serve_s=serve_s,
+                 decode_tokens=tokens, decode_tok_s=tokens / sum(timed.decode_s),
+                 step_ms_median=step_ms[len(step_ms) // 2], step_ms_max=step_ms[-1],
+                 prefill_s=sum(timed.prefill_s),
+                 k3_per_slot_step=per_fwd, k5a_per_slot_step=depth, launches=launches, **check)
+        res[label] = r
+        launches_by_form[label] = {k: launches[k] for k in ("int4_matmul_grouped_hl8",
+                                                            "decode_attend_q8kv")}
+        log(json.dumps({"phase": 18, **{k: r[k] for k in (
+            "card", "form", "cosine_w4_vs_float", "decode_steps", "decode_tok_s",
+            "step_ms_median", "step_ms_max", "prefill_s", "card_vs_cpu_max_abs",
+            "argmax_swapped", "prefill_vs_decode_max_abs")}, "launches": launches_by_form[label]}))
+        if profile_dir is not None:
+            loop = ServeLoop(model, DECODER_SLOTS, device=dev)
+            for q, _ in reqs[:DECODER_SLOTS]:
+                loop.submit(Request(100 + q.rid, q.prompt, 20))
+            loop.step()  # admits every slot
+            loop.step()
+            res[label]["profile"] = trace(loop.step, 5, f"decoder {label}: decode steps at "
+                                 f"{DECODER_SLOTS} busy slots",
+                                 profile_dir / f"chip_smoke_decoder_{label}_profile.txt")
+        del model, loop, timed
+    report["decoder"] = res
+    return launches_by_form
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2580,6 +2990,7 @@ def main() -> int:
     k2_row = {k: v for k, v in k2["path"].items()
               if k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err")}
     int8_device_times(dev, gen, report, k1_row, k2_row)
+    dec_kernels = decoder_kernel_times(dev, gen, report)
     for run in later:
         run()
     later.clear()
@@ -2592,6 +3003,7 @@ def main() -> int:
     asym_nin_gc(dev, args.seed, out_dir, card, report, profile_dir)
     asym_resnet18(dev, args.seed, card, report, profile_dir)
     upcat_engines(dev, args.seed, report, profile_dir)
+    dec_launches = serve_decoder(dev, args.seed, card, report, profile_dir)
 
     src = "micronet_tpu_torch/ops/csrc/"
     long_per = (f"one call, G={ATT_G} R={ATT_R} D={ATT_D} S={LONG_CTX}, bounds 0..{LONG_CTX}")
@@ -2602,7 +3014,12 @@ def main() -> int:
         dict(name="int4_matmul_grouped_hl8", route="cuda", source=src + "int4_matmul.cu",
              replaces="micronet_tpu/ops/int4_matmul.py:548",
              launches=launches["int4_matmul_grouped_hl8"],
-             per="one decode step at M=8: 129 calls over the five 8B shapes", **k3),
+             per="one decode step at M=8: 129 calls over the five 8B shapes; launches_phase18 "
+                 "is its count over each TinyDecoder form's serving loop (phase 18), phase18 "
+                 "its times at M=1 for one slot's decode forward there",
+             launches_phase18={f: v["int4_matmul_grouped_hl8"] for f, v in dec_launches.items()},
+             phase18=dict(dec_kernels["k3_per_slot_step"],
+                          max_abs_err=dec_kernels["k3_max_abs_err"]), **k3),
         dict(name="decode_attend_q8kv_cur", route="cuda", source=src + "decode_attention.cu",
              replaces="micronet_tpu/ops/decode_attention.py:519",
              launches=launches["decode_attend_q8kv_cur"],
@@ -2611,8 +3028,11 @@ def main() -> int:
         dict(name="decode_attend_q8kv", route="cuda", source=src + "decode_attention.cu",
              replaces="micronet_tpu/ops/decode_attention.py:107",
              launches=launches["decode_attend_q8kv"],
-             per=f"one call, G={ATT_G} R={ATT_R} D={ATT_D} S={ATT_S}",
-             **att["decode_attend_q8kv"]),
+             per=f"one call, G={ATT_G} R={ATT_R} D={ATT_D} S={ATT_S}; launches_phase18 is its "
+                 "count over each TinyDecoder form's serving loop (phase 18), phase18 one call "
+                 "there (G=8 R=1 D=16 S=64, bounds 0..64)",
+             launches_phase18={f: v["decode_attend_q8kv"] for f, v in dec_launches.items()},
+             phase18=dec_kernels["k5a"], **att["decode_attend_q8kv"]),
         dict(name="int8_matmul_dequant", route="cuda", source=src + "int_matmul.cu",
              replaces="micronet_tpu/ops/int_matmul.py:114",
              launches=launches["int8_matmul_dequant"],

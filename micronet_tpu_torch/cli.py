@@ -312,7 +312,7 @@ def cmd_freeze_int(args) -> int:
 
 def cmd_deploy(args) -> int:
     raise NotImplementedError(
-        "deploy is not ported yet (ROADMAP.md, Queue 1 item 13: deploy and utils)")
+        "deploy is not ported yet (ROADMAP.md, Queue 1 item 3: deploy and utils)")
 
 
 def main(argv=None) -> int:

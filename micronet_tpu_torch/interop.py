@@ -30,7 +30,8 @@ import numpy as np
 import torch
 from torch import nn
 
-__all__ = ["llama_state_from_numpy", "cnn_state_from_numpy", "transposed_kernel_keys"]
+__all__ = ["llama_state_from_numpy", "tiny_decoder_state_from_numpy", "cnn_state_from_numpy",
+           "transposed_kernel_keys"]
 
 # JAX layout -> port layout of a 4-D array, and back
 HWIO_TO_OIHW = (3, 2, 0, 1)
@@ -48,6 +49,24 @@ def transposed_kernel_keys(model: Optional[nn.Module]) -> FrozenSet[str]:
                      for attr in getattr(m, "transposed_kernels", ()))
 
 
+def _decoder_state(flat: Mapping[Tuple, np.ndarray], depth: int,
+                   shapes: Dict[str, Tuple[int, ...]]) -> Dict[str, torch.Tensor]:
+    """The state_dict (CPU tensors) of a decoder's variables in ``flat``,
+    each path joined with dots; raises on a block index outside ``depth``
+    or a tensor of ``shapes`` missing or of another shape."""
+    state: Dict[str, torch.Tensor] = {}
+    for path, value in flat.items():
+        if path[0] == "blocks" and not 0 <= int(path[1]) < depth:
+            raise ValueError(f"{path}: block index outside depth={depth}")
+        state[".".join(str(p) for p in path)] = torch.from_numpy(np.array(value))
+    for name, shape in shapes.items():
+        got = state.get(name)
+        if got is None or tuple(got.shape) != shape:
+            raise ValueError(f"{name} must be {shape}, got "
+                             f"{None if got is None else tuple(got.shape)}")
+    return state
+
+
 def llama_state_from_numpy(
     flat: Mapping[Tuple, np.ndarray], cfg
 ) -> Dict[str, torch.Tensor]:
@@ -56,17 +75,21 @@ def llama_state_from_numpy(
     the embedding's shape and the block indices. Load it into a port
     model built with the same quantization (``quantize_llama`` or
     ``w4_group``) with ``load_state_dict``."""
-    state: Dict[str, torch.Tensor] = {}
-    for path, value in flat.items():
-        arr = np.asarray(value)
-        if path[0] == "blocks" and not 0 <= int(path[1]) < cfg.n_layers:
-            raise ValueError(f"{path}: block index outside n_layers={cfg.n_layers}")
-        state[".".join(str(p) for p in path)] = torch.from_numpy(arr.copy())
-    embed = state.get("embed")
-    if embed is None or tuple(embed.shape) != (cfg.vocab, cfg.dim):
-        raise ValueError(f"embed must be ({cfg.vocab}, {cfg.dim}), got "
-                         f"{None if embed is None else tuple(embed.shape)}")
-    return state
+    return _decoder_state(flat, cfg.n_layers, {"embed": (cfg.vocab, cfg.dim)})
+
+
+def tiny_decoder_state_from_numpy(
+    flat: Mapping[Tuple, np.ndarray], model: nn.Module
+) -> Dict[str, torch.Tensor]:
+    """The port's ``TinyDecoder.state_dict()`` (CPU tensors) for the JAX
+    ``TinyDecoder`` variables in ``flat``: float, W4 (``quantize_decoder``:
+    the packed codes and scales as they are) or MoE (the router, the
+    experts, and after ``quantize_()`` their int8 codes and scales).
+    ``model`` (the port's ``TinyDecoder``) checks the embedding's and the
+    position table's shapes and the block indices. Load it with
+    ``load_state_dict`` into a port model of the same form."""
+    return _decoder_state(flat, model.depth, {"embed": (model.vocab, model.dim),
+                                              "pos": (model.max_seq, model.dim)})
 
 
 def cnn_state_from_numpy(flat: Mapping[Tuple, np.ndarray],

@@ -32,11 +32,13 @@ from ..quant.kv_cache import (
     append_kv,
     append_kv_batch_quantized,
     attend,
+    forward_by_slot,
     init_kv_cache,
     quantize_kv_rows,
 )
 from ..quant.paged_kv import PagedKVCache, init_paged_kv, paged_append_batch
 from ..quant.weight_only import wo_quantize_linear
+from ..serve.sampling import generate_sampled
 
 __all__ = [
     "LlamaConfig",
@@ -297,6 +299,11 @@ class Llama(nn.Module):
 
     # -- serving API --------------------------------------------------------
 
+    @property
+    def max_seq(self) -> int:
+        """KV rows a request may hold (the serving loop's capacity)."""
+        return self.cfg.max_seq
+
     def init_cache(self) -> List[QuantKVCache]:
         cfg = self.cfg
         return [init_kv_cache(cfg.n_kv_heads, cfg.max_seq, cfg.head_dim,
@@ -344,18 +351,9 @@ class Llama(nn.Module):
         caches: List[QuantKVCache],  # batched per-layer caches
         offsets: torch.Tensor,  # (B,)
     ) -> Tuple[torch.Tensor, List[QuantKVCache]]:
-        """:meth:`forward` for each slot on its own cache, in turn (what the
-        JAX package's vmap computes): logits (B, T, vocab) and the caches,
-        appended in place."""
-        logits = []
-        for b in range(tokens.shape[0]):
-            views = [QuantKVCache(c.k_codes[b], c.k_scale[b], c.v_codes[b], c.v_scale[b],
-                                  c.length[b]) for c in caches]
-            out, views = self.forward(tokens[b], views, int(offsets[b]))
-            for c, v in zip(caches, views):
-                c.length[b] = v.length
-            logits.append(out)
-        return torch.stack(logits), caches
+        """:meth:`forward` for each slot on its own cache, in turn
+        (:func:`..quant.kv_cache.forward_by_slot`)."""
+        return forward_by_slot(self.forward, tokens, caches, offsets)
 
     @torch.no_grad()
     def decode_batch(
@@ -390,19 +388,9 @@ class Llama(nn.Module):
             new_caches.append(cache)
         return self.lm_head(self.norm(x))[:, None, :], new_caches
 
-    @torch.no_grad()
     def generate(self, prompt: torch.Tensor, steps: int) -> torch.Tensor:
         """Greedy decode of ``steps`` tokens after ``prompt`` (T,)."""
-        logits, caches = self.forward(prompt, self.init_cache(), 0)
-        tok = torch.argmax(logits[-1])
-        out = [tok]
-        offset = int(prompt.shape[0])
-        for _ in range(steps - 1):
-            logits, caches = self.forward(tok[None], caches, offset)
-            tok = torch.argmax(logits[-1])
-            out.append(tok)
-            offset += 1
-        return torch.stack(out).to(torch.int64)
+        return generate_sampled(self, prompt, steps)
 
 
 def _quantize_block(blk: LlamaBlock, group: int, bits: int) -> None:

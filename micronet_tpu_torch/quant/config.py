@@ -34,7 +34,8 @@ class QuantConfig:
       training batch does not overwrite them.
     - ``qaft``: observers, qparams and BN statistics frozen.
     - ``ptq`` / ``percentile`` / ``ptq_observer``: post-training
-      calibration with histogram or KL observers (not ported yet).
+      calibration with the percentile histogram or the KL (entropy)
+      observers (``quant/observers.py``, ``quant/calibrate.py``).
     - ``quant_inference``: weights are pre-quantized; skip the weight
       fake-quant at run time.
     - ``act_codes`` / ``bn_stats``: training lowerings of the JAX package

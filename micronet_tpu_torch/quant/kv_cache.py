@@ -18,7 +18,7 @@ the step itself.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple, Union
+from typing import Callable, List, Optional, Tuple, Union
 
 import torch
 
@@ -33,6 +33,7 @@ __all__ = [
     "append_kv_batch_quantized",
     "quantize_kv_rows",
     "attend",
+    "forward_by_slot",
     "kv_cache_bytes",
 ]
 
@@ -181,6 +182,26 @@ def attend(
     logits = torch.where(valid, logits, -1e30)
     probs = torch.softmax(logits, dim=-1)
     return torch.einsum("hts,hsd->htd", probs, vf).to(q.dtype)
+
+
+def forward_by_slot(
+    forward: Callable,  # forward(tokens (T,), caches, offset) -> (logits, caches)
+    tokens: torch.Tensor,  # (B, T)
+    caches: List[QuantKVCache],  # batched per-layer caches
+    offsets: torch.Tensor,  # (B,)
+) -> Tuple[torch.Tensor, List[QuantKVCache]]:
+    """A model's ``forward_batch``: ``forward`` for each slot on its own
+    view of the batched caches, in turn (what the JAX package's vmap
+    computes). Logits (B, T, vocab) and the caches, appended in place."""
+    logits = []
+    for b, off in enumerate(offsets.tolist()):
+        views = [QuantKVCache(c.k_codes[b], c.k_scale[b], c.v_codes[b], c.v_scale[b],
+                              c.length[b]) for c in caches]
+        out, views = forward(tokens[b], views, off)
+        for c, v in zip(caches, views):
+            c.length[b] = v.length
+        logits.append(out)
+    return torch.stack(logits), caches
 
 
 def kv_cache_bytes(cache: QuantKVCache) -> int:

@@ -3,15 +3,12 @@
 
 ``quant_test_manual`` builds LeNet-style nets with hand-placed quant
 layers of all three flavours and runs a forward; ``quant_test_auto`` runs
-``prepare()`` on the stock LeNet for every method, KL PTQ included. Both
-print "micronet_tpu_torch is ready" on success, on ``device`` (None =
-CUDA, which raises without a card).
+``prepare()`` on the stock LeNet for every method, KL PTQ included, then
+a two-token forward of a W4 (group 8) ``TinyDecoder`` over its int8 KV
+cache. Both print "micronet_tpu_torch is ready" on success, on ``device``
+(None = CUDA, which raises without a card).
 
 Run: ``python -c "import micronet_tpu_torch as m; m.quant_test_manual('cpu')"``
-
-The JAX package's ``quant_test_auto`` also decodes through a W4
-``TinyDecoder``; that leg waits for the port's ``models/tiny_decoder.py``
-(ROADMAP.md, Queue 1 item 14).
 """
 
 from __future__ import annotations
@@ -87,8 +84,10 @@ def quant_test_manual(device=None) -> None:
 
 
 def quant_test_auto(device=None) -> None:
-    """``prepare()`` on the stock LeNet for every flavour, KL PTQ included."""
+    """``prepare()`` on the stock LeNet for every flavour, KL PTQ included;
+    then the serving kit: a W4 (group 8) decoder over its int8 KV cache."""
     from .models.lenet import LeNet
+    from .models.tiny_decoder import TinyDecoder, quantize_decoder
     from .nn import prepare
     from .quant.config import QuantConfig
 
@@ -105,4 +104,10 @@ def quant_test_auto(device=None) -> None:
         with torch.no_grad():
             out = q(_input(dev))
         assert out.shape == (2, 10), (method, out.shape)
+
+    dec = quantize_decoder(TinyDecoder(vocab=16, dim=16, heads=2, depth=1, mlp_dim=32,
+                                       max_seq=8, device=dev), group=8)
+    logits, _ = dec.forward(torch.zeros((2,), dtype=torch.int64, device=dev),
+                            dec.init_cache(), 0)
+    assert logits.shape == (2, 16), logits.shape
     print("micronet_tpu_torch is ready")

@@ -61,10 +61,13 @@ class Request:
 
 
 class ServeLoop:
-    """Admission/eviction scheduler over ``model.decode_batch`` slots.
+    """Admission/eviction scheduler over ``model.decode_batch`` slots, or
+    ``model.forward_batch`` where the model has no batched decode step
+    (``TinyDecoder``).
 
     ``device`` defaults to CUDA (raising when no card is present) and
-    must be the model's device. ``prefill_chunk > 0`` prefills prompts in
+    must be the model's device. The model's ``max_seq`` is each slot's
+    capacity. ``prefill_chunk > 0`` prefills prompts in
     chunks of that many tokens; pad rows of the last chunk land past the
     true length, and the slot's fill pointer is reset to the true length,
     so decode overwrites them.
@@ -78,8 +81,9 @@ class ServeLoop:
     eviction returns the pages. The check is made at admission time only: requests admitted one after
     another may together outgrow the pool, and a slot whose append was
     dropped is then finished early (truncated). The model must provide
-    ``init_paged_cache`` and ``decode_batch_paged``. Token streams equal
-    the dense loop's.
+    ``init_paged_cache`` and ``decode_batch_paged`` (``Llama`` does; any
+    other model raises ``ValueError``). Token streams equal the dense
+    loop's.
 
     For a W4 model on the card, tokens equal ``generate``'s (the module's
     contract) only up to 128 slots, and with a ``prefill_chunk`` only for
@@ -103,8 +107,12 @@ class ServeLoop:
         self.device = dev
         self.paged = paged
         self.prefill_chunk = prefill_chunk
-        self.max_seq = model.cfg.max_seq
+        self.max_seq = model.max_seq
         if paged:
+            if not hasattr(model, "init_paged_cache"):
+                raise ValueError(f"paged=True needs a model with init_paged_cache and "
+                                 f"decode_batch_paged; {type(model).__name__} has dense "
+                                 f"slots only")
             self.page_size = page_size
             if num_pages is None:
                 num_pages = 1 + max_slots * (self.max_seq // page_size)

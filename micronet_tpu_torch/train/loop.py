@@ -22,13 +22,18 @@ average into one update.
 Random draws (epoch permutation seeds, crop offsets, flips) come from one
 CPU ``torch.Generator`` seeded with ``seed``, so a run on the card and
 on the CPU sees the same batches; they cannot be JAX's ``jax.random``
-draws. Not ported: ``mesh=`` (data parallelism) and ``remat``; both
+draws. Every step runs with cuDNN's deterministic algorithms (and the
+caller's setting back afterwards): cuDNN's default weight-gradient
+convolutions sum in an order that varies between runs, so the same seed
+would not give the same trained net on the card, as the JAX package's
+does. Not ported: ``mesh=`` (data parallelism) and ``remat``; both
 raise, naming their ROADMAP items.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from typing import Callable, Optional, Tuple
 
@@ -89,6 +94,23 @@ class TrainConfig:
     grad_accum: int = 1  # microbatches per optimizer step
 
 
+def _deterministic(step: Callable) -> Callable:
+    """``step`` under cuDNN's deterministic algorithms (benchmark off),
+    the previous settings put back when it returns."""
+
+    @functools.wraps(step)
+    def run(*args, **kwargs):
+        cudnn = torch.backends.cudnn
+        prev = cudnn.deterministic, cudnn.benchmark
+        cudnn.deterministic, cudnn.benchmark = True, False
+        try:
+            return step(*args, **kwargs)
+        finally:
+            cudnn.deterministic, cudnn.benchmark = prev
+
+    return run
+
+
 class _StepClock:
     """Per-step times without a sync per step: CUDA events on the card,
     the host clock on the CPU; read once the epoch has synced."""
@@ -125,10 +147,10 @@ class Trainer:
         if mesh is not None:
             raise NotImplementedError(
                 "data-parallel training (mesh=) is not ported yet (ROADMAP.md, Queue 1 "
-                "item 12: parallelism)")
+                "item 6: parallelism)")
         if cfg.remat:
             raise NotImplementedError(
-                "remat is not ported (ROADMAP.md, Queue 1 item 5: remat): a recomputed "
+                "remat is not ported (ROADMAP.md, Queue 1 item 8: remat): a recomputed "
                 "forward would update every observer and BN statistic twice")
         self.device = resolve_device(device)
         self.model = model.to(self.device)
@@ -149,6 +171,7 @@ class Trainer:
         logits = self.model(x)
         return TF.cross_entropy(logits, labels), logits
 
+    @_deterministic
     def train_step(self, x: torch.Tensor, labels: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """One optimizer step on the augmented batch ``x``; returns the
         (mean loss, accuracy) as device tensors."""
@@ -182,12 +205,14 @@ class Trainer:
         self.optimizer.step()
         return loss.detach(), acc
 
+    @_deterministic
     @torch.no_grad()
     def forward_step(self, x: torch.Tensor, labels: torch.Tensor):
         """A PTQ calibration step: the forward updates the observers."""
         loss, logits = self._loss(x, labels)
         return loss, (logits.argmax(-1) == labels).to(torch.float32).mean()
 
+    @_deterministic
     @torch.no_grad()
     def eval_step(self, images_u8: torch.Tensor, labels: torch.Tensor):
         logits = self.model(data_lib.normalize_batch(images_u8))

@@ -974,3 +974,84 @@ def test_true_div_on_card_equals_cpu(cuda):
     lo, hi = -x.abs()[:64].reshape(64, 1), x.abs()[64:128].reshape(64, 1)
     card = symmetric_qparams(lo.to(cuda), hi.to(cuda), -128.0, 127.0)[0].cpu()
     assert torch.equal(card, symmetric_qparams(lo, hi, -128.0, 127.0)[0])
+
+
+# -------------------------------------------------- slice 7: TinyDecoder serving
+
+
+# K3 at the W4 TinyDecoder's shapes (K, N) with a group dividing K/2: the self-test's
+# K = 16 at group 8 (regime A for any M: 8 is not a multiple of 16), and the example's
+# widths, K = 128 and 256 at groups 8 and 32 (K/2 = 64 or 128 packed rows: at most two of
+# the decode regime's 64-row K units)
+_DECODER_K3 = [(k, n, g) for k in (16, 128, 256) for n in (16, 128, 256) for g in (8, 32)
+               if (k // 2) % g == 0]
+
+
+@pytest.mark.parametrize("m", [1, 4, 7])
+@pytest.mark.parametrize("k,n,g", _DECODER_K3)
+def test_int4_hl8_kernel_at_decoder_shapes_matches_twin(cuda, m, k, n, g):
+    gen = _gen(2000 + m + k + n + g)
+    w = torch.randn((k, n), device=cuda, generator=gen) * 0.05
+    w_q, gs = tim.quantize_int4_weight_grouped(w, g)
+    packed = tim.pack_int4_hl8(w_q)
+    x = torch.randn((m, k), device=cuda, generator=gen)
+    before = tim.int4_matmul_grouped_hl8.launches
+    out = tim.int4_matmul_grouped_hl8(x, packed, gs)
+    torch.cuda.synchronize()
+    assert tim.int4_matmul_grouped_hl8.launches == before + 1
+    ref = tim.int4_matmul_grouped_hl8_ref(x, packed, gs)
+    torch.testing.assert_close(out, ref, rtol=0, atol=2e-5 * ref.abs().max().item())
+    assert torch.equal(tim.int4_matmul_grouped_hl8(x, packed, gs), out)
+    for r in sorted({0, m - 1}):  # regime A: a row alone is its batch's row, bit for bit
+        assert torch.equal(tim.int4_matmul_grouped_hl8(x[r:r + 1].contiguous(), packed, gs)[0],
+                           out[r])
+
+
+def test_decode_attention_at_decoder_shape_matches_twin(cuda):
+    """K5a at the TinyDecoder's decode attend: G = 8 heads, R = 1 (q as
+    (G, D), what ``attend`` passes for MHA, and as (G, 1, D)), D = 16,
+    S = 64, bounds 0..64 across slice edges of the 8-block cluster; K4a at
+    bound b equals K5a at b + 1 bit for bit there too."""
+    s, d = 64, 16
+    base, cur = _attn_case(8, s, d, 1, seed=140)
+    bound = torch.tensor([0, 1, 15, 16, 17, 33, s - 1, s], dtype=torch.int32, device=cuda)
+    before = tda.decode_attend_q8kv.launches
+    out3 = tda.decode_attend_q8kv(*base, bound)
+    out2 = tda.decode_attend_q8kv(*base[:4], base[4][:, 0].contiguous(), bound)
+    torch.cuda.synchronize()
+    assert tda.decode_attend_q8kv.launches == before + 2
+    assert out2.shape == (8, d) and torch.equal(out2, out3[:, 0])
+    torch.testing.assert_close(out3, tda.decode_attend_q8kv_ref(*base, bound), rtol=0,
+                               atol=_ATTN_ATOL)
+    assert torch.all(out3[0] == 0)
+    b = bound[:-1]
+    sub = tuple(t[:7] for t in base)
+    cur7 = tuple(t[:7] for t in cur)
+    a = tda.decode_attend_q8kv_cur(*sub, b, *cur7)
+    assert torch.equal(a, tda.decode_attend_q8kv(*_append_cur(sub, cur7, b), b + 1))
+
+
+@pytest.mark.parametrize("form", [("dense", 0, 1), ("moe_top2", 4, 2)])
+def test_tiny_decoder_serves_on_card_as_on_cpu(cuda, form):
+    """A small W4 TinyDecoder (group 32; MoE: 4 int8 experts, top-2) on
+    the card through ``chip_smoke.py`` phase 18's checks: ``ServeLoop``
+    tokens equal each request's isolated ``generate`` bit for bit, and
+    the card against the CPU under teacher forcing (logits within
+    ``DECODER_CARD_CPU_TOL``) and prefill against incremental decode."""
+    from micronet_tpu_torch.serve import Request, ServeLoop
+
+    label, experts, top_k = form
+    cs = _smoke()
+    cs.DECODER_KW = dict(vocab=128, dim=64, heads=4, depth=2, mlp_dim=128, max_seq=32)
+    cs.DECODER_TF_STEPS = 12
+    _, model = cs._decoder_pair(experts, top_k, cuda, 0)
+    loop = ServeLoop(model, 2, device=cuda)
+    reqs = [Request(0, [12, 9, 7, 45], 6), Request(1, [3, 5], 9), Request(2, [1, 2, 3], 4)]
+    for r in reqs:
+        loop.submit(r)
+    done = loop.run()
+    for r in reqs:
+        assert done[r.rid].output == model.generate(torch.tensor(r.prompt, device=cuda),
+                                                    r.max_new_tokens).tolist()
+    res = cs.decoder_card_vs_cpu(model, experts, top_k, label)
+    assert res["card_vs_cpu_positions"] > len(cs.DECODER_PROMPT)

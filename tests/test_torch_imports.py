@@ -23,6 +23,8 @@ from micronet_tpu_torch.serve import ServeLoop
 from micronet_tpu_torch import cli
 from micronet_tpu_torch.models.lenet import LeNet
 from micronet_tpu_torch.train import TrainConfig, Trainer
+from micronet_tpu_torch.models.tiny_decoder import TinyDecoder
+from micronet_tpu_torch.parallel import init_moe
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -30,7 +32,7 @@ ROOT = Path(__file__).resolve().parents[1]
 def test_port_and_chip_smoke_import_no_jax():
     mods = sorted(m.name for m in pkgutil.walk_packages(
         micronet_tpu_torch.__path__, "micronet_tpu_torch."))
-    assert "micronet_tpu_torch.serve.scheduler" in mods and len(mods) >= 48
+    assert "micronet_tpu_torch.serve.scheduler" in mods and len(mods) >= 51
     for m in ("infer.engine", "infer.dataflow", "infer.bn_fuse", "nn.qat_iao", "nn.transform",
               "ops.int_matmul", "models.resnet", "models.nin_gc", "quant.observers",
               "ops.paged_attention", "quant.paged_kv", "quant.wbwtab", "nn.qat_wbwtab",
@@ -38,7 +40,8 @@ def test_port_and_chip_smoke_import_no_jax():
               "nn.qat_dorefa", "quant.calibrate", "models.lenet", "selftest", "cli",
               "prune", "prune.slimming", "utils", "utils.metrics", "train", "train.data",
               "train.native_loader", "train.checkpoint", "train.loop", "train.optim",
-              "infer.evaluate", "infer.dump"):
+              "infer.evaluate", "infer.dump", "models.tiny_decoder", "parallel",
+              "parallel.moe"):
         assert f"micronet_tpu_torch.{m}" in mods
     code = "\n".join(
         ["import sys", "preloaded = set(sys.modules)"]
@@ -61,11 +64,14 @@ def test_port_and_chip_smoke_import_no_jax():
 @pytest.mark.parametrize("entry", ["llama", "serve_loop", "paged_serve_loop", "kv_cache",
                                    "paged_kv", "resnet18", "nin_gc", "nin", "prepare_wbwtab",
                                    "fuse_bn_wbwtab", "freeze_wbwtab", "lenet", "prepare_dorefa",
-                                   "trainer", "cli", "quant_test_auto"])
+                                   "trainer", "cli", "quant_test_auto", "tiny_decoder",
+                                   "init_moe", "tiny_decoder_serve_loop"])
 def test_entry_points_default_to_cuda_and_raise_without_card(monkeypatch, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cpu_model = Llama(llama_tiny(8), device="cpu")
     cpu_nin = nin.Net(cfg=[8] * 8, device="cpu")
+    cpu_decoder = TinyDecoder(vocab=16, dim=16, heads=2, depth=1, mlp_dim=32, max_seq=8,
+                              device="cpu")
     calls = {
         "llama": lambda: Llama(llama_tiny(8)),
         "serve_loop": lambda: ServeLoop(cpu_model, 2),
@@ -84,6 +90,9 @@ def test_entry_points_default_to_cuda_and_raise_without_card(monkeypatch, entry)
         "trainer": lambda: Trainer(cpu_nin, TrainConfig(), dataset=object()),
         "cli": lambda: cli.main(["prune", "--cfg", "8,8,8,8,8,8,8,8"]),
         "quant_test_auto": lambda: micronet_tpu_torch.quant_test_auto(),
+        "tiny_decoder": lambda: TinyDecoder(moe_experts=4),
+        "init_moe": lambda: init_moe(16, 32, 4),
+        "tiny_decoder_serve_loop": lambda: ServeLoop(cpu_decoder, 2),
     }
     with pytest.raises(RuntimeError, match="CUDA"):
         calls[entry]()
