@@ -141,7 +141,29 @@ Phases, each fatal on failure (non-zero exit, no final line):
    times. K3 and K5a against their twins at this path's shapes, timed
    (events and device time) beside the twin, one library call and the
    bound, run at the end of phase 12 with the other device readings;
-19. the kernels line (JSON), then the final line
+19. deploy (slice 8's main path): phase 9's two engines behind
+   ``build_engine`` (ResNet-18 W8A8 at profile (1, 64, 512), NIN-GC W4A4
+   at (1, 256, 1024)): one CUDA graph per bucket; requests of 1, 5, 64,
+   300, the largest bucket and 2.5x it (chunked) each equal to the eager
+   engine bit for bit, and on 8 images to the engine on the CPU; the
+   counts zeroed just before the buckets are built and read after the
+   requests (K1 one launch per capture, none per replay), and by
+   ``torch.profiler`` one K1 kernel in each ResNet-18 replay and no
+   hand-written kernel in NIN-GC's; per bucket the eager forward's ms,
+   the replay's, a call's img/s and the capture's seconds. The ResNet-18
+   engine through ``serialize_engine`` at batch 512 and
+   ``deserialize_engine`` (export, save and load seconds, bytes; its
+   graph calls the K1 operator; bit-equal to the engine; a record naming
+   another compute capability refused); ``to_bf16``/``bf16_runner`` on
+   the float ResNet-18 (within 0.05 relative L2 of fp32, img/s beside
+   fp32); ``cli train`` (2 steps) then ``cli deploy`` on ResNet-18, the
+   artifact equal to the engine built from the checkpoint;
+   ``profiling.current_chip()`` names the card, and with ``--profile``
+   ``profiling.trace`` writes 3 replays of each largest bucket; then K1
+   at phase 7's fc call through the operator, without it, and replayed.
+   It runs after phase 12's device readings and before ``--profile``'s
+   deferred traces (after those, its replay traces lost kernels);
+20. the kernels line (JSON), then the final line
    ``{"ok": true, "device": {...}}``.
 
 Details of every measurement go to ``<out>/chip_smoke.json`` (``--out``,
@@ -163,9 +185,28 @@ from pathlib import Path
 import numpy as np
 import torch
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM
-BF16_OPS_PER_S = 989e12  # dense bf16 tensor-core peak
-INT8_OPS_PER_S = 1979e12  # dense int8 tensor-core peak
+
+def _load_chips():
+    """``CHIPS`` of ``micronet_tpu_torch/utils/profiling.py``, loaded from
+    its file: importing the package here would pin this checkout's
+    ``micronet_tpu_torch`` before ``tools/*.py --tree`` put another
+    checkout's first on the path."""
+    import importlib.util
+
+    path = Path(__file__).resolve().parent / "micronet_tpu_torch" / "utils" / "profiling.py"
+    spec = importlib.util.spec_from_file_location("_chip_smoke_profiling", path)
+    mod = sys.modules[spec.name] = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.CHIPS
+
+
+CHIPS = _load_chips()
+
+# the H100 SXM's published dense peaks (micronet_tpu_torch/utils/profiling.py)
+_H100 = CHIPS["h100_sxm"]
+HBM_BYTES_PER_S = _H100.hbm_gbps * 1e9  # 3.35 TB/s
+BF16_OPS_PER_S = _H100.bf16_tflops * 1e12  # dense bf16 tensor-core peak
+INT8_OPS_PER_S = _H100.int8_tops * 1e12  # dense int8 tensor-core peak
 L2_BYTES = 50 * 2**20
 GROUP = 128
 # (K, N) of each W4 projection of one Llama-3-8B block, and the lm_head,
@@ -1091,7 +1132,7 @@ def _forward_ms(model, x, iters):
 
 @torch.no_grad()
 def engine_path(name, build, cfg, batch, dev, seed, report, profile_dir=None, later=None,
-                exact=False):
+                exact=False, keep=None):
     """One IAO engine flow at full width on the card: random weights from a
     seeded generator, ``prepare``, calibration forwards in train mode,
     ``fuse_bn_iao``, ``freeze_int`` with an example input, then the engine
@@ -1102,7 +1143,8 @@ def engine_path(name, build, cfg, batch, dev, seed, report, profile_dir=None, la
     layer by layer (:func:`_layers_card_vs_cpu`) and each layer's
     accumulator the exact integer value within the rounding of the f32
     correction order (:func:`_layers_vs_exact`); the whole model's gap to
-    its fake-quant model is reported, not held (see ``asym_resnet18``)."""
+    its fake-quant model is reported, not held (see ``asym_resnet18``).
+    ``keep``, a dict, receives the engine and the fp32 model (phase 19)."""
     import copy
 
     from micronet_tpu_torch.infer import freeze_int, fuse_bn_iao
@@ -1169,6 +1211,8 @@ def engine_path(name, build, cfg, batch, dev, seed, report, profile_dir=None, la
     log(f"{name}: on {CPU_BATCH} images, engine vs its fake-quant model max|diff| "
         f"{fq_diff:.3e}, engine on the card vs on the CPU max|diff| {diff:.3e}; argmax "
         f"agreement with the fake-quant model over the batch {fq_agree:.4f}")
+    if keep is not None:
+        keep.update(engine=engine, fp32=fp32)
     return launches, forwards
 
 
@@ -1200,13 +1244,14 @@ def _all_kernels():
             i8.binary_act_matmul, im.int4_matmul, im.int4_matmul_grouped)
 
 
-def resnet_engine(dev, seed, report, profile_dir=None, later=None):
+def resnet_engine(dev, seed, report, profile_dir=None, later=None, keep=None):
     from micronet_tpu_torch.models.resnet import resnet18
     from micronet_tpu_torch.quant.config import QuantConfig
 
     launches, forwards = engine_path("resnet18_w8a8", resnet18,
                                      QuantConfig(a_bits=8, w_bits=8, bn_fuse=True),
-                                     RESNET_BATCH, dev, seed, report, profile_dir, later)
+                                     RESNET_BATCH, dev, seed, report, profile_dir, later,
+                                     keep=keep)
     want = {k.__name__: 0 for k in _all_kernels()}
     want["int8_matmul_dequant"] = forwards  # the fc, once per forward
     if launches != want:
@@ -1214,13 +1259,13 @@ def resnet_engine(dev, seed, report, profile_dir=None, later=None):
     return launches
 
 
-def nin_engine(dev, seed, report, profile_dir=None, later=None):
+def nin_engine(dev, seed, report, profile_dir=None, later=None, keep=None):
     from micronet_tpu_torch.models.nin_gc import Net
     from micronet_tpu_torch.quant.config import QuantConfig
 
     # NIN-GC's classifier is a 1x1 conv: this path runs no hand-written kernel
     engine_path("nin_gc_w4a4", Net, QuantConfig(a_bits=4, w_bits=4, bn_fuse=True),
-                NIN_BATCH, dev, seed, report, profile_dir, later)
+                NIN_BATCH, dev, seed, report, profile_dir, later, keep=keep)
 
 
 # ---------------------------------------------------------------- phase 10
@@ -2923,6 +2968,401 @@ def serve_decoder(dev, seed, card, report, profile_dir=None):
     return launches_by_form
 
 
+# ---------------------------------------------------------------- phase 19
+
+# bucket profiles (min, opt, max) of phase 9's two engines
+DEPLOY_PROFILES = {"resnet18_w8a8": (1, 64, RESNET_BATCH), "nin_gc_w4a4": (1, 256, NIN_BATCH)}
+# requests: then the largest bucket and 2.5x it (chunked through the largest)
+DEPLOY_REQUESTS = (1, 5, 64, 300)
+K1_KERNEL = "int8_small_kernel"  # K1's regime at the fc (N = 10)
+# the JAX package's bf16 bound (tests/test_infer.py::test_bf16_eval_mode): relative L2
+BF16_REL_TOL = 0.05
+# cli deploy: cli train's two steps (the synthetic set's 2,048 images at batch 1,024)
+DEPLOY_TRAIN_BATCH, DEPLOY_CLI_BATCH = 1024, 64
+
+
+def hand_kernel_names() -> set:
+    """The name of every ``__global__`` function in ``ops/csrc/``."""
+    from micronet_tpu_torch.ops import _build
+
+    text = "".join(p.read_text() for p in sorted(_build.CSRC.glob("*.cu*")))
+    return set(re.findall(r"__global__[^;{]*?\b(\w+_kernel)\s*\(", text, re.S))
+
+
+def replay_kernels(graph, replays: int, hand: set) -> dict:
+    """Kernel counts by name over ``replays`` replays of ``graph`` under
+    ``torch.profiler``, retried with longer quiet pads (as
+    :func:`device_ms`) until the trace holds a multiple of ``replays``
+    kernels and each hand-written kernel (a name containing one of
+    ``hand``) a multiple of ``replays`` times. Other names need not be
+    multiples: in a run that had used the profiler before, a few of a
+    replay's library kernels came back under another name (1,572
+    kernels for 3 replays of 524, with some names off a multiple)."""
+    from collections import Counter
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    graph.replay()
+    torch.cuda.synchronize()
+    for pad in TRACE_PADS:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(pad)
+            for _ in range(replays):
+                graph.replay()
+            torch.cuda.synchronize()
+            time.sleep(pad)
+        counts = Counter(e.name for e in prof.events() if e.device_type == DeviceType.CUDA)
+        ours = {k: c for k, c in counts.items() if any(h in k for h in hand)}
+        odd = {k[:80]: c for k, c in counts.items() if c % replays}
+        if counts and sum(counts.values()) % replays == 0 and not any(
+                c % replays for c in ours.values()):
+            if odd:
+                log(f"replay trace: names off a multiple of {replays} replays: {odd}")
+            return dict(counts)
+        log(f"replay trace (pads of {pad} s) held {sum(counts.values())} kernels for {replays} "
+            f"replays; names off a multiple: {odd}")
+    fail(f"torch.profiler did not record {replays} whole replays in {len(TRACE_PADS)} traces")
+
+
+def _events_ms(fn, iters: int) -> float:
+    """Mean ms of ``fn()`` over ``iters`` calls after one warm-up (CUDA events)."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _timed_engine_class():
+    """``CompiledEngine`` recording each bucket's capture seconds and the
+    launch counts each capture added (the warm-up forwards' launches are
+    outside it)."""
+    from micronet_tpu_torch.infer import CompiledEngine
+
+    class TimedEngine(CompiledEngine):
+        def _capture(self, x):
+            kernels = _all_kernels()
+            before = [k.launches for k in kernels]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = super()._capture(x)
+            torch.cuda.synchronize()
+            self.__dict__.setdefault("capture_s", {})[x.shape[0]] = time.perf_counter() - t0
+            self.__dict__.setdefault("capture_launches", {})[x.shape[0]] = {
+                k.__name__: k.launches - b for k, b in zip(kernels, before) if k.launches != b}
+            return out
+
+    return TimedEngine
+
+
+def _bit_equal(what, got, ref):
+    if tuple(got.shape) != tuple(ref.shape) or not torch.equal(got, ref):
+        diff = (got - ref).abs().max().item() if got.shape == ref.shape else float("nan")
+        fail(f"{what}: not equal to the eager engine bit for bit (shape {tuple(got.shape)} vs "
+             f"{tuple(ref.shape)}, max|diff| {diff:.3e})")
+
+
+@torch.no_grad()
+def deploy_buckets(name, engine, dev, seed, card, report):
+    """One engine of phase 9 behind ``build_engine(profile=...)``: a CUDA
+    graph per bucket, every request equal to the eager engine bit for bit,
+    the launch counts of the captures, the kernels of one replay of each
+    bucket by ``torch.profiler``, and times per bucket. Returns the
+    compiled engine and the launch counts of the path (captures and
+    requests; the warm-up forwards count too)."""
+    import copy
+
+    from micronet_tpu_torch.infer.deploy import profile_buckets
+
+    lo, opt, hi = DEPLOY_PROFILES[name]
+    gen = torch.Generator(device=dev).manual_seed(seed + 19)
+    kernels = _all_kernels()
+    for kern in kernels:
+        kern.launches = 0
+    # -- the main path: capture every bucket, then the requests -----------
+    t0 = time.perf_counter()
+    compiled = _timed_engine_class()(engine, sorted(set(profile_buckets(lo, hi)) | {opt}),
+                                     (32, 32, 3), device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    requests = (*DEPLOY_REQUESTS, hi, int(2.5 * hi))
+    xs = {n: torch.randn((n, 32, 32, 3), device=dev, generator=gen) for n in requests}
+    outs = {n: compiled(xs[n]) for n in requests}
+    torch.cuda.synchronize()
+    launches = {k.__name__: k.launches for k in kernels}
+    # ----------------------------------------------------------------------
+    for n in requests:
+        _bit_equal(f"{name} deploy: batch {n}", outs[n], engine(xs[n]))
+    again = compiled(xs[5])
+    _bit_equal(f"{name} deploy: batch 5 again", again, outs[5])
+    if again.data_ptr() == outs[5].data_ptr():
+        fail(f"{name} deploy: two calls returned one tensor")
+    card_cpu = _agree(f"{name} deploy: buckets on the card vs the engine on the CPU",
+                      compiled(xs[300][:CPU_BATCH]).cpu(),
+                      copy.deepcopy(engine).to("cpu")(xs[300][:CPU_BATCH].cpu()), CARD_CPU_TOL)
+    hand = hand_kernel_names()
+    per_bucket, k1_per_replay = {}, {}
+    for b in compiled.buckets:
+        graph, sx, _ = compiled._graphs[b]
+        sx.copy_(torch.randn(sx.shape, device=dev, generator=gen))
+        counts = replay_kernels(graph, 3, hand)
+        ours = {k: c // 3 for k, c in counts.items() if any(h in k for h in hand)}
+        k1_per_replay[b] = sum(c for k, c in ours.items() if K1_KERNEL in k)
+        eager_ms = _events_ms(lambda: engine(sx), ENGINE_ITERS)
+        replay_ms = _events_ms(graph.replay, ENGINE_ITERS)
+        call_ms = _events_ms(lambda: compiled(sx), ENGINE_ITERS)
+        per_bucket[b] = dict(eager_ms=eager_ms, replay_ms=replay_ms, call_ms=call_ms,
+                             img_s=b / call_ms * 1e3, eager_img_s=b / eager_ms * 1e3,
+                             capture_s=compiled.capture_s[b],
+                             capture_launches=compiled.capture_launches[b],
+                             hand_kernels_per_replay=ours,
+                             kernels_per_replay=sum(counts.values()) // 3)
+        log(f"{name} bucket {b:5d}: eager {eager_ms:8.3f} ms, replay {replay_ms:8.3f} ms, call "
+            f"(copy in, replay, copy out) {call_ms:8.3f} ms = {b / call_ms * 1e3:9.0f} img/s; "
+            f"capture {compiled.capture_s[b]:.3f} s; {sum(counts.values()) // 3} kernels a "
+            f"replay, hand-written {ours}")
+    if name == "resnet18_w8a8":
+        want = {"int8_matmul_dequant": 1}
+        if any(v["capture_launches"] != want for v in per_bucket.values()):
+            fail(f"{name} deploy: launch counts per capture "
+                 f"{ {b: v['capture_launches'] for b, v in per_bucket.items()} }, expected {want}")
+        if any(v != 1 or len(per_bucket[b]["hand_kernels_per_replay"]) != 1
+               for b, v in k1_per_replay.items()):
+            fail(f"{name} deploy: K1 kernels per replay {k1_per_replay}, expected exactly one "
+                 f"({K1_KERNEL}) and no other hand-written kernel")
+        if launches["int8_matmul_dequant"] != 3 * len(compiled.buckets) or any(
+                v for k, v in launches.items() if k != "int8_matmul_dequant"):
+            fail(f"{name} deploy: launch counts {launches}: expected K1 three times a bucket "
+                 "(two warm-up forwards and the capture) and none in the requests' replays")
+    elif any(launches.values()) or any(v["hand_kernels_per_replay"]
+                                       for v in per_bucket.values()):
+        fail(f"{name} deploy: a hand-written kernel ran ({launches}, per replay "
+             f"{ {b: v['hand_kernels_per_replay'] for b, v in per_bucket.items()} })")
+    res = dict(card=card, buckets=list(compiled.buckets), requests=list(requests),
+               build_s=build_s, launches=launches, k1_kernels_per_replay=k1_per_replay,
+               card_vs_cpu_max_abs=card_cpu, per_bucket=per_bucket,
+               flops=compiled.flops)
+    report[f"{name}_deploy"] = res
+    log(f"{name} deploy: {len(compiled.buckets)} buckets {compiled.buckets} built in "
+        f"{build_s:.2f} s; requests {requests} equal to the eager engine bit for bit; launches "
+        f"{ {k: v for k, v in launches.items() if v} }; card vs CPU on {CPU_BATCH} images "
+        f"{card_cpu:.3e}")
+    return compiled, res
+
+
+def _with_record(data: bytes, **edits) -> bytes:
+    """The artifact ``data`` with its device record edited, in memory."""
+    import io
+
+    from micronet_tpu_torch.infer import deploy
+
+    program = torch.export.load(io.BytesIO(data))
+    buf = io.BytesIO()
+    torch.export.save(program, buf, extra_files={
+        deploy.RECORD: json.dumps({**deploy.artifact_record(data), **edits})})
+    return buf.getvalue()
+
+
+@torch.no_grad()
+def deploy_artifact(engine, dev, seed, out_dir: Path, card, report):
+    """``serialize_engine`` on the ResNet-18 engine at batch 512 (export
+    and save timed apart), ``deserialize_engine``: its graph calls the K1
+    operator once, its output equals the engine bit for bit, its forward
+    time beside the engine's; an artifact whose record names another
+    compute capability refuses to load."""
+    from micronet_tpu_torch.infer import deploy
+
+    path = out_dir / "resnet18_w8a8.pt2"
+    times = {}
+    real = torch.export.export, torch.export.save
+
+    def timed(fn, key):
+        def run(*a, **k):
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            times[key] = time.perf_counter() - t0
+            return out
+        return run
+
+    torch.export.export, torch.export.save = timed(real[0], "export_s"), timed(real[1], "save_s")
+    try:
+        data = deploy.serialize_engine(engine, batch=RESNET_BATCH, path=str(path),
+                                       platforms=("cuda",))
+    finally:
+        torch.export.export, torch.export.save = real
+    t0 = time.perf_counter()
+    runner = deploy.deserialize_engine(str(path))
+    times["load_s"] = time.perf_counter() - t0
+    record = deploy.artifact_record(data)
+    k1_nodes = [n for n in runner.program.graph.nodes
+                if n.target is torch.ops.micronet_tpu_torch.int8_matmul_dequant.default]
+    if len(k1_nodes) != 1:
+        fail(f"deploy artifact: {len(k1_nodes)} calls of the K1 operator in its graph, expected 1")
+    x = torch.randn((RESNET_BATCH, 32, 32, 3), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(seed + 20))
+    _bit_equal("deploy artifact at batch 512", runner(x), engine(x))
+    program_ms = _events_ms(lambda: runner(x), ENGINE_ITERS)
+    engine_ms = _events_ms(lambda: engine(x), ENGINE_ITERS)
+    cap = record["capability"]
+    other = [cap[0] - 1, cap[1]]
+    try:
+        deploy.deserialize_engine(_with_record(data, capability=other))
+    except RuntimeError as e:
+        refused = str(e)
+    else:
+        fail(f"deploy artifact: a record naming sm_{other[0]}{other[1]} loaded on "
+             f"sm_{cap[0]}{cap[1]}")
+    res = dict(card=card, bytes=len(data), record=record, program_ms=program_ms,
+               engine_ms=engine_ms, program_img_s=RESNET_BATCH / program_ms * 1e3,
+               refused=refused, **times)
+    report["resnet18_w8a8_artifact"] = res
+    log(f"deploy artifact: {len(data)} bytes, record {record}; export {times['export_s']:.2f} s, "
+        f"save {times['save_s']:.2f} s, load {times['load_s']:.2f} s; program {program_ms:.3f} ms "
+        f"a forward at batch {RESNET_BATCH} (eager engine {engine_ms:.3f} ms), equal bit for "
+        f"bit; a record of sm_{other[0]}{other[1]} refused: {refused}")
+    return res
+
+
+@torch.no_grad()
+def deploy_bf16(fp32, dev, seed, card, report):
+    """``to_bf16`` and ``bf16_runner`` on a copy of phase 9's float
+    ResNet-18 (eval mode): f32 out, within ``BF16_REL_TOL`` relative L2 of
+    the fp32 eval (TF32 off), img/s of both at batch 512."""
+    import copy
+
+    from micronet_tpu_torch.infer import bf16_runner, to_bf16
+
+    x = torch.randn((RESNET_BATCH, 32, 32, 3), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(seed + 21))
+    model = to_bf16(copy.deepcopy(fp32))
+    run = bf16_runner(model)
+    y, ref = run(x), fp32(x)
+    rel = ((y - ref).norm() / ref.norm()).item()
+    if y.dtype != torch.float32 or rel >= BF16_REL_TOL:
+        fail(f"bf16 resnet18: output {y.dtype}, relative L2 {rel:.3e} (bound {BF16_REL_TOL})")
+    bf16_ms = _events_ms(lambda: run(x), ENGINE_ITERS)
+    fp32_ms = _events_ms(lambda: fp32(x), ENGINE_ITERS)
+    res = dict(card=card, batch=RESNET_BATCH, rel_l2=rel, bf16_ms=bf16_ms, fp32_ms=fp32_ms,
+               bf16_img_s=RESNET_BATCH / bf16_ms * 1e3, fp32_img_s=RESNET_BATCH / fp32_ms * 1e3)
+    report["resnet18_bf16"] = res
+    log(f"bf16 resnet18: relative L2 to fp32 {rel:.3e}; {res['bf16_img_s']:.0f} img/s against "
+        f"fp32 (TF32 off) {res['fp32_img_s']:.0f} img/s at batch {RESNET_BATCH}")
+    return res
+
+
+def deploy_cli(dev, seed, out_dir: Path, card, report):
+    """``cli train`` writes a ResNet-18 IAO checkpoint (2 steps), ``cli
+    deploy`` serializes its engine; the artifact loads and equals the
+    engine built from the same checkpoint bit for bit."""
+    from micronet_tpu_torch.infer import deserialize_engine, freeze_int, fuse_bn_iao
+    from micronet_tpu_torch.models.resnet import resnet18
+    from micronet_tpu_torch.nn import eval_mode, prepare
+    from micronet_tpu_torch.quant.config import QuantConfig
+    from micronet_tpu_torch.train import load_state
+
+    ck, art = out_dir / "resnet18_iao.npz", out_dir / "resnet18_cli.pt2"
+    model = ["--model_type", 2, "--bn_fuse"]
+    _, train_s = _cli(["train", "--device", str(dev), *model, "--method", "iao", "--epochs", 1,
+                       "--train_batch_size", DEPLOY_TRAIN_BATCH, "--seed", seed, "--save", ck],
+                      "train resnet18 for deploy")
+    text, deploy_s = _cli(["deploy", "--device", str(dev), *model, "--model", ck, "--save", art,
+                           "--batch", DEPLOY_CLI_BATCH], "deploy resnet18")
+    cfg = QuantConfig(bn_fuse=True)
+    q = prepare(resnet18(device=dev, generator=torch.Generator(device=dev).manual_seed(0)),
+                cfg, inplace=True, device=dev)
+    load_state(ck, q)
+    with torch.no_grad():
+        fused = eval_mode(fuse_bn_iao(q, cfg, device=dev))
+        engine = eval_mode(freeze_int(fused, example_input=torch.zeros((1, 32, 32, 3),
+                                                                          device=dev), device=dev))
+        x = torch.randn((DEPLOY_CLI_BATCH, 32, 32, 3), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(seed + 22))
+        _bit_equal("cli deploy artifact", deserialize_engine(str(art))(x), engine(x))
+    res = dict(card=card, train_s=train_s, deploy_s=deploy_s, bytes=art.stat().st_size)
+    report["resnet18_cli_deploy"] = res
+    log(f"cli deploy: train {train_s:.1f} s, deploy {deploy_s:.1f} s, {res['bytes']} bytes; "
+        "the artifact equals the engine built from the checkpoint")
+    return res
+
+
+def k1_operator_times(dev, gen, report):
+    """K1 at phase 7's fc call (512 x 512 x 10): the public wrapper
+    (through the registered operator), the operator called alone, the
+    launch without it (``_card_call``, the same kernel), the same
+    implementation registered
+    with ``torch.library.custom_op`` instead (the registration the port
+    does not use: it checks its inputs' aliasing on every call), and one
+    call captured in a CUDA graph and replayed, each by CUDA events."""
+    from micronet_tpu_torch.ops import int_matmul as i8
+
+    label, m, k, n, s_x, zp, qmin, qmax, iters = K1_CASES[0]
+    args = k1_args(m, k, n, s_x, zp, qmin, qmax, dev, gen)
+    op_ms = time_ms(i8.int8_matmul_dequant, [args], iters)
+    registered_ms = time_ms(torch.ops.micronet_tpu_torch.int8_matmul_dequant, [args], iters)
+    direct_ms = time_ms(lambda *a: i8._card_call(*a[:3], (a[3], a[4], qmin, qmax)), [args],
+                        iters)
+    custom = torch.library.custom_op(
+        "chip_smoke::k1_custom_op", i8._k1_op, mutates_args=(),
+        schema="(Tensor x, Tensor w_q, Tensor w_scale, Tensor x_scale, Tensor x_zero_point, "
+               "float qmin, float qmax) -> Tensor")
+    custom_op_ms = time_ms(custom, [args], iters)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        i8.int8_matmul_dequant(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = i8.int8_matmul_dequant(*args)
+    graph.replay()
+    torch.cuda.synchronize()
+    if not torch.equal(out, i8.int8_matmul_dequant_ref(*args)):
+        fail("K1 replayed: differs from its twin")
+    replay_ms = _events_ms(graph.replay, iters)
+    res = dict(m=m, k=k, n=n, op_ms=op_ms, registered_ms=registered_ms, direct_ms=direct_ms,
+               custom_op_ms=custom_op_ms, replay_ms=replay_ms)
+    report["k1_operator"] = res
+    log(f"K1 at M={m} K={k} N={n}: the public wrapper {op_ms:.4f} ms, its registered operator "
+        f"called alone {registered_ms:.4f} ms, launched without the operator {direct_ms:.4f} ms, "
+        f"through a torch.library.custom_op {custom_op_ms:.4f} ms, one call in a replayed graph "
+        f"{replay_ms:.4f} ms")
+    return res
+
+
+def deploy(engines, dev, seed, out_dir: Path, card, report, profile_dir=None):
+    """Phase 19: the deploy end on phase 9's two engines. Returns K1's
+    launch count over the ResNet-18 buckets' path."""
+    from micronet_tpu_torch.utils import profiling
+
+    chip, kind = profiling.current_chip(), torch.cuda.get_device_name(0)
+    if chip.name != ("h100_pcie" if "pcie" in kind.lower() else "h100_sxm"):
+        fail(f"profiling.current_chip(): {chip.name} for {kind}")
+    log(f"profiling.current_chip(): {chip}")
+    compiled = {name: deploy_buckets(name, engines[name]["engine"], dev, seed, card, report)[0]
+                for name in DEPLOY_PROFILES}
+    if profile_dir is not None:
+        for name, eng in compiled.items():
+            logdir = profile_dir / f"deploy_trace_{name}"
+            with profiling.trace(str(logdir)):
+                for _ in range(3):
+                    eng._graphs[eng.buckets[-1]][0].replay()
+                torch.cuda.synchronize()
+            if not list(logdir.glob("*.pt.trace.json")):
+                fail(f"{name} deploy: profiling.trace wrote no trace into {logdir}")
+    del compiled
+    torch.cuda.empty_cache()
+    deploy_artifact(engines["resnet18_w8a8"]["engine"], dev, seed, out_dir, card, report)
+    deploy_bf16(engines["resnet18_w8a8"]["fp32"], dev, seed, card, report)
+    deploy_cli(dev, seed, out_dir, card, report)
+    report["current_chip"] = chip.name
+    return report["resnet18_w8a8_deploy"]["launches"]["int8_matmul_dequant"]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2974,9 +3414,10 @@ def main() -> int:
     k1 = check_k1(dev, gen, report)
     check_conv_routes(dev, gen, report)
     # each kernel's count from its own slice's main path
-    launches["int8_matmul_dequant"] = resnet_engine(dev, args.seed, report, profile_dir,
-                                                    later)["int8_matmul_dequant"]
-    nin_engine(dev, args.seed, report, profile_dir, later)
+    engines = {name: {} for name in DEPLOY_PROFILES}  # phase 9's engines, for phase 19
+    launches["int8_matmul_dequant"] = resnet_engine(dev, args.seed, report, profile_dir, later,
+                                                    engines["resnet18_w8a8"])["int8_matmul_dequant"]
+    nin_engine(dev, args.seed, report, profile_dir, later, engines["nin_gc_w4a4"])
     long_att = check_long_attention(dev, gen, report)
     launches.update({k: v for k, v in serve_long(dev, args.seed, card, report, profile_dir,
                                                  later).items()
@@ -2991,6 +3432,11 @@ def main() -> int:
               if k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err")}
     int8_device_times(dev, gen, report, k1_row, k2_row)
     dec_kernels = decoder_kernel_times(dev, gen, report)
+    # phase 19 runs here, before --profile's traces: after them, its replay
+    # traces lost kernels
+    k1_phase19 = deploy(engines, dev, args.seed, out_dir, card, report, profile_dir)
+    del engines
+    k1_op = k1_operator_times(dev, gen, report)
     for run in later:
         run()
     later.clear()
@@ -3039,8 +3485,13 @@ def main() -> int:
              per="one call at M=512 K=512 N=10 (ResNet-18's fc at batch 512); library_ms is "
                  "torch._int_mm on codes quantized beforehand: the integer product only; "
                  "launches_phase15 is its count over the KL-PTQ ResNet-18 engine's "
-                 f"{ENGINE_ITERS + 1} forwards after cli freeze-int",
-             launches_phase15=k1_phase15, **k1_row),
+                 f"{ENGINE_ITERS + 1} forwards after cli freeze-int; launches_phase19 its "
+                 "count over the ResNet-18 deploy path (two warm-up forwards and one capture "
+                 "a bucket; a CUDA graph's replay runs it once by torch.profiler and counts "
+                 "nothing); operator the wrapper through the registered operator, the same "
+                 "launch without it and one call in a replayed graph, by events",
+             launches_phase15=k1_phase15, launches_phase19=k1_phase19, operator=k1_op,
+             **k1_row),
         dict(name="decode_attend_q8kv_blocked_cur", route="cuda",
              source=src + "decode_attention.cu",
              replaces="micronet_tpu/ops/decode_attention.py:390",

@@ -13,7 +13,7 @@ prune          BN-gamma channel pruning (``--normal_regular N``, ``--gc``)
 bn-fuse        the BN-fused inference model (``--dump`` adds text dumps)
 model-test     paired train/inference equivalence on the test set
 freeze-int     the integer engine (its ``IntLinear`` layers run K1)
-deploy         not ported yet (raises)
+deploy         the engine as a ``torch.export`` artifact (``.pt2``)
 =============  ==========================================================
 
 Every subcommand takes ``--device``: CUDA by default, which raises
@@ -311,8 +311,22 @@ def cmd_freeze_int(args) -> int:
 
 
 def cmd_deploy(args) -> int:
-    raise NotImplementedError(
-        "deploy is not ported yet (ROADMAP.md, Queue 1 item 3: deploy and utils)")
+    """Serialize a deployable engine artifact (the reference's eval_trt.py
+    flow: checkpoint -> fused -> int engine -> a ``torch.export`` program
+    with the weights embedded)."""
+    from .infer import freeze_int, fuse_bn_iao, serialize_engine
+    from .nn import eval_mode
+
+    q, cfg, dev = _quant_model(args, "iao")
+    fused = eval_mode(fuse_bn_iao(q, cfg, device=dev))
+    engine = freeze_int(fused, example_input=torch.zeros((1, 32, 32, 3), device=dev),
+                        device=dev)
+    platforms = (args.platforms or dev.type,)
+    os.makedirs(os.path.dirname(args.save) or ".", exist_ok=True)
+    data = serialize_engine(engine, batch=args.batch, path=args.save, platforms=platforms)
+    print(f"serialized engine ({len(data)} bytes, batch {args.batch}, "
+          f"platforms {platforms}) -> {args.save}")
+    return 0
 
 
 def main(argv=None) -> int:
@@ -387,13 +401,14 @@ def main(argv=None) -> int:
     _add_quant_flags(pf)
     pf.set_defaults(fn=cmd_freeze_int)
 
-    pd = sub.add_parser("deploy", help="not ported yet: raises")
+    pd = sub.add_parser("deploy", help="serialize the int8 engine as a torch.export artifact")
     pd.add_argument("--model_type", type=int, default=1)
     pd.add_argument("--cfg", default="")
     pd.add_argument("--model", default="")
-    pd.add_argument("--save", default="models_save/engine.stablehlo")
+    pd.add_argument("--save", default="models_save/engine.pt2")
     pd.add_argument("--batch", type=int, default=32)
-    pd.add_argument("--platforms", default="")
+    pd.add_argument("--platforms", choices=["cuda", "cpu"], default=None,
+                    help="the device type to export on (default: --device's)")
     _add_quant_flags(pd)
     pd.set_defaults(fn=cmd_deploy)
 

@@ -205,20 +205,28 @@ class _IntConvRoutes(nn.Module):
         """(O, kh*kw*C) int8: row o holds output channel o's codes in im2col
         (kh, kw, c) order over ALL input channels, zero outside its group.
         Built once and kept until the stored codes move or are written in
-        place."""
+        place. Under ``torch.export`` (fake tensors, no data pointer) it is
+        built in the traced graph instead, from the codes the program
+        embeds."""
         codes = self._codes()
-        key = (codes.data_ptr(), codes.device, codes._version)
-        if self._gemm_cache is not None and self._gemm_cache[0] == key:
-            return self._gemm_cache[1]
+        tracing = torch.compiler.is_compiling()
+        if not tracing:
+            key = (codes.data_ptr(), codes.device, codes._version)
+            if self._gemm_cache is not None and self._gemm_cache[0] == key:
+                return self._gemm_cache[1]
         co, cg, kh, kw = self.w_shape
         g = self.groups
         og = co // g
         w = self._weights_hwio().permute(3, 0, 1, 2)  # (O, kh, kw, cg)
-        full = torch.zeros((g, og, kh, kw, g, cg), dtype=torch.int8, device=w.device)
-        for i in range(g):
-            full[i, :, :, :, i, :] = w[i * og:(i + 1) * og]
-        full = full.reshape(co, kh * kw * g * cg)
-        self._gemm_cache = (key, full)
+        if g == 1:
+            full = w.reshape(co, kh * kw * cg).contiguous()
+        else:
+            full = torch.zeros((g, og, kh, kw, g, cg), dtype=torch.int8, device=w.device)
+            for i in range(g):
+                full[i, :, :, :, i, :] = w[i * og:(i + 1) * og]
+            full = full.reshape(co, kh * kw * g * cg)
+        if not tracing:
+            self._gemm_cache = (key, full)
         return full
 
     def _im2col(self, x: torch.Tensor) -> Tuple[torch.Tensor, Tuple[int, int, int]]:

@@ -1,5 +1,12 @@
-"""Model families of the port."""
+"""Model families of the port: NIN, NIN-GC, the CIFAR ResNets and LeNet,
+and the LLM serving families (Llama; the TinyDecoder in
+``models.tiny_decoder``)."""
 
+from . import lenet, nin, nin_gc, resnet
 from .lenet import LeNet
+from .llama import Llama, LlamaConfig, llama3_8b, llama_tiny, quantize_llama
+from .resnet import resnet18, resnet34, resnet50, resnet101, resnet152
 
-__all__ = ["LeNet"]
+__all__ = ["nin", "nin_gc", "resnet", "lenet", "LeNet", "Llama", "LlamaConfig", "llama3_8b",
+           "llama_tiny", "quantize_llama", "resnet18", "resnet34", "resnet50", "resnet101",
+           "resnet152"]

@@ -12,7 +12,6 @@ from __future__ import annotations
 
 from typing import Optional, Sequence, Tuple, Union
 
-import numpy as np
 import torch
 import torch.nn.functional as TF
 
@@ -117,9 +116,11 @@ def adaptive_avg_pool2d(x: torch.Tensor, output_size: IntPair) -> torch.Tensor:
 
 def channel_shuffle(x: torch.Tensor, groups: int) -> torch.Tensor:
     """Channel shuffle for grouped convolutions over NCHW: output channel
-    ``k * groups + r`` is input channel ``r * (C / groups) + k``."""
-    c = x.shape[1]
+    ``k * groups + r`` is input channel ``r * (C / groups) + k``. A reshape
+    and a transpose (one copy on the device), where the JAX package
+    gathers by a permutation for the TPU's layouts: no index tensor moves
+    from the host, so the shuffle runs inside a CUDA graph capture."""
+    n, c = x.shape[:2]
     if c % groups:
         raise ValueError(f"channels {c} not divisible by groups {groups}")
-    perm = np.arange(c).reshape(groups, c // groups).T.reshape(-1)
-    return x[:, torch.from_numpy(perm).to(x.device)]
+    return x.reshape(n, groups, c // groups, *x.shape[2:]).transpose(1, 2).reshape(x.shape)

@@ -25,7 +25,7 @@ JAX package does. ``QuantAdd`` and ``QuantConcat`` share one (union)
 scale between their two inputs.
 
 Not ported yet: the ``act_codes`` and ``bn_stats`` lowerings (every
-config runs the exact f32 composition; ROADMAP.md, Queue 1 item 5).
+config runs the exact f32 composition; ROADMAP.md, Queue 1 item 1).
 """
 
 from __future__ import annotations

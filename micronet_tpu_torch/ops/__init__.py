@@ -1,1 +1,12 @@
-"""Hand-written Hopper kernels and their plain PyTorch twins."""
+"""Hand-written Hopper kernels (``csrc/``) and their plain PyTorch twins.
+
+The JAX package's ops surface, with each XLA oracle ``*_xla`` under its
+twin's name ``*_ref``: ``int8_matmul_dequant_ref`` in place of
+``int8_matmul_dequant_xla``. Importing this package registers the K1/K2
+operators (``torch.ops.micronet_tpu_torch``)."""
+
+from .int_matmul import (binary_act_matmul, int8_linear, int8_matmul_dequant,
+                         int8_matmul_dequant_ref, quantize_int8)
+
+__all__ = ["binary_act_matmul", "int8_linear", "int8_matmul_dequant", "int8_matmul_dequant_ref",
+           "quantize_int8"]

@@ -26,6 +26,14 @@ quantize fused) and "gemm" (a codes pre-pass, a K-major weight pre-pass,
 then a wgmma GEMM). Integer sums are exact in any order, so both regimes
 and the twin agree bit for bit. Every pad (k past K, rows or columns past
 the matrix) holds code 0: padding x with zeros would binarize them to +1.
+
+Both wrappers call through registered PyTorch operators,
+``torch.ops.micronet_tpu_torch.int8_matmul_dequant`` and
+``...binary_act_matmul`` (each with a fake implementation that gives the
+(M, N) f32 output's shape), so that eager code, a captured CUDA graph and a
+``torch.export`` program reach the same kernel. A wrapper's ``launches``
+counts the operator's runs on a CUDA tensor (a Python call each): a CUDA
+graph's replay makes no Python call and counts nothing.
 """
 
 from __future__ import annotations
@@ -54,6 +62,9 @@ def quantize_int8(x: torch.Tensor, scale: Scalar, zero_point: Scalar, qmin: floa
 
 
 def _scalar(v: Scalar, device: torch.device) -> torch.Tensor:
+    if isinstance(v, torch.Tensor) and v.dim() == 0 and v.dtype == torch.float32 and (
+            v.device == device):
+        return v
     return torch.as_tensor(v, dtype=torch.float32, device=device).reshape(())
 
 
@@ -218,24 +229,69 @@ def _card_call(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor, quant)
     return call(x, w_q, w_scale, quant, lib)
 
 
+def _k1_op(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor, x_scale: torch.Tensor,
+           x_zero_point: torch.Tensor, qmin: float, qmax: float) -> torch.Tensor:
+    """The operator's implementation: the kernel on a CUDA tensor (counted
+    on :func:`int8_matmul_dequant`), the twin on a CPU tensor."""
+    if not on_cuda(x):
+        return int8_matmul_dequant_ref(x, w_q, w_scale, x_scale, x_zero_point, qmin, qmax)
+    out = _card_call(x, w_q, w_scale, (x_scale, x_zero_point, qmin, qmax))
+    int8_matmul_dequant.launches += 1
+    return out
+
+
+def _k2_op(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor) -> torch.Tensor:
+    """The operator's implementation: the kernel on a CUDA tensor (counted
+    on :func:`binary_act_matmul`), the twin on a CPU tensor."""
+    if not on_cuda(x):
+        return binary_act_matmul_ref(x, w_q, w_scale)
+    out = _card_call(x, w_q, w_scale, None)
+    binary_act_matmul.launches += 1
+    return out
+
+
+def _out_like(x: torch.Tensor, w_q: torch.Tensor, *_) -> torch.Tensor:
+    """Both operators' fake implementation: the (M, N) f32 output."""
+    return x.new_empty((x.shape[0], w_q.shape[1]), dtype=torch.float32)
+
+
+# torch.ops.micronet_tpu_torch: one implementation for every device (the
+# kernel or the twin, by the tensor's device) and a fake one for tracing.
+# A plain library definition: torch.library.custom_op checks its inputs'
+# aliasing on every call, 0.014 to 0.031 ms more host time a call than the
+# launch alone on an H100 (chip_smoke.py phase 19), against the kernel's
+# 0.007 ms of device time
+_LIB = torch.library.Library("micronet_tpu_torch", "DEF")
+_LIB.define("int8_matmul_dequant(Tensor x, Tensor w_q, Tensor w_scale, Tensor x_scale, "
+            "Tensor x_zero_point, float qmin, float qmax) -> Tensor")
+_LIB.define("binary_act_matmul(Tensor x, Tensor w_q, Tensor w_scale) -> Tensor")
+_LIB.impl("int8_matmul_dequant", _k1_op, "CompositeExplicitAutograd")
+_LIB.impl("binary_act_matmul", _k2_op, "CompositeExplicitAutograd")
+torch.library.register_fake("micronet_tpu_torch::int8_matmul_dequant", _out_like, lib=_LIB)
+torch.library.register_fake("micronet_tpu_torch::binary_act_matmul", _out_like, lib=_LIB)
+_K1_OP = torch.ops.micronet_tpu_torch.int8_matmul_dequant.default
+_K2_OP = torch.ops.micronet_tpu_torch.binary_act_matmul.default
+
+
+def _check_inner(x: torch.Tensor, w_q: torch.Tensor) -> None:
+    if x.dim() != 2 or w_q.dim() != 2 or x.shape[1] != w_q.shape[0]:
+        raise ValueError(f"shapes x {tuple(x.shape)}, w_q {tuple(w_q.shape)}")
+
+
 def int8_matmul_dequant(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
                         x_scale: Scalar, x_zero_point: Scalar, qmin: float = -128.0,
                         qmax: float = 127.0) -> torch.Tensor:
     """x (M, K) f32, w_q (K, N) int8, w_scale (N,) or scalar, per-tensor
-    activation scale and zero point -> (M, N) f32. On a CUDA tensor this
-    launches the kernel of the regime :func:`_k1_regime` picks or raises;
-    on a CPU tensor it runs the twin :func:`int8_matmul_dequant_ref`."""
-    m, k = x.shape
-    k2, n = w_q.shape
-    if k != k2:
-        raise ValueError(f"shapes x {tuple(x.shape)}, w_q {tuple(w_q.shape)}")
-    if not on_cuda(x):
-        return int8_matmul_dequant_ref(x, w_q, w_scale, x_scale, x_zero_point, qmin, qmax)
-    quant = (_scalar(x_scale, x.device), _scalar(x_zero_point, x.device), float(qmin),
-             float(qmax))
-    out = _card_call(x, w_q, w_scale, quant)
-    int8_matmul_dequant.launches += 1
-    return out
+    activation scale and zero point -> (M, N) f32, through the operator
+    ``torch.ops.micronet_tpu_torch.int8_matmul_dequant``. On a CUDA tensor
+    this launches the kernel of the regime :func:`_k1_regime` picks or
+    raises; on a CPU tensor it runs the twin
+    :func:`int8_matmul_dequant_ref`. Give the scale and zero point as 0-dim
+    tensors on the card (as the engine does) where the call is captured in
+    a CUDA graph: a Python number is copied from the host."""
+    _check_inner(x, w_q)
+    return _K1_OP(x, w_q, w_scale, _scalar(x_scale, x.device), _scalar(x_zero_point, x.device),
+                  float(qmin), float(qmax))
 
 
 int8_matmul_dequant.launches = 0
@@ -268,18 +324,12 @@ def binary_act_matmul_ref(x: torch.Tensor, w_q: torch.Tensor,
 def binary_act_matmul(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor) -> torch.Tensor:
     """x (M, K) f32 (pre-activation values; the sign is taken inside),
     w_q (K, N) int8 in {-1, 0, +1}, w_scale (N,) or scalar alpha ->
-    (M, N) f32. On a CUDA tensor this launches the kernel of the regime
-    :func:`_k1_regime` picks or raises; on a CPU tensor it runs the twin
-    :func:`binary_act_matmul_ref`."""
-    m, k = x.shape
-    k2, n = w_q.shape
-    if k != k2:
-        raise ValueError(f"shapes x {tuple(x.shape)}, w_q {tuple(w_q.shape)}")
-    if not on_cuda(x):
-        return binary_act_matmul_ref(x, w_q, w_scale)
-    out = _card_call(x, w_q, w_scale, None)
-    binary_act_matmul.launches += 1
-    return out
+    (M, N) f32, through the operator
+    ``torch.ops.micronet_tpu_torch.binary_act_matmul``. On a CUDA tensor
+    this launches the kernel of the regime :func:`_k1_regime` picks or
+    raises; on a CPU tensor it runs the twin :func:`binary_act_matmul_ref`."""
+    _check_inner(x, w_q)
+    return _K2_OP(x, w_q, w_scale)
 
 
 binary_act_matmul.launches = 0

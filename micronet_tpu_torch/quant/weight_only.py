@@ -33,8 +33,8 @@ from ..ops.int4_matmul import (
     wo_linear_grouped_hl8,
 )
 
-__all__ = ["WOTensor", "WOLinear", "wo_quantize_linear", "quantize_pytree", "dequantize_leaf",
-           "pytree_bytes"]
+__all__ = ["WOTensor", "quantize_int8_weight", "quantize_int8_weight_grouped", "WOLinear",
+           "wo_quantize_linear", "quantize_pytree", "dequantize_leaf", "pytree_bytes"]
 
 
 @dataclasses.dataclass
@@ -76,16 +76,26 @@ class WOTensor:
         return x @ self.dequantize()  # odd K or a group not dividing K/2
 
 
+def quantize_int8_weight(w: torch.Tensor, axis: int = 0):
+    """Symmetric per-column int8 (shared RTN core, qmax=127)."""
+    return symmetric_rtn(w, 127.0, axis)
+
+
+def quantize_int8_weight_grouped(w: torch.Tensor, group: int):
+    """Symmetric group-wise int8 (shared RTN core, qmax=127)."""
+    return symmetric_rtn_grouped(w, 127.0, group)
+
+
 def _quantize_2d(w: torch.Tensor, group: int = 0, bits: int = 4) -> WOTensor:
     if bits not in (4, 8):
         raise ValueError(f"bits must be 4 or 8, got {bits}")
     k = w.shape[0]
     if bits == 8:
         if group and k % group == 0:
-            w_q, scale = symmetric_rtn_grouped(w, 127.0, group)
+            w_q, scale = quantize_int8_weight_grouped(w, group)
         else:
             group = 0
-            w_q, scale = symmetric_rtn(w, 127.0, axis=0)
+            w_q, scale = quantize_int8_weight(w, axis=0)
         return WOTensor(packed=w_q, scale=scale, k=k, group=group, bits=8)
     if group and k % group == 0:
         w_q, scale = quantize_int4_weight_grouped(w, group)

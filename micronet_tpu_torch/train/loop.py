@@ -147,10 +147,10 @@ class Trainer:
         if mesh is not None:
             raise NotImplementedError(
                 "data-parallel training (mesh=) is not ported yet (ROADMAP.md, Queue 1 "
-                "item 6: parallelism)")
+                "item 4: parallelism)")
         if cfg.remat:
             raise NotImplementedError(
-                "remat is not ported (ROADMAP.md, Queue 1 item 8: remat): a recomputed "
+                "remat is not ported (ROADMAP.md, Queue 1 item 2: remat): a recomputed "
                 "forward would update every observer and BN statistic twice")
         self.device = resolve_device(device)
         self.model = model.to(self.device)

@@ -178,8 +178,8 @@ def test_default_device_is_cuda_and_deploy_raises(capsys, monkeypatch):
         cli.main(["train", "--cfg", GC, "--epochs", "1"])
     with pytest.raises(RuntimeError, match="CUDA"):
         micronet_tpu_torch.quant_test_manual()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli.main(["deploy", "--device", "cpu"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main(["deploy", "--cfg", GC])
 
 
 def test_module_entry_point():

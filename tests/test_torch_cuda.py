@@ -1055,3 +1055,82 @@ def test_tiny_decoder_serves_on_card_as_on_cpu(cuda, form):
                                                     r.max_new_tokens).tolist()
     res = cs.decoder_card_vs_cpu(model, experts, top_k, label)
     assert res["card_vs_cpu_positions"] > len(cs.DECODER_PROMPT)
+
+
+def test_registered_operators_equal_the_wrappers(cuda):
+    """K1 and K2 called through their registered operators
+    (``torch.ops.micronet_tpu_torch``) equal the public wrappers bit for
+    bit, and each operator call counts one launch."""
+    ops = torch.ops.micronet_tpu_torch
+    for m, k, n in [(512, 512, 10), (1024, 1024, 1024)]:
+        x, w_q, w_scale, s, z = _k1_inputs(m, k, n, 0.05, 1.0, seed=5)
+        before = ti8.int8_matmul_dequant.launches
+        got = ops.int8_matmul_dequant(x, w_q, w_scale, s, z, -128.0, 127.0)
+        torch.cuda.synchronize()
+        assert ti8.int8_matmul_dequant.launches == before + 1
+        assert torch.equal(got, ti8.int8_matmul_dequant(x, w_q, w_scale, s, z))
+        w3 = w_q.clamp(-1, 1)
+        before = ti8.binary_act_matmul.launches
+        got = ops.binary_act_matmul(x, w3, w_scale)
+        torch.cuda.synchronize()
+        assert ti8.binary_act_matmul.launches == before + 1
+        assert torch.equal(got, ti8.binary_act_matmul(x, w3, w_scale))
+
+
+def test_captured_k1_replays_equal_eager(cuda):
+    """K1 captured in a CUDA graph (both regimes): the capture counts one
+    launch, a replay counts none, and each replay on new inputs equals
+    the eager call bit for bit."""
+    for m, k, n in [(512, 512, 10), (1024, 1024, 1024)]:
+        x, w_q, w_scale, s, z = _k1_inputs(m, k, n, 0.05, 0.0, seed=6)
+        static = x.clone()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            ti8.int8_matmul_dequant(static, w_q, w_scale, s, z)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        before = ti8.int8_matmul_dequant.launches
+        with torch.cuda.graph(graph):
+            out = ti8.int8_matmul_dequant(static, w_q, w_scale, s, z)
+        assert ti8.int8_matmul_dequant.launches == before + 1
+        for seed in (7, 8):
+            x2 = _k1_inputs(m, k, n, 0.05, 0.0, seed=seed)[0]
+            static.copy_(x2)
+            graph.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(out, ti8.int8_matmul_dequant(x2, w_q, w_scale, s, z))
+        assert ti8.int8_matmul_dequant.launches == before + 3
+
+
+def test_compiled_engine_calls_do_not_alias(cuda):
+    """Two calls of a ``CompiledEngine`` bucket in a row return separate
+    tensors (a replay overwrites the bucket's static output): the first
+    result keeps the eager engine's bits after the second call; padded and
+    chunked requests equal the eager engine too."""
+    from micronet_tpu_torch.infer import build_engine, freeze_int, fuse_bn_iao
+    from micronet_tpu_torch.models.resnet import BasicBlock, ResNet
+    from micronet_tpu_torch.nn import eval_mode, prepare, train_mode
+    from micronet_tpu_torch.quant.config import QuantConfig
+
+    gen = _gen(12)
+    cfg = QuantConfig(a_bits=8, w_bits=8, bn_fuse=True)
+    q = train_mode(prepare(ResNet(BasicBlock, [1, 1, 1, 1], device=cuda, generator=gen), cfg,
+                           device=cuda))
+    with torch.no_grad():
+        for _ in range(3):
+            q(torch.randn((16, 32, 32, 3), device=cuda, generator=gen))
+    fused = eval_mode(fuse_bn_iao(eval_mode(q), cfg, device=cuda))
+    x1, x2 = (torch.randn((8, 32, 32, 3), device=cuda, generator=gen) for _ in range(2))
+    eng = eval_mode(freeze_int(fused, example_input=x1[:1], device=cuda))
+    compiled = build_engine(eng, profile=(1, 4, 8), device=cuda)
+    with torch.no_grad():
+        ref1, ref2 = eng(x1), eng(x2)
+    y1 = compiled(x1)
+    y2 = compiled(x2)
+    assert y1.data_ptr() != y2.data_ptr()
+    assert torch.equal(y1, ref1) and torch.equal(y2, ref2)
+    x20 = torch.randn((20, 32, 32, 3), device=cuda, generator=gen)
+    with torch.no_grad():
+        for n in (3, 20):
+            assert torch.equal(compiled(x20[:n]), eng(x20[:n]))

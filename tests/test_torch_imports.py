@@ -12,7 +12,8 @@ import torch
 
 import micronet_tpu_torch
 from micronet_tpu_torch.models import nin, nin_gc
-from micronet_tpu_torch.infer import freeze_wbwtab, fuse_bn_wbwtab
+from micronet_tpu_torch.infer import (build_engine, freeze_wbwtab, fuse_bn_wbwtab,
+                                      serialize_engine)
 from micronet_tpu_torch.models.llama import Llama, llama_tiny
 from micronet_tpu_torch.nn import prepare
 from micronet_tpu_torch.quant.config import QuantConfig
@@ -41,7 +42,7 @@ def test_port_and_chip_smoke_import_no_jax():
               "prune", "prune.slimming", "utils", "utils.metrics", "train", "train.data",
               "train.native_loader", "train.checkpoint", "train.loop", "train.optim",
               "infer.evaluate", "infer.dump", "models.tiny_decoder", "parallel",
-              "parallel.moe"):
+              "parallel.moe", "infer.deploy", "infer.bf16", "utils.profiling"):
         assert f"micronet_tpu_torch.{m}" in mods
     code = "\n".join(
         ["import sys", "preloaded = set(sys.modules)"]
@@ -65,7 +66,8 @@ def test_port_and_chip_smoke_import_no_jax():
                                    "paged_kv", "resnet18", "nin_gc", "nin", "prepare_wbwtab",
                                    "fuse_bn_wbwtab", "freeze_wbwtab", "lenet", "prepare_dorefa",
                                    "trainer", "cli", "quant_test_auto", "tiny_decoder",
-                                   "init_moe", "tiny_decoder_serve_loop"])
+                                   "init_moe", "tiny_decoder_serve_loop", "build_engine",
+                                   "serialize_engine"])
 def test_entry_points_default_to_cuda_and_raise_without_card(monkeypatch, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cpu_model = Llama(llama_tiny(8), device="cpu")
@@ -93,6 +95,8 @@ def test_entry_points_default_to_cuda_and_raise_without_card(monkeypatch, entry)
         "tiny_decoder": lambda: TinyDecoder(moe_experts=4),
         "init_moe": lambda: init_moe(16, 32, 4),
         "tiny_decoder_serve_loop": lambda: ServeLoop(cpu_decoder, 2),
+        "build_engine": lambda: build_engine(cpu_nin),
+        "serialize_engine": lambda: serialize_engine(cpu_nin, batch=2),
     }
     with pytest.raises(RuntimeError, match="CUDA"):
         calls[entry]()
