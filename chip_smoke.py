@@ -45,7 +45,9 @@ Phases, each fatal on failure (non-zero exit, no final line):
 8. conv routes: every IntConv2d route at ResNet-18's and NIN-GC's layer
    shapes; the int32 accumulators equal an f64 conv of the same codes;
 9. engine (slice 2's main path): ``resnet18()`` with seeded random
-   weights, ``prepare`` W8A8 with fused BN, 4 calibration forwards at
+   weights, ``prepare`` W8A8 with fused BN (``EXACT``, as in phases 16,
+   17 and 19: the fake-quant models these hold the engines against run
+   the exact path), 4 calibration forwards at
    batch 64, ``fuse_bn_iao``, ``freeze_int``, engine forwards at batch
    512; K1 must launch once per forward (counts zeroed just before, read
    just after); the same engine on the CPU must agree on 8 images;
@@ -96,14 +98,18 @@ Phases, each fatal on failure (non-zero exit, no final line):
 14. training (slice 5's main path) through ``micronet_tpu_torch.cli``:
    ``train`` on ``nin_gc.Net()`` at full width, batch 256, 2 epochs of 8
    steps on the synthetic set, for ``float``, ``iao --bn_fuse``,
-   ``dorefa`` and ``wbwtab --W 3 --A 2`` (no hand-written kernel: every
-   count 0; each method's last loss below its first; img/s with the run's
-   first step left out, step times, peak memory, losses and test accuracy
-   on a line of their own), ``model-test`` on the IAO checkpoint
-   (EQUIVALENCE OK), each method's ``train`` again with the same seed
-   (the same checkpoint, array for array: the trainer's steps run cuDNN's
-   deterministic algorithms), then each method's step at batch 8 on the
-   card against the CPU, block by block from the CPU's inputs (TF32 off);
+   ``dorefa`` and ``wbwtab --W 3 --A 2``, IAO and DoReFa through the
+   default ``"auto"`` training lowerings (bf16 code operands; IAO's batch
+   statistics from the quantized conv's accumulator) (no hand-written
+   kernel: every count 0; each method's last loss below its first; img/s
+   with the run's first step left out, step times, peak memory, losses and
+   test accuracy on a line of their own), ``model-test`` on the IAO
+   checkpoint (EQUIVALENCE OK, both models lowered), each method's
+   ``train`` again with the same seed (the same checkpoint, array for
+   array: the trainer's steps run cuDNN's deterministic algorithms), then
+   each method's step at batch 8 on the card against the CPU, block by
+   block from the CPU's inputs (TF32 off), on the exact path
+   (``EXACT``: the lowerings pinned off on both sides);
 15. ``cli train --ptq --ptq_observer kl --calib_cache`` on full-width
    ResNet-18, ``cli freeze-int``, the engine at batch 512 (K1 once per
    forward, the card against the CPU on 8 images); then NIN's ``train -sr``
@@ -163,7 +169,20 @@ Phases, each fatal on failure (non-zero exit, no final line):
    at phase 7's fc call through the operator, without it, and replayed.
    It runs after phase 12's device readings and before ``--profile``'s
    deferred traces (after those, its replay traces lost kernels);
-20. the kernels line (JSON), then the final line
+20. the training lowerings (slice 9's main path is phase 14's ``"auto"``):
+   each quantized layer of full-width NIN-GC (IAO ``--bn_fuse`` and
+   DoReFa) lowered against the same layer on the exact path on the card
+   (median relative deviation < 0.02, BN running statistics within rtol
+   0.05, the JAX package's bounds); by ``torch.profiler``, one bf16
+   forward convolution a ``QuantBNFuseConv2d`` in a lowered training step
+   against two f32 ones on the exact path; phase 14's IAO and DoReFa
+   ``cli train`` again with the config pinned to the exact path, each
+   step's loss within rtol 0.05 and atol 0.01 of the lowered run's, img/s,
+   step times and peak memory of both side by side; two ``remat=True``
+   steps equal to two plain ones in every parameter, gradient and buffer
+   (their ms and peak memory); ``graft_entry.entry()``'s forward twice on
+   the card (the same bits) and against the CPU's exact path;
+21. the kernels line (JSON), then the final line
    ``{"ok": true, "device": {...}}``.
 
 Details of every measurement go to ``<out>/chip_smoke.json`` (``--out``,
@@ -265,6 +284,12 @@ F32_ROUTE_RTOL = 1e-5
 # NIN-GC W4A4 at batch 1024; calibration of 4 forwards at batch 64
 RESNET_BATCH, NIN_BATCH = 512, 1024
 CALIB_STEPS, CALIB_BATCH, ENGINE_ITERS, CPU_BATCH = 4, 64, 10, 8
+# the exact f32 path on the card: the engine phases (9, 16, 17, 19) hold a
+# fake-quant or fused model against the integer engine or the CPU, and
+# phase 14's card-vs-CPU step holds the exact step, so each pins the
+# training lowerings off, as the JAX package does for its own engine
+# checks (benchmarks/acc_table.py:206-218); "auto" would run bf16 codes
+EXACT = dict(act_codes="off", bn_stats="off")
 # Card vs CPU engine logits, relative to max(1, max|logit|): the integer
 # convolutions are exact on both; the first layer's f32 sums run in
 # another order, so a chained code there may move one step at a .5
@@ -1249,7 +1274,7 @@ def resnet_engine(dev, seed, report, profile_dir=None, later=None, keep=None):
     from micronet_tpu_torch.quant.config import QuantConfig
 
     launches, forwards = engine_path("resnet18_w8a8", resnet18,
-                                     QuantConfig(a_bits=8, w_bits=8, bn_fuse=True),
+                                     QuantConfig(a_bits=8, w_bits=8, bn_fuse=True, **EXACT),
                                      RESNET_BATCH, dev, seed, report, profile_dir, later,
                                      keep=keep)
     want = {k.__name__: 0 for k in _all_kernels()}
@@ -1264,7 +1289,7 @@ def nin_engine(dev, seed, report, profile_dir=None, later=None, keep=None):
     from micronet_tpu_torch.quant.config import QuantConfig
 
     # NIN-GC's classifier is a 1x1 conv: this path runs no hand-written kernel
-    engine_path("nin_gc_w4a4", Net, QuantConfig(a_bits=4, w_bits=4, bn_fuse=True),
+    engine_path("nin_gc_w4a4", Net, QuantConfig(a_bits=4, w_bits=4, bn_fuse=True, **EXACT),
                 NIN_BATCH, dev, seed, report, profile_dir, later, keep=keep)
 
 
@@ -1900,7 +1925,7 @@ def step_card_vs_cpu(method_flags, batch, dev, seed, cfg_widths=None):
                   A=int(method_flags[method_flags.index("--A") + 1]))
     cpu = Net(cfg=cfg_widths, device="cpu", generator=torch.Generator().manual_seed(seed))
     if method != "float":
-        cpu = prepare(cpu, QuantConfig(**kw), method=method, device="cpu")
+        cpu = prepare(cpu, QuantConfig(**kw, **EXACT), method=method, device="cpu")
     cpu = train_mode(cpu)
     card = copy.deepcopy(cpu).to(dev)
     ds = data_lib._synthetic(batch, 1)
@@ -2018,7 +2043,7 @@ def _train_numbers(metrics: Path, batch: int):
     evals = [r for r in rows if r["event"] == "eval"]
     ms = [t for r in epochs for t in r["step_ms"]][1:]
     losses = [v for r in epochs for v in r["step_loss"]]
-    return dict(steps=len(losses), step_ms_median=float(np.median(ms)),
+    return dict(steps=len(losses), losses=losses, step_ms_median=float(np.median(ms)),
                 step_ms_max=float(np.max(ms)), img_s=batch * len(ms) / sum(ms) * 1e3,
                 first_loss=losses[0], last_loss=losses[-1],
                 test_acc_last=evals[-1]["acc"], test_acc_best=evals[-1]["best_acc"],
@@ -2394,7 +2419,7 @@ def asym_nin_gc(dev, seed, out_dir: Path, card: str, report, profile_dir=None):
                        "--seed", seed, "--save", ck, "--metrics", metrics], f"train {name}")
     _, freeze_s = _cli(["freeze-int", "--device", str(dev), *model, *ASYM_FLAGS, "--model", ck,
                         "--save", eng_ck], f"freeze-int {name}")
-    cfg = QuantConfig(bn_fuse=True, **ASYM_CFG)
+    cfg = QuantConfig(bn_fuse=True, **ASYM_CFG, **EXACT)
     q = prepare(Net(device=dev, generator=torch.Generator(device=dev).manual_seed(0)), cfg,
                 inplace=True, device=dev)
     load_state(ck, q)
@@ -2460,7 +2485,7 @@ def asym_resnet18(dev, seed, card, report, profile_dir=None):
     from micronet_tpu_torch.quant.config import QuantConfig
 
     name = "resnet18_asym_w4a4_fl8"
-    launches, _ = engine_path(name, resnet18, QuantConfig(bn_fuse=True, **ASYM_CFG),
+    launches, _ = engine_path(name, resnet18, QuantConfig(bn_fuse=True, **ASYM_CFG, **EXACT),
                               RESNET_BATCH, dev, seed, report, profile_dir, exact=True)
     if any(launches.values()):
         fail(f"{name}: launch counts {launches}, expected none (the asymmetric fc runs "
@@ -2564,7 +2589,7 @@ def upcat_engines(dev, seed, report, profile_dir=None):
     for net, (cls, cin) in _upcat_nets(dev, gen).items():
         for q_type in (0, 1):
             name = f"{net}_q{q_type}"
-            cfg = QuantConfig(a_bits=8, w_bits=8, q_type=q_type)
+            cfg = QuantConfig(a_bits=8, w_bits=8, q_type=q_type, **EXACT)
             q = train_mode(prepare(cls(), cfg, device=dev))
             for _ in range(CALIB_STEPS):
                 q(torch.randn((CALIB_BATCH, UPCAT_SIZE, UPCAT_SIZE, cin), device=dev,
@@ -3272,7 +3297,7 @@ def deploy_cli(dev, seed, out_dir: Path, card, report):
                       "train resnet18 for deploy")
     text, deploy_s = _cli(["deploy", "--device", str(dev), *model, "--model", ck, "--save", art,
                            "--batch", DEPLOY_CLI_BATCH], "deploy resnet18")
-    cfg = QuantConfig(bn_fuse=True)
+    cfg = QuantConfig(bn_fuse=True, **EXACT)
     q = prepare(resnet18(device=dev, generator=torch.Generator(device=dev).manual_seed(0)),
                 cfg, inplace=True, device=dev)
     load_state(ck, q)
@@ -3363,6 +3388,305 @@ def deploy(engines, dev, seed, out_dir: Path, card, report, profile_dir=None):
     return report["resnet18_w8a8_deploy"]["launches"]["int8_matmul_dequant"]
 
 
+# ---------------------------------------------------------------- phase 20
+
+
+# The lowered path against the exact one on the card, at the JAX package's
+# own bounds for its lowerings (tests/test_bn_stats_bf16.py:161-237): a
+# layer's output within a median relative deviation of 0.02 (over
+# |exact| + 0.01), its BN running statistics within rtol 0.05 and atol
+# 0.05, and a run's losses within rtol 0.05 and atol 0.01 step by step.
+LOWERED_MEDIAN_REL, LOWERED_STAT_TOL, LOSS_RTOL, LOSS_ATOL = 0.02, 0.05, 0.05, 0.01
+LOWERED_METHODS = {"iao": dict(bn_fuse=True), "dorefa": {}}
+# the entry's forward on the card (bf16 codes) against the CPU (exact f32),
+# relative to max(1, max|logit|): bf16 operands round a weight to 8
+# significant bits, and an activation code may move at a .5 edge
+ENTRY_RTOL = 5e-2
+REMAT_STEPS = 2  # the first seeds the BN statistics, the second runs the EMA
+REMAT_TIMED = 8  # steps timed back to back after those
+
+
+def _pin_exact(model):
+    """Every quantized layer of ``model`` on the exact path: each resolves
+    its lowerings from its ``cfg`` at call time."""
+    import dataclasses
+
+    from micronet_tpu_torch.quant.config import QuantConfig
+
+    for m in model.modules():
+        if isinstance(getattr(m, "cfg", None), QuantConfig):
+            m.cfg = dataclasses.replace(m.cfg, **EXACT)
+    return model
+
+
+def _nin_gc_train_model(dev, seed, method, exact=False):
+    """Full-width NIN-GC prepared for ``method`` in training mode, its
+    weights from a CPU generator (the same on every device)."""
+    from micronet_tpu_torch.models.nin_gc import Net
+    from micronet_tpu_torch.nn import prepare, train_mode
+    from micronet_tpu_torch.quant.config import QuantConfig
+
+    cfg = QuantConfig(**LOWERED_METHODS[method], **(EXACT if exact else {}))
+    model = prepare(Net(device="cpu", generator=torch.Generator().manual_seed(seed)), cfg,
+                    method=method, device="cpu")
+    return train_mode(model).to(dev)
+
+
+def lowered_layers_vs_exact(dev, seed, report):
+    """Each quantized layer of full-width NIN-GC (IAO ``--bn_fuse`` and
+    DoReFa, W8A8) under ``"auto"`` on the card against the same layer on
+    the exact path: one training forward of each from the same state and
+    the exact model's input to that layer at batch 256."""
+    import copy
+
+    from micronet_tpu_torch.nn import qat_dorefa, qat_iao
+
+    types = (qat_iao.QuantBNFuseConv2d, qat_iao.QuantConv2d, qat_dorefa.QuantConv2d)
+    x = torch.randn((TRAIN_BATCH, 32, 32, 3), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(seed + 30))
+    res = {}
+    for method in LOWERED_METHODS:
+        low = _nin_gc_train_model(dev, seed, method)
+        exact = _pin_exact(copy.deepcopy(low))
+        ex = dict(exact.named_modules())
+        layers = [(n, m) for n, m in low.named_modules() if isinstance(m, types)]
+        seen, handles = {}, []
+        for n, _ in layers:
+            handles.append(ex[n].register_forward_hook(
+                lambda mod, inp, out, n=n: seen.__setitem__(n, (inp[0], out))))
+        with torch.no_grad():
+            exact(x)
+            for h in handles:
+                h.remove()
+            rows = []
+            for n, m in layers:
+                xin, ref = seen[n]
+                y = m(xin)
+                rel = ((y - ref).abs() / (ref.abs() + 1e-2)).median().item()
+                row = dict(layer=n, type=type(m).__name__, median_rel=rel,
+                           max_abs=(y - ref).abs().max().item(),
+                           exact_max_abs=ref.abs().max().item())
+                if not rel < LOWERED_MEDIAN_REL:
+                    fail(f"{method} {n}: lowered vs exact median relative deviation {rel:.3e}")
+                if isinstance(m, qat_iao.QuantBNFuseConv2d):
+                    for stat in ("running_mean", "running_var"):
+                        a, b = getattr(m, stat), getattr(ex[n], stat)
+                        if not torch.allclose(a, b, rtol=LOWERED_STAT_TOL, atol=LOWERED_STAT_TOL):
+                            fail(f"{method} {n}: lowered {stat} differs from the exact path's "
+                                 f"by {(a - b).abs().max().item():.3e}")
+                        row[f"{stat}_max_abs"] = (a - b).abs().max().item()
+                rows.append(row)
+        res[method] = rows
+        log(f"lowered vs exact, {method} NIN-GC at batch {TRAIN_BATCH}, {len(rows)} layers: "
+            f"median relative deviation up to {max(r['median_rel'] for r in rows):.3e}"
+            + (", running statistics up to "
+               f"{max(r.get('running_var_max_abs', 0.0) for r in rows):.3e} (var), "
+               f"{max(r.get('running_mean_max_abs', 0.0) for r in rows):.3e} (mean)"
+               if method == "iao" else ""))
+        del low, exact
+    report["lowered_layers_vs_exact"] = res
+    return res
+
+
+def _trainer(model, dev, remat=False):
+    from micronet_tpu_torch.train import TrainConfig, Trainer
+    from micronet_tpu_torch.train import data as data_lib
+
+    return Trainer(model, TrainConfig(batch_size=TRAIN_BATCH, log_every=0, remat=remat),
+                   dataset=data_lib.load_cifar10(), device=dev)
+
+
+def _batches(dev, seed, n):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return [(torch.randn((TRAIN_BATCH, 32, 32, 3), device=dev, generator=gen),
+             torch.randint(0, 10, (TRAIN_BATCH,), device=dev, generator=gen))
+            for _ in range(n)]
+
+
+def lowering_profile(dev, seed, report):
+    """By ``torch.profiler``: the forward convolutions of one full-width
+    NIN-GC IAO ``--bn_fuse`` training step (batch 256) under ``"auto"``
+    (one per ``QuantBNFuseConv2d``, bf16 operands) and on the exact path
+    (two per layer, f32), the step's second (the first chooses cuDNN's
+    algorithms)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from micronet_tpu_torch.nn import qat_iao
+
+    res = {}
+    for label, exact in (("lowered", False), ("exact", True)):
+        model = _nin_gc_train_model(dev, seed, "iao", exact)
+        n_layers = sum(isinstance(m, qat_iao.QuantBNFuseConv2d) for m in model.modules())
+        tr = _trainer(model, dev)
+        (x0, y0), (x1, y1) = _batches(dev, seed + 31, 2)
+        tr.train_step(x0, y0)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     record_shapes=True) as prof:
+            tr.train_step(x1, y1)
+            torch.cuda.synchronize()
+        convs = [e for e in prof.events() if e.name == "aten::conv2d"]
+        dtypes = sorted({str(d) for e in convs for d in (getattr(e, "input_dtypes", None)
+                                                          or [])[:2]})
+        kernels = [e.key for e in prof.key_averages()
+                   if e.self_device_time_total > 0 and e.self_cpu_time_total == 0]
+        bf16_kernels = sorted({k for k in kernels if "bf16" in k.lower()})
+        res[label] = dict(layers=n_layers, forward_convs=len(convs), operand_dtypes=dtypes,
+                          bf16_kernel_names=bf16_kernels[:8],
+                          n_bf16_kernel_names=len(bf16_kernels))
+        want = n_layers if label == "lowered" else 2 * n_layers
+        if len(convs) != want:
+            fail(f"profile {label}: {len(convs)} forward convolutions for {n_layers} "
+                 f"QuantBNFuseConv2d, expected {want}")
+        if label == "lowered" and (not bf16_kernels or (dtypes and dtypes != ["c10::BFloat16"])):
+            fail(f"profile lowered: operands {dtypes}, bf16 kernels {bf16_kernels}")
+        if label == "exact" and (bf16_kernels or (dtypes and dtypes != ["float"])):
+            fail(f"profile exact: operands {dtypes}, bf16 kernels {bf16_kernels}")
+        log(f"profile {label}: {len(convs)} forward convolutions in a training step for "
+            f"{n_layers} QuantBNFuseConv2d, operand dtypes {dtypes or 'not recorded'}, "
+            f"{len(bf16_kernels)} bf16 kernel names, e.g. {bf16_kernels[:2]}")
+        del tr, model
+    report["lowering_profile"] = res
+    return res
+
+
+def exact_runs_vs_lowered(dev, seed, out_dir: Path, card, report, train_res):
+    """Phase 14's ``cli train`` of IAO ``--bn_fuse`` and DoReFa again with
+    the same seed, the config pinned to the exact path: each step's loss
+    against phase 14's lowered run, and both runs' img/s, step times and
+    peak memory side by side."""
+    import dataclasses
+
+    from micronet_tpu_torch import cli
+
+    res = {}
+    quant_config = cli._quant_config
+    cli._quant_config = lambda args: dataclasses.replace(quant_config(args), **EXACT)
+    try:
+        for label, flags in TRAIN_METHODS:
+            if label not in LOWERED_METHODS:
+                continue
+            ck, metrics = (out_dir / f"nin_gc_{label}_exact{s}" for s in (".npz", ".jsonl"))
+            metrics.unlink(missing_ok=True)
+            torch.cuda.reset_peak_memory_stats()
+            _cli(["train", "--device", str(dev), *flags, "--epochs", TRAIN_EPOCHS,
+                  "--train_batch_size", TRAIN_BATCH, "--seed", seed, "--save", ck,
+                  "--metrics", metrics], f"train {label} exact")
+            ex = _train_numbers(metrics, TRAIN_BATCH)
+            ex["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            low = train_res[label]
+            lo, el = np.array(low["losses"]), np.array(ex["losses"])
+            if lo.shape != el.shape or not np.all(
+                    np.abs(lo - el) <= LOSS_ATOL + LOSS_RTOL * np.abs(el)):
+                fail(f"train {label}: lowered losses {lo.tolist()} vs exact {el.tolist()}")
+            keys = ("img_s", "step_ms_median", "step_ms_max", "peak_gb", "first_loss",
+                    "last_loss")
+            res[label] = dict(lowered={k: low[k] for k in keys}, exact={k: ex[k] for k in keys},
+                              img_s_lowered_vs_exact=low["img_s"] / ex["img_s"],
+                              loss_max_abs_diff=float(np.abs(lo - el).max()))
+            log(json.dumps({"phase": 20, "model": "nin_gc", "method": label, "card": card,
+                            "batch": TRAIN_BATCH, **res[label]}))
+    finally:
+        cli._quant_config = quant_config
+    report["exact_runs_vs_lowered"] = res
+    return res
+
+
+def remat_step(dev, seed, report):
+    """``remat=True`` against a plain step on full-width NIN-GC IAO
+    ``--bn_fuse`` at batch 256 (``"auto"``: the lowerings): two steps each
+    from the same weights on the same batches, every parameter, gradient
+    and buffer equal bit for bit; then ``REMAT_TIMED`` more steps of each
+    back to back (CUDA events: one step's launches overlap the last one's
+    kernels, as in a run) with their peak memory."""
+    models = [_nin_gc_train_model(dev, seed, "iao") for _ in range(2)]
+    trainers = dict(zip(("plain", "remat"),
+                        (_trainer(m, dev, remat=r) for m, r in zip(models, (False, True)))))
+    for step, (x, y) in enumerate(_batches(dev, seed + 32, REMAT_STEPS)):
+        for tr in trainers.values():
+            tr.train_step(x, y)
+        pairs = list(zip(models[1].named_parameters(), models[0].parameters()))
+        for (name, a), b in pairs:
+            if not (torch.equal(a, b) and torch.equal(a.grad, b.grad)):
+                fail(f"remat step {step}: {name} or its gradient differs from the plain step")
+        for (name, a), b in zip(models[1].named_buffers(), models[0].buffers()):
+            if not torch.equal(a, b):
+                fail(f"remat step {step}: buffer {name} differs from the plain step")
+    res = dict(equal_arrays=2 * len(pairs) + len(list(models[0].buffers())))
+    batches = _batches(dev, seed + 33, REMAT_TIMED)
+    for label, tr in trainers.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for x, y in batches:
+            tr.train_step(x, y)
+        end.record()
+        torch.cuda.synchronize()
+        res[label] = dict(step_ms=start.elapsed_time(end) / REMAT_TIMED,
+                          peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    report["remat"] = res
+    log(f"remat: {REMAT_STEPS} steps of full-width NIN-GC IAO --bn_fuse at batch {TRAIN_BATCH} "
+        f"equal the plain steps in {res['equal_arrays']} parameters, gradients and buffers; "
+        f"{REMAT_TIMED} steps back to back: {res['remat']['step_ms']:.2f} ms a step, peak "
+        f"{res['remat']['peak_gb']:.2f} GB (plain {res['plain']['step_ms']:.2f} ms, "
+        f"{res['plain']['peak_gb']:.2f} GB)")
+    return res
+
+
+def graft_entry_check(dev, seed, report):
+    """``graft_entry.entry()``'s forward on the card twice (the same bits),
+    against the same weights on the CPU (the exact path) within
+    ``ENTRY_RTOL``; then the same after two training forwards on the card
+    calibrate its observers and BN statistics (the CPU copy takes the
+    card's state), on 8 random images."""
+    from micronet_tpu_torch.graft_entry import entry
+    from micronet_tpu_torch.nn import eval_mode, train_mode
+
+    fn, args = entry()
+    cpu_fn, cpu_args = entry("cpu")
+    res = {}
+    gen = torch.Generator(device=dev).manual_seed(seed + 33)
+    with torch.no_grad():
+        for label in ("initial", "calibrated"):
+            if label == "calibrated":
+                train_mode(fn)
+                for _ in range(2):
+                    fn(torch.randn((64, 32, 32, 3), device=dev, generator=gen) * 2)
+                eval_mode(fn)
+                cpu_fn.load_state_dict({k: v.cpu() for k, v in fn.state_dict().items()})
+                x = torch.randn((8, 32, 32, 3), device=dev, generator=gen) * 2
+                args, cpu_args = (x,), (x.cpu(),)
+            a, b = fn(*args), fn(*args)
+            ref = cpu_fn(*cpu_args)
+            if not torch.equal(a, b):
+                fail(f"graft entry ({label}): two forwards on the card differ")
+            diff = (a.cpu() - ref).abs().max().item()
+            tol = ENTRY_RTOL * max(1.0, ref.abs().max().item())
+            if tuple(a.shape) != (args[0].shape[0], 10) or not diff <= tol:
+                fail(f"graft entry ({label}): card vs CPU max|diff| {diff:.3e} (tol {tol:.3e})")
+            res[label] = dict(card_vs_cpu_max_abs=diff, tol=tol,
+                              argmax_agree=(a.cpu().argmax(-1) == ref.argmax(-1)).float()
+                              .mean().item())
+    report["graft_entry"] = res
+    cal = res["calibrated"]
+    log(f"graft entry: two forwards on the card equal; card (lowered) vs CPU (exact) max|diff| "
+        f"{res['initial']['card_vs_cpu_max_abs']:.3e} at the example input, "
+        f"{cal['card_vs_cpu_max_abs']:.3e} calibrated (tol {cal['tol']:.3e}, argmax "
+        f"agreement {cal['argmax_agree']:.3f})")
+    return res
+
+
+def training_lowerings(dev, seed, out_dir: Path, card, report, train_res):
+    """Phase 20: the training lowerings on the card (each check above)."""
+    lowered_layers_vs_exact(dev, seed, report)
+    lowering_profile(dev, seed, report)
+    exact_runs_vs_lowered(dev, seed, out_dir, card, report, train_res)
+    remat_step(dev, seed, report)
+    graft_entry_check(dev, seed, report)
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3443,13 +3767,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     launches.update({k: v for k, v in wbwtab_engine(dev, args.seed, report, profile_dir).items()
                      if k in WBWTAB_KERNELS})
-    train_nin_gc(dev, args.seed, out_dir, card, report)
+    train_res = train_nin_gc(dev, args.seed, out_dir, card, report)
     k1_phase15 = ptq_resnet18(dev, args.seed, out_dir, card, report)
     prune_nin(dev, args.seed, out_dir, card, report)
     asym_nin_gc(dev, args.seed, out_dir, card, report, profile_dir)
     asym_resnet18(dev, args.seed, card, report, profile_dir)
     upcat_engines(dev, args.seed, report, profile_dir)
     dec_launches = serve_decoder(dev, args.seed, card, report, profile_dir)
+    training_lowerings(dev, args.seed, out_dir, card, report, train_res)
 
     src = "micronet_tpu_torch/ops/csrc/"
     long_per = (f"one call, G={ATT_G} R={ATT_R} D={ATT_D} S={LONG_CTX}, bounds 0..{LONG_CTX}")

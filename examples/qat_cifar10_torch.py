@@ -7,7 +7,7 @@ The port's counterpart of ``examples/qat_cifar10.py``: IAO W8A8 QAT with
 in-training BN fusion on NIN-GC, best-accuracy checkpoints, paired
 train/inference equivalence, and the integer engine export. Runs on the
 card unless given ``--device cpu``. Data-parallel training (``--dp`` > 1)
-is not ported yet (ROADMAP.md, Queue 1 item 4: parallelism).
+is not ported yet (ROADMAP.md, Queue 1 item 1: parallelism).
 """
 
 import argparse
@@ -29,7 +29,7 @@ def main():
     args = ap.parse_args()
     if args.dp > 1:
         raise NotImplementedError(
-            "data-parallel training (--dp) is not ported yet (ROADMAP.md, Queue 1 item 4: "
+            "data-parallel training (--dp) is not ported yet (ROADMAP.md, Queue 1 item 1: "
             "parallelism)")
 
     from micronet_tpu_torch._device import resolve_device

@@ -22,7 +22,7 @@ utilities, ``deploy/tensorrt/util_trt.py``).
   name and compute capability, and refuses to load elsewhere, as a JAX
   artifact refuses another platform.
 
-Not ported yet (ROADMAP.md, Queue 1 item 4: parallelism): sharded serving
+Not ported yet (ROADMAP.md, Queue 1 item 1: parallelism): sharded serving
 (``mesh=``).
 """
 
@@ -112,7 +112,7 @@ class CompiledEngine:
     ):
         if mesh is not None:
             raise NotImplementedError(
-                "sharded serving (mesh=) is not ported yet (ROADMAP.md, Queue 1 item 4: "
+                "sharded serving (mesh=) is not ported yet (ROADMAP.md, Queue 1 item 1: "
                 "parallelism)")
         if not buckets:
             raise ValueError("need at least one batch bucket")

@@ -20,7 +20,7 @@ Serving API (the :class:`..serve.ServeLoop` contract): ``init_cache``,
 where the JAX package vmaps). There is no batched decode step and no
 paged cache, as in the JAX package.
 
-Not ported yet (ROADMAP.md, Queue 1 item 4: parallelism): serving MoE
+Not ported yet (ROADMAP.md, Queue 1 item 2: parallelism): serving MoE
 blocks expert-parallel (``MoEMLP.use_ep``) and the sequence-parallel
 prefill (``prefill_sp``).
 """
@@ -79,7 +79,7 @@ class MoEMLP(nn.Module):
 
     def use_ep(self, mesh, axis: str = "expert") -> None:
         raise NotImplementedError(
-            "expert-parallel MoE serving is not ported yet (ROADMAP.md, Queue 1 item 4: "
+            "expert-parallel MoE serving is not ported yet (ROADMAP.md, Queue 1 item 2: "
             "parallelism)")
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -24,8 +24,14 @@ leaves its qparams alone: they exist only once calibration resolves them.
 JAX package does. ``QuantAdd`` and ``QuantConcat`` share one (union)
 scale between their two inputs.
 
-Not ported yet: the ``act_codes`` and ``bn_stats`` lowerings (every
-config runs the exact f32 composition; ROADMAP.md, Queue 1 item 1).
+Training lowerings (``QuantConfig.act_codes`` and ``bn_stats``), resolved
+at call time from the device of the input, since a model is built on one
+device and may run on another: ``"auto"`` lowers a CUDA tensor and keeps
+the exact f32 composition on the CPU; ``"on"``/``"off"`` force a
+lowering, ``bn_stats="acc"`` the single-conv statistics. On the card the
+code-storage convs read bf16 codes (exact up to 8 bits) and keep a bf16
+output, as the JAX package's ``preferred_element_type=None`` does. A
+lowering that cannot run raises; nothing falls back to the exact path.
 """
 
 from __future__ import annotations
@@ -40,7 +46,8 @@ from .._device import resolve_device
 from ..quant.config import QuantConfig
 from ..quant.observers import (EntropyState, HistogramState, MinMaxState, ema_minmax_update,
                                entropy_update, histogram_update, minmax_update)
-from ..quant.quantizers import asymmetric_qparams, fake_quant, quant_range, symmetric_qparams
+from ..quant.quantizers import (asymmetric_qparams, fake_quant, fake_quant_codes, quant_range,
+                                symmetric_qparams)
 from . import functional as F
 from .functional import IntPair, _pair
 from .modules import Conv2d, ConvTranspose2d, Device, Linear, nchw_axis
@@ -144,9 +151,9 @@ class FakeQuantizer(nn.Module):
         qparams = symmetric_qparams if self.symmetric else asymmetric_qparams
         self.scale, self.zero_point = qparams(self.min_val, self.max_val, self.qmin, self.qmax)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.bits == 32:
-            return x
+    def _check_bits_and_update(self, x: torch.Tensor) -> bool:
+        """Raise on 1 bit; in training mode (and not ``qaft``) update the
+        observer and the qparams. Returns whether the quantizer streams."""
         if self.bits == 1:
             raise ValueError("1-bit is not supported by the IAO path; use wbwtab")
         streaming = self.training and not self.qaft
@@ -155,10 +162,25 @@ class FakeQuantizer(nn.Module):
                 self.observe(x)
             if self.observer != "entropy":
                 self.update_qparams()
-        if streaming and self.observer == "entropy":
+        return streaming
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.bits == 32:
+            return x
+        if self._check_bits_and_update(x) and self.observer == "entropy":
             return x  # the float network streams until calibration resolves it
         return fake_quant(x, self.scale, self.zero_point, self.qmin, self.qmax,
                           self.min_val, self.max_val, self.symmetric)
+
+    def codes(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """``(codes, scale, zero_point)`` with ``self(x) == (codes + zp) * s``
+        bit for bit: the operand form of the code-storage lowering. Runs
+        the same observer and qparam update as ``forward``; the codes carry
+        the clip-STE gradient, scale and zero point none."""
+        self._check_bits_and_update(x)
+        c = fake_quant_codes(x, self.scale, self.zero_point, self.qmin, self.qmax,
+                             self.min_val, self.max_val, self.symmetric)
+        return c, self.scale.detach(), self.zero_point.detach()
 
 
 def _ptq_observer(cfg: QuantConfig) -> str:
@@ -187,6 +209,72 @@ def _weight_quantizer(cfg: QuantConfig, stat_shape, axes, dev) -> FakeQuantizer:
                          qaft=cfg.qaft, device=dev)
 
 
+def _auto_lowers(device: torch.device) -> bool:
+    """Where ``"auto"`` takes the lowerings: a CUDA tensor."""
+    return device.type == "cuda"
+
+
+def _act_codes_enabled(cfg: QuantConfig, device: torch.device) -> bool:
+    """Whether a layer of ``cfg`` runs the code-storage lowering on a
+    tensor of ``device``. Never above 8 bits (codes must be exact in
+    bf16), at 1 or 32 bits, or under PTQ (KL calibration needs the float
+    activations); else ``"on"``/``"off"`` force it and ``"auto"`` takes it
+    on CUDA."""
+    if cfg.a_bits > 8 or cfg.a_bits in (1, 32) or cfg.ptq:
+        return False
+    if cfg.act_codes in ("on", "off"):
+        return cfg.act_codes == "on"
+    return _auto_lowers(device)
+
+
+def _codes_dtype(device: torch.device) -> torch.dtype:
+    """The code operands' dtype: bf16 on CUDA, f32 on the CPU."""
+    return torch.bfloat16 if _auto_lowers(device) else torch.float32
+
+
+def _acc_stats_enabled(cfg: QuantConfig, device: torch.device) -> bool:
+    """Whether ``QuantBNFuseConv2d`` takes its batch statistics from the
+    quantized conv's accumulator (``bn_stats="acc"``). That needs
+    ``q(w * s) == q(w) * s`` for a per-channel ``s``, which holds for
+    per-channel (``q_level == 0``) symmetric (``q_type == 0``) weight
+    quantizers only; other configs keep the statistics conv. ``"auto"``
+    takes it on CUDA."""
+    if cfg.q_level != 0 or cfg.q_type != 0:
+        return False
+    return cfg.bn_stats == "acc" or (cfg.bn_stats == "auto" and _auto_lowers(device))
+
+
+def _bf16_stats_enabled(cfg: QuantConfig, device: torch.device) -> bool:
+    """Whether the statistics conv runs in bf16: ``"on"`` on every
+    device, ``"auto"`` on CUDA where the acc statistics do not apply."""
+    if cfg.bn_stats in ("on", "off", "acc"):
+        return cfg.bn_stats == "on"
+    return _auto_lowers(device) and not _acc_stats_enabled(cfg, device)
+
+
+def _codes_apply(aq: FakeQuantizer, x: torch.Tensor, w: torch.Tensor,
+                 bias: Optional[torch.Tensor], dtype: torch.dtype, contract) -> torch.Tensor:
+    """The quantized contraction over activation codes. With
+    ``qx = s * (c + zp)``, ``contract(qx, w) = s * (contract(c, w) + zp *
+    contract(ones, w))``: the contraction runs in the operand ``dtype``
+    and its output stays in it, the zero-point term (a batch-1
+    contraction of ones, which keeps the padding's edge effects) is added
+    in it, then the cast to f32, the multiply by ``s`` and ``bias``
+    (already shaped to broadcast over the output)."""
+    c, s, zp = aq.codes(x)
+    wd = w.to(dtype)
+    out = contract(c.to(dtype), wd)
+    if not aq.symmetric:
+        ones = torch.ones((1,) + tuple(x.shape[1:]), dtype=dtype, device=x.device)
+        out = out + zp.reshape(()).to(out.dtype) * contract(ones, wd)
+    out = out.to(torch.float32) * s.reshape(())
+    return out if bias is None else out + bias
+
+
+def _bias_nchw(bias: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    return None if bias is None else bias[:, None, None]
+
+
 class QuantConv2d(Conv2d):
     """Conv2d with fake-quantized input and weight.
     ``quant_inference=True`` skips the weight fake-quant (the weights were
@@ -199,12 +287,19 @@ class QuantConv2d(Conv2d):
         super().__init__(in_channels, out_channels, kernel_size, stride, padding, dilation,
                          groups, bias, device=device, generator=generator)
         dev = self.weight.device
+        self.cfg = cfg
         self.quant_inference = cfg.quant_inference
         self.activation_quantizer = _act_quantizer(cfg, dev)
         self.weight_quantizer = _weight_quantizer(cfg, (out_channels, 1, 1, 1), (1, 2, 3), dev)
 
+    def _contract(self, a, k):
+        return F.conv2d(a, k, None, self.stride, self.padding, self.dilation, self.groups)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         w = self.weight if self.quant_inference else self.weight_quantizer(self.weight)
+        if _act_codes_enabled(self.cfg, x.device):
+            return _codes_apply(self.activation_quantizer, x, w, _bias_nchw(self.bias),
+                                _codes_dtype(x.device), self._contract)
         return F.conv2d(self.activation_quantizer(x), w, self.bias, self.stride,
                         self.padding, self.dilation, self.groups)
 
@@ -222,13 +317,21 @@ class QuantConvTranspose2d(ConvTranspose2d):
                          output_padding, groups, bias, dilation, device=device,
                          generator=generator)
         dev = self.weight.device
+        self.cfg = cfg
         self.quant_inference = cfg.quant_inference
         self.activation_quantizer = _act_quantizer(cfg, dev)
         self.weight_quantizer = _weight_quantizer(dataclasses.replace(cfg, q_level=1), (1,),
                                                   None, dev)
 
+    def _contract(self, a, k):
+        return F.conv_transpose2d(a, k, None, self.stride, self.padding, self.output_padding,
+                                  self.dilation, self.groups)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         w = self.weight if self.quant_inference else self.weight_quantizer(self.weight)
+        if _act_codes_enabled(self.cfg, x.device):
+            return _codes_apply(self.activation_quantizer, x, w, _bias_nchw(self.bias),
+                                _codes_dtype(x.device), self._contract)
         return F.conv_transpose2d(self.activation_quantizer(x), w, self.bias, self.stride,
                                   self.padding, self.output_padding, self.dilation,
                                   self.groups)
@@ -242,6 +345,11 @@ def _per_out(v: torch.Tensor) -> torch.Tensor:
 def _per_channel(v: torch.Tensor) -> torch.Tensor:
     """(C,) -> (C, 1, 1), broadcasting over an NCHW activation."""
     return v[:, None, None]
+
+
+def _fold_bias(beta, b, mean, inv):
+    """The folded bias ``beta + (b - mean) * inv`` (``b`` may be None)."""
+    return beta - mean * inv if b is None else beta + (b - mean) * inv
 
 
 class QuantBNFuseConv2d(Conv2d):
@@ -258,8 +366,16 @@ class QuantBNFuseConv2d(Conv2d):
       variance, and the output is corrected back to batch statistics,
       ``conv(q(x), q(w')) * sqrt(var_run + eps) / sqrt(var_batch + eps) + b'``.
 
-    Eval / QAFT: fold the running statistics, one conv, no updates. The
-    JAX package's ``bn_stats="acc"`` single-conv step is not ported.
+    Under ``bn_stats`` the statistics conv runs in bf16 (its output feeds
+    only the f32 reductions; the bias folds into the mean), or, with
+    ``"acc"``, not at all: the weights fold the running statistics from
+    before the update, and the batch statistics are those of the one
+    quantized conv's accumulator divided back by the fold (a documented
+    deviation: they see the quantized operands). Its output rescales that
+    accumulator to the batch fold, which serves both ``bn_fuse_calib``
+    modes.
+
+    Eval / QAFT: fold the running statistics, one conv, no updates.
     """
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: IntPair,
@@ -270,6 +386,7 @@ class QuantBNFuseConv2d(Conv2d):
         super().__init__(in_channels, out_channels, kernel_size, stride, padding, dilation,
                          groups, bias, device=device, generator=generator)
         dev = self.weight.device
+        self.cfg = cfg
         self.eps = eps
         self.momentum = momentum
         self.pretrained_model = cfg.pretrained_model
@@ -288,37 +405,61 @@ class QuantBNFuseConv2d(Conv2d):
         return F.conv2d(x, w, b, self.stride, self.padding, self.dilation, self.groups)
 
     def _qconv(self, x, qw, b):
+        """The quantized conv, through the codes where the lowering applies;
+        ``b`` is per out channel."""
+        if _act_codes_enabled(self.cfg, x.device):
+            return _codes_apply(self.activation_quantizer, x, qw, _bias_nchw(b),
+                                _codes_dtype(x.device),
+                                lambda a, k: self._conv(a, k, None))
         return self._conv(self.activation_quantizer(x), qw, b)
 
     def _quant_w(self, w):
         return w if self.quant_inference else self.weight_quantizer(w)
 
+    @staticmethod
+    def _unbiased_var(out: torch.Tensor) -> torch.Tensor:
+        n = out.shape[0] * out.shape[2] * out.shape[3]
+        return torch.var(out.to(torch.float32), dim=(0, 2, 3), unbiased=False) * (
+            n / max(n - 1, 1))
+
+    @torch.no_grad()
+    def _update_running(self, batch_mean, batch_var):
+        """EMA of the running statistics (the first batch seeds them unless
+        ``pretrained_model``); returns the new (mean, var)."""
+        m = self.momentum
+        sg_mean, sg_var = batch_mean.detach(), batch_var.detach()
+        ema_mean = (1 - m) * self.running_mean + m * sg_mean
+        ema_var = (1 - m) * self.running_var + m * sg_var
+        if self.pretrained_model:
+            new_mean, new_var = ema_mean, ema_var
+        else:
+            seeded = self.bn_initialized
+            new_mean = torch.where(seeded, ema_mean, sg_mean)
+            new_var = torch.where(seeded, ema_var, sg_var)
+            self.bn_initialized.fill_(True)
+        self.running_mean.copy_(new_mean)
+        self.running_var.copy_(new_var)
+        return new_mean, new_var
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         w, b, gamma, beta = self.weight, self.bias, self.gamma, self.beta
+        if self.training and not self.qaft and _acc_stats_enabled(self.cfg, x.device):
+            return self._forward_acc_stats(x, w, b, gamma, beta)
         if self.training and not self.qaft:
-            out_f = self._conv(x, w, b).to(torch.float32)
-            batch_mean = torch.mean(out_f, dim=(0, 2, 3))
-            n = out_f.shape[0] * out_f.shape[2] * out_f.shape[3]
-            batch_var = torch.var(out_f, dim=(0, 2, 3), unbiased=False) * (n / max(n - 1, 1))
-            m = self.momentum
-            with torch.no_grad():
-                sg_mean, sg_var = batch_mean.detach(), batch_var.detach()
-                ema_mean = (1 - m) * self.running_mean + m * sg_mean
-                ema_var = (1 - m) * self.running_var + m * sg_var
-                if self.pretrained_model:
-                    new_mean, new_var = ema_mean, ema_var
-                else:
-                    seeded = self.bn_initialized
-                    new_mean = torch.where(seeded, ema_mean, sg_mean)
-                    new_var = torch.where(seeded, ema_var, sg_var)
-                    self.bn_initialized.fill_(True)
-                self.running_mean.copy_(new_mean)
-                self.running_var.copy_(new_var)
-            inv_batch = gamma / F.sqrt(batch_var + self.eps)
-            if b is not None:
-                bias_fused = beta + (b - batch_mean) * inv_batch
+            if _bf16_stats_enabled(self.cfg, x.device):
+                # the statistics conv's output feeds only the reductions: bf16
+                # operands and output, f32 sums, the bias folded into the mean
+                out_f = self._conv(x.to(torch.bfloat16), w.to(torch.bfloat16), None)
+                batch_mean = torch.mean(out_f, dim=(0, 2, 3), dtype=torch.float32)
+                if b is not None:
+                    batch_mean = batch_mean + b
             else:
-                bias_fused = beta - batch_mean * inv_batch
+                out_f = self._conv(x, w, b).to(torch.float32)
+                batch_mean = torch.mean(out_f, dim=(0, 2, 3))
+            batch_var = self._unbiased_var(out_f)
+            _, new_var = self._update_running(batch_mean, batch_var)
+            inv_batch = gamma / F.sqrt(batch_var + self.eps)
+            bias_fused = _fold_bias(beta, b, batch_mean, inv_batch)
             if not self.bn_fuse_calib:
                 qw = self._quant_w(w * _per_out(inv_batch))
                 return self._qconv(x, qw, bias_fused)
@@ -327,11 +468,31 @@ class QuantBNFuseConv2d(Conv2d):
             corr = F.sqrt(new_var + self.eps) / F.sqrt(batch_var + self.eps)
             return out * _per_channel(corr) + _per_channel(bias_fused)
         inv_run = gamma / F.sqrt(self.running_var + self.eps)
-        if b is not None:
-            bias_fused = beta + (b - self.running_mean) * inv_run
-        else:
-            bias_fused = beta - self.running_mean * inv_run
+        bias_fused = _fold_bias(beta, b, self.running_mean, inv_run)
         return self._qconv(x, self._quant_w(w * _per_out(inv_run)), bias_fused)
+
+    def _forward_acc_stats(self, x, w, b, gamma, beta):
+        """One conv a training step (``bn_stats="acc"``). With per-channel
+        symmetric weights ``q(w * s) == q(w) * s``, so the accumulator of
+        ``conv(q(x), q(w * inv_run))`` (the fold of the running statistics
+        before the update) is the pre-BN output times ``inv_run``: the
+        batch statistics are its own divided back (``|inv_run|`` floored
+        at 1e-12, so a gamma near 0 stays finite), and rescaling it by
+        ``sqrt(var_run + eps) / sqrt(var_batch + eps)`` gives the batch
+        fold."""
+        eps = self.eps
+        run_var = self.running_var.clone()
+        inv_run = gamma / F.sqrt(run_var + eps)
+        safe = torch.where(inv_run.abs() < 1e-12, 1e-12, inv_run)
+        acc = self._qconv(x, self.weight_quantizer(w * _per_out(inv_run)), None)
+        batch_mean = torch.mean(acc, dim=(0, 2, 3), dtype=torch.float32) / safe
+        if b is not None:
+            batch_mean = batch_mean + b
+        batch_var = self._unbiased_var(acc) / torch.square(safe)
+        self._update_running(batch_mean, batch_var)
+        bias_fused = _fold_bias(beta, b, batch_mean, gamma / F.sqrt(batch_var + eps))
+        corr = F.sqrt(run_var + eps) / F.sqrt(batch_var + eps)
+        return acc * _per_channel(corr) + _per_channel(bias_fused)
 
 
 class QuantLinear(Linear):
@@ -343,12 +504,16 @@ class QuantLinear(Linear):
                  generator: Optional[torch.Generator] = None):
         super().__init__(in_features, out_features, bias, device=device, generator=generator)
         dev = self.weight.device
+        self.cfg = cfg
         self.quant_inference = cfg.quant_inference
         self.activation_quantizer = _act_quantizer(cfg, dev)
         self.weight_quantizer = _weight_quantizer(cfg, (1, out_features), (0,), dev)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         w = self.weight if self.quant_inference else self.weight_quantizer(self.weight)
+        if _act_codes_enabled(self.cfg, x.device):
+            return _codes_apply(self.activation_quantizer, x, w, self.bias,
+                                _codes_dtype(x.device), torch.matmul)
         return F.linear(self.activation_quantizer(x), w, self.bias)
 
 

@@ -22,7 +22,7 @@ Where torch differs from JAX and this module keeps JAX's result:
 - ``jax.nn.gelu`` is the tanh form by default; torch's ``F.gelu`` the
   erf form unless asked.
 
-Not ported yet (ROADMAP.md, Queue 1 item 4: parallelism): the
+Not ported yet (ROADMAP.md, Queue 1 item 2: parallelism): the
 expert-parallel forms ``moe_apply_ep`` and ``moe_apply_ep_a2a``.
 """
 

@@ -2,8 +2,7 @@
 ``micronet_tpu/quant/config.py``, field for field.
 
 The axes are the feature matrix of ``prepare(...)``: every IAO flag plus
-the DoReFa and wbwtab knobs, so one object configures all three flavours
-(IAO and wbwtab are ported so far).
+the DoReFa and wbwtab knobs, so one object configures all three flavours.
 """
 
 from __future__ import annotations
@@ -38,10 +37,19 @@ class QuantConfig:
       observers (``quant/observers.py``, ``quant/calibrate.py``).
     - ``quant_inference``: weights are pre-quantized; skip the weight
       fake-quant at run time.
-    - ``act_codes`` / ``bn_stats``: training lowerings of the JAX package
-      for its accelerator. In the port every value resolves to the exact
-      f32 composition on every device; the H100 lowerings are later work,
-      each to be held against this exact path.
+    - ``act_codes``: quantized convs and linears (IAO and DoReFa) read
+      the activation codes as bf16 operands and fold the scale and zero
+      point into the epilogue. ``"auto"`` takes it for a CUDA input and
+      keeps the exact f32 composition on the CPU; ``"on"``/``"off"``
+      force it (``"on"`` on the CPU runs f32 codes). Never above 8 bits or
+      under PTQ.
+    - ``bn_stats``: the ``bn_fuse`` statistics conv in bf16 (``"on"``, on
+      every device), or none (``"acc"``: the batch statistics from the
+      quantized conv's accumulator; per-channel symmetric weights only,
+      other configs keep the statistics conv). ``"auto"`` takes acc on
+      CUDA where it applies, else the bf16 statistics conv on CUDA, and
+      the exact f32 path on the CPU. Pin ``act_codes="off",
+      bn_stats="off"`` for the exact path on the card.
 
     DoReFa uses ``a_bits``/``w_bits``/``quant_inference`` only. wbwtab:
     ``W`` 2 = binary, 3 = ternary, 32 = float; ``A`` 2 = binary, 32 = relu.

@@ -26,12 +26,16 @@ draws. Every step runs with cuDNN's deterministic algorithms (and the
 caller's setting back afterwards): cuDNN's default weight-gradient
 convolutions sum in an order that varies between runs, so the same seed
 would not give the same trained net on the card, as the JAX package's
-does. Not ported: ``mesh=`` (data parallelism) and ``remat``; both
-raise, naming their ROADMAP items.
+does. ``remat`` recomputes the whole forward in the backward
+(``torch.utils.checkpoint``, as ``nnx.remat`` wraps it in the JAX
+package), from the observer and BN statistics as they were before the
+forward. Not ported: ``mesh=`` (data parallelism), which raises, naming
+its ROADMAP item.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import time
@@ -41,6 +45,7 @@ import numpy as np
 import torch
 import torch.nn.functional as TF
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device
 from ..nn.modules import eval_mode, train_mode
@@ -88,8 +93,8 @@ class TrainConfig:
     async_checkpoint: bool = False  # write checkpoints on a background thread
     keep_latest: bool = False  # also write <save>.latest.npz every epoch
     log_every: int = 100  # per-batch log cadence; <= 0 turns it off
-    # recompute activations in the backward: not ported (it would run every
-    # observer and BN update twice); raises
+    # recompute the forward's activations in the backward instead of keeping
+    # them (a whole-forward checkpoint): less activation memory, more time
     remat: bool = False
     grad_accum: int = 1  # microbatches per optimizer step
 
@@ -109,6 +114,31 @@ def _deterministic(step: Callable) -> Callable:
             cudnn.deterministic, cudnn.benchmark = prev
 
     return run
+
+
+def _remat_forward(model: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """``model(x)`` under one non-reentrant activation checkpoint: the
+    backward recomputes the forward. The forward writes buffers (observer
+    ranges and qparams, BN running statistics); the recompute runs on
+    copies of them as they were before the forward and leaves the
+    forward's own in place afterwards, so the observers update once and a
+    remat step equals a plain step."""
+    before = [(m, name, buf.clone()) for m in model.modules()
+              for name, buf in m.named_buffers(recurse=False)]
+
+    @contextlib.contextmanager
+    def from_before():
+        after = [(m, name, getattr(m, name)) for m, name, _ in before]
+        for m, name, buf in before:
+            setattr(m, name, buf.clone())
+        try:
+            yield
+        finally:
+            for m, name, buf in after:
+                setattr(m, name, buf)
+
+    return checkpoint(model, x, use_reentrant=False,
+                      context_fn=lambda: (contextlib.nullcontext(), from_before()))
 
 
 class _StepClock:
@@ -147,11 +177,7 @@ class Trainer:
         if mesh is not None:
             raise NotImplementedError(
                 "data-parallel training (mesh=) is not ported yet (ROADMAP.md, Queue 1 "
-                "item 4: parallelism)")
-        if cfg.remat:
-            raise NotImplementedError(
-                "remat is not ported (ROADMAP.md, Queue 1 item 2: remat): a recomputed "
-                "forward would update every observer and BN statistic twice")
+                "item 1: parallelism)")
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.cfg = cfg
@@ -168,7 +194,7 @@ class Trainer:
     # -- steps --------------------------------------------------------------
 
     def _loss(self, x: torch.Tensor, labels: torch.Tensor):
-        logits = self.model(x)
+        logits = _remat_forward(self.model, x) if self.cfg.remat else self.model(x)
         return TF.cross_entropy(logits, labels), logits
 
     @_deterministic

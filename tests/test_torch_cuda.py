@@ -7,6 +7,9 @@ has no JAX, without the suite's conftest:
     python -m pytest --noconftest -o addopts="" -p no:cacheprovider tests/test_torch_cuda.py
 """
 
+import copy
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -1134,3 +1137,140 @@ def test_compiled_engine_calls_do_not_alias(cuda):
     with torch.no_grad():
         for n in (3, 20):
             assert torch.equal(compiled(x20[:n]), eng(x20[:n]))
+
+
+# ------------------------------------------------- the training lowerings
+
+
+def _conv_calls(monkeypatch):
+    """Every ``nn.functional.conv2d`` call's operand dtype, in order."""
+    from micronet_tpu_torch.nn import functional as F
+
+    calls, conv2d = [], F.conv2d
+
+    def counted(x, w, *a, **k):
+        calls.append(x.dtype)
+        return conv2d(x, w, *a, **k)
+
+    monkeypatch.setattr(F, "conv2d", counted)
+    return calls
+
+
+def test_auto_takes_both_lowerings_on_the_card(cuda, monkeypatch):
+    """``"auto"`` on a CUDA tensor: one bf16 conv a ``QuantBNFuseConv2d``
+    training forward (acc statistics, code operands, a bf16 output), two
+    f32 ones on the exact path; a model built on the CPU and moved takes
+    them too (resolved at call time)."""
+    from micronet_tpu_torch.nn import qat_iao
+    from micronet_tpu_torch.quant.config import QuantConfig
+
+    x = torch.randn((8, 16, 8, 8), device=cuda, generator=_gen(20))
+    for kw, want in [({}, [torch.bfloat16]), (dict(act_codes="off", bn_stats="off"),
+                                              [torch.float32, torch.float32]),
+                     (dict(q_type=1), [torch.bfloat16, torch.bfloat16, torch.bfloat16])]:
+        layer = qat_iao.QuantBNFuseConv2d(16, 16, 3, padding=1, groups=2,
+                                          cfg=QuantConfig(bn_fuse=True, **kw), device="cpu")
+        layer.to(cuda)
+        calls = _conv_calls(monkeypatch)
+        out = layer(x)
+        assert calls == want, kw
+        assert out.dtype == torch.float32 and torch.isfinite(out).all()
+        monkeypatch.undo()
+
+
+def test_lowered_layers_track_the_exact_path_on_the_card(cuda):
+    """Each lowered layer against the same layer on the exact path on the
+    card, the JAX package's own bounds for its lowerings: the acc
+    statistics' output within a median relative deviation of 0.02 and its
+    running statistics within rtol 0.05 (atol 0.05); the code-storage
+    convs and linears within bf16 rounding of their output (rtol 0.05)."""
+    from micronet_tpu_torch.nn import qat_dorefa, qat_iao
+    from micronet_tpu_torch.quant.config import QuantConfig
+
+    gen = _gen(21)
+    exact = dict(act_codes="off", bn_stats="off")
+    for calib in (False, True):
+        auto = qat_iao.QuantBNFuseConv2d(32, 32, 3, padding=1, groups=4, bias=True,
+                                         cfg=QuantConfig(bn_fuse=True, bn_fuse_calib=calib),
+                                         device=cuda, generator=gen)
+        ref = copy.deepcopy(auto)
+        ref.cfg = QuantConfig(bn_fuse=True, bn_fuse_calib=calib, **exact)
+        x = torch.randn((16, 32, 8, 8), device=cuda, generator=gen)
+        with torch.no_grad():
+            y, y_ref = auto(x), ref(x)
+        rel = ((y - y_ref).abs() / (y_ref.abs() + 1e-2)).median()
+        assert float(rel) < 0.02, float(rel)
+        torch.testing.assert_close(auto.running_mean, ref.running_mean, rtol=0.05, atol=0.05)
+        torch.testing.assert_close(auto.running_var, ref.running_var, rtol=0.05, atol=0.05)
+    layers = [
+        lambda c: qat_iao.QuantConv2d(32, 16, 3, padding=1, groups=2, cfg=c, device=cuda,
+                                      generator=gen),
+        lambda c: qat_iao.QuantConv2d(32, 16, 3, padding=1, cfg=dataclasses.replace(c, q_type=1),
+                                      device=cuda, generator=gen),
+        lambda c: qat_iao.QuantConvTranspose2d(32, 16, 4, stride=2, padding=1, cfg=c,
+                                               device=cuda, generator=gen),
+        lambda c: qat_dorefa.QuantConv2d(32, 16, 3, padding=1, cfg=c, device=cuda,
+                                         generator=gen),
+    ]
+    x = torch.randn((8, 32, 8, 8), device=cuda, generator=gen) * 3
+    for make in layers:
+        auto = make(QuantConfig())
+        ref = copy.deepcopy(auto)
+        ref.cfg = dataclasses.replace(auto.cfg, **exact)
+        with torch.no_grad():
+            y, y_ref = auto(x), ref(x)
+        torch.testing.assert_close(y, y_ref, rtol=0.05, atol=0.05 * y_ref.abs().max().item())
+    lin = qat_iao.QuantLinear(64, 10, cfg=QuantConfig(), device=cuda, generator=gen)
+    ref = copy.deepcopy(lin)
+    ref.cfg = QuantConfig(**exact)
+    xl = torch.randn((16, 64), device=cuda, generator=gen) * 3
+    with torch.no_grad():
+        torch.testing.assert_close(lin(xl), ref(xl), rtol=0.05,
+                                   atol=0.05 * ref(xl).abs().max().item())
+
+
+def test_remat_step_equals_plain_step_on_the_card(cuda):
+    """A ``remat=True`` training step of a NIN-GC (narrow) with the
+    lowerings equals a plain one in every parameter, gradient and buffer,
+    bit for bit (cuDNN's deterministic algorithms in both)."""
+    from micronet_tpu_torch.models.nin_gc import Net
+    from micronet_tpu_torch.nn import prepare, train_mode
+    from micronet_tpu_torch.quant.config import QuantConfig
+    from micronet_tpu_torch.train import TrainConfig, Trainer
+    from micronet_tpu_torch.train import data as tdata
+
+    ds = tdata.Cifar10(*tdata._synthetic(64, 16), source="synthetic")
+    models, trainers = [], []
+    for remat in (False, True):
+        m = prepare(Net(cfg=[32] * 8, device="cpu", generator=torch.Generator().manual_seed(0)),
+                    QuantConfig(bn_fuse=True), device="cpu")
+        models.append(m)
+        trainers.append(Trainer(train_mode(m), TrainConfig(batch_size=16, log_every=0,
+                                                           remat=remat), dataset=ds,
+                                device=cuda))
+    x = torch.randn((16, 32, 32, 3), device=cuda, generator=_gen(22))
+    y = torch.arange(16, device=cuda) % 10
+    for _ in range(2):
+        losses = [tr.train_step(x, y)[0] for tr in trainers]
+        assert torch.equal(losses[0], losses[1])
+        for (name, a), b in zip(models[1].named_parameters(), models[0].parameters()):
+            assert torch.equal(a.grad, b.grad) and torch.equal(a, b), name
+        for (name, a), b in zip(models[1].named_buffers(), models[0].buffers()):
+            assert torch.equal(a, b), name
+
+
+def test_graft_entry_on_the_card(cuda):
+    """The entry's forward on the card (the lowerings) twice gives the same
+    bits, and tracks the same weights on the CPU (the exact path) within
+    bf16 rounding."""
+    from micronet_tpu_torch.graft_entry import entry
+
+    fn, (x,) = entry()
+    cpu_fn, (cpu_x,) = entry("cpu")
+    assert x.is_cuda and torch.equal(x.cpu(), cpu_x)
+    with torch.no_grad():
+        a, b = fn(x), fn(x)
+        ref = cpu_fn(cpu_x)
+    assert torch.equal(a, b)
+    torch.testing.assert_close(a.cpu(), ref, rtol=0.05,
+                               atol=0.05 * max(1.0, ref.abs().max().item()))

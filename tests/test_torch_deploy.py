@@ -100,7 +100,7 @@ def test_buckets_and_opt_bucket(engines):
 
 
 def test_mesh_and_the_default_device_raise(engines, monkeypatch):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 1"):
         CompiledEngine(engines["teng"], (2,), SHAPE, mesh=object(), device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):

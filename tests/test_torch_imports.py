@@ -26,6 +26,7 @@ from micronet_tpu_torch.models.lenet import LeNet
 from micronet_tpu_torch.train import TrainConfig, Trainer
 from micronet_tpu_torch.models.tiny_decoder import TinyDecoder
 from micronet_tpu_torch.parallel import init_moe
+from micronet_tpu_torch.graft_entry import entry as graft_entry
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -42,7 +43,7 @@ def test_port_and_chip_smoke_import_no_jax():
               "prune", "prune.slimming", "utils", "utils.metrics", "train", "train.data",
               "train.native_loader", "train.checkpoint", "train.loop", "train.optim",
               "infer.evaluate", "infer.dump", "models.tiny_decoder", "parallel",
-              "parallel.moe", "infer.deploy", "infer.bf16", "utils.profiling"):
+              "parallel.moe", "infer.deploy", "infer.bf16", "utils.profiling", "graft_entry"):
         assert f"micronet_tpu_torch.{m}" in mods
     code = "\n".join(
         ["import sys", "preloaded = set(sys.modules)"]
@@ -67,7 +68,7 @@ def test_port_and_chip_smoke_import_no_jax():
                                    "fuse_bn_wbwtab", "freeze_wbwtab", "lenet", "prepare_dorefa",
                                    "trainer", "cli", "quant_test_auto", "tiny_decoder",
                                    "init_moe", "tiny_decoder_serve_loop", "build_engine",
-                                   "serialize_engine"])
+                                   "serialize_engine", "graft_entry"])
 def test_entry_points_default_to_cuda_and_raise_without_card(monkeypatch, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cpu_model = Llama(llama_tiny(8), device="cpu")
@@ -97,6 +98,7 @@ def test_entry_points_default_to_cuda_and_raise_without_card(monkeypatch, entry)
         "tiny_decoder_serve_loop": lambda: ServeLoop(cpu_decoder, 2),
         "build_engine": lambda: build_engine(cpu_nin),
         "serialize_engine": lambda: serialize_engine(cpu_nin, batch=2),
+        "graft_entry": lambda: graft_entry(),
     }
     with pytest.raises(RuntimeError, match="CUDA"):
         calls[entry]()

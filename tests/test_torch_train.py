@@ -194,12 +194,41 @@ def test_grad_accum_equals_the_full_batch():
         torch.testing.assert_close(pa.grad, pf.grad, rtol=0, atol=1e-5 * pf.grad.abs().max())
 
 
-def test_mesh_and_remat_raise():
+def test_mesh_raises():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tloop.Trainer(LeNet(device="cpu"), tloop.TrainConfig(), dataset=_dataset(), mesh=object(),
                       device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _trainer(LeNet(device="cpu"), remat=True)
+
+
+@pytest.mark.parametrize("grad_accum", [1, 2])
+def test_remat_step_equals_plain_step(grad_accum):
+    """Two IAO ``bn_fuse`` steps with ``remat=True`` against plain ones from
+    the same weights: every parameter, gradient and buffer equal bit for
+    bit (the first step seeds the BN statistics, the second runs the EMA).
+    The recompute runs (the first block's forward is called twice a
+    microbatch) from the buffers as they were before the forward: a
+    recompute from the updated ones would see other scales."""
+    cfg = QuantConfig(a_bits=8, w_bits=8, bn_fuse=True)
+    plain = prepare(LeNet(device="cpu", generator=torch.Generator().manual_seed(0)), cfg,
+                    device="cpu")
+    remat = prepare(LeNet(device="cpu", generator=torch.Generator().manual_seed(0)), cfg,
+                    device="cpu")
+    tp = _trainer(train_mode(plain), grad_accum=grad_accum)
+    tr = _trainer(train_mode(remat), grad_accum=grad_accum, remat=True)
+    calls = []
+    remat.features.layers[0].register_forward_hook(lambda *a: calls.append(1))
+    for k in range(2):
+        x = torch.from_numpy(_np(10 + k, (8, 32, 32, 3)))
+        y = torch.from_numpy(np.arange(8) % 10)
+        lp, _ = tp.train_step(x, y)
+        lr, _ = tr.train_step(x, y)
+        assert torch.equal(lr, lp)
+        for (name, a), b in zip(remat.named_parameters(), plain.parameters()):
+            assert torch.equal(a.grad, b.grad), name
+            assert torch.equal(a, b), name
+        for (name, a), b in zip(remat.named_buffers(), plain.buffers()):
+            assert torch.equal(a, b), name
+    assert len(calls) == 2 * 2 * grad_accum
 
 
 def test_fit_end_to_end_with_checkpoints_and_metrics(tmp_path):

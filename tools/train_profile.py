@@ -5,10 +5,12 @@ traced with ``torch.profiler``.
 
     python3 tools/train_profile.py [--steps 3] [--out DIR]
 
-For each method: 3 untraced steps (allocations, cuDNN's choices), then
-``--steps`` traced ones; prints the device's busy time over the traced
-wall and the device time by kernel (the largest first), and writes each
-table under ``--out``. TF32 is off, as in the smoke run. Needs a card.
+For each method (IAO and DoReFa twice: under the default ``"auto"``
+training lowerings, and pinned to the exact f32 path): 3 untraced steps
+(allocations, cuDNN's choices), then ``--steps`` traced ones; prints the
+device's busy time (the union of the kernels' intervals) over the traced
+wall, the kernels' summed time and the summed time by kernel family (the
+largest first), and writes each table under ``--out``. TF32 is off, as in the smoke run. Needs a card.
 """
 
 from __future__ import annotations
@@ -22,8 +24,12 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-METHODS = {"float": (None, {}), "iao": ("iao", dict(bn_fuse=True)), "dorefa": ("dorefa", {}),
-           "wbwtab": ("wbwtab", dict(W=3, A=2))}
+# IAO and DoReFa under the default "auto" (lowered on the card) and pinned
+# to the exact f32 path
+EXACT = dict(act_codes="off", bn_stats="off")
+METHODS = {"float": (None, {}), "iao": ("iao", dict(bn_fuse=True)),
+           "iao_exact": ("iao", dict(bn_fuse=True, **EXACT)), "dorefa": ("dorefa", {}),
+           "dorefa_exact": ("dorefa", EXACT), "wbwtab": ("wbwtab", dict(W=3, A=2))}
 
 
 def _group(name: str) -> str:
@@ -40,6 +46,23 @@ def _group(name: str) -> str:
     if "index" in n or "gather" in n or "scatter" in n or "cat" in n:
         return "indexing (channel shuffles, batch gathers)"
     return "other: " + name[:60]
+
+
+def _busy_ms(prof) -> float:
+    """The device's busy time: the union of the kernels' intervals (cuDNN
+    runs some kernels of a step side by side, so their summed time can
+    exceed the wall)."""
+    from torch.autograd import DeviceType
+
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA
+                   and not e.name.startswith(("Optimizer.", "ProfilerStep")))
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy / 1e3
 
 
 def main() -> int:
@@ -89,7 +112,8 @@ def main() -> int:
         kernels = [e for e in prof.key_averages()
                    if e.self_device_time_total > 0 and e.self_cpu_time_total == 0
                    and not e.key.startswith(("Optimizer.", "ProfilerStep"))]
-        busy = sum(e.self_device_time_total for e in kernels) / 1e3
+        summed = sum(e.self_device_time_total for e in kernels) / 1e3
+        busy = _busy_ms(prof)
         table = prof.key_averages().table(sort_by="self_device_time_total", row_limit=40)
         (args.out / f"train_profile_{label}.txt").write_text(table)
         groups = {}
@@ -98,9 +122,10 @@ def main() -> int:
             groups[g] = groups.get(g, 0.0) + e.self_device_time_total / 1e3
         launches = sum(e.count for e in kernels)
         print(f"{label}: device busy {busy / args.steps:.2f} ms of {wall / args.steps:.2f} ms a "
-              f"step ({100 * busy / wall:.1f} %), {launches / args.steps:.0f} kernels a step")
+              f"step ({100 * busy / wall:.1f} %), kernel time {summed / args.steps:.2f} ms, "
+              f"{launches / args.steps:.0f} kernels a step")
         for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
-            print(f"  {ms / args.steps:8.3f} ms ({100 * ms / busy:4.1f} %)  {g}")
+            print(f"  {ms / args.steps:8.3f} ms ({100 * ms / summed:4.1f} %)  {g}")
         del tr, model
         torch.cuda.empty_cache()
     return 0
