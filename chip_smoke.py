@@ -182,7 +182,22 @@ Phases, each fatal on failure (non-zero exit, no final line):
    steps equal to two plain ones in every parameter, gradient and buffer
    (their ms and peak memory); ``graft_entry.entry()``'s forward twice on
    the card (the same bits) and against the CPU's exact path;
-21. the kernels line (JSON), then the final line
+21. parallelism (slice 10's main path): one rank a card over NCCL, the
+   world every card (``torch.multiprocessing``). On one card (a world of
+   1, every collective launched): phase 14's IAO ``--bn_fuse`` epoch (8
+   steps at batch 256) through ``Trainer(mesh=make_mesh(1, 1))`` equal to
+   the trainer without a mesh bit for bit, and phase 19's ResNet-18 engine
+   through ``build_engine(mesh=)`` (one bucket of 512, a CUDA graph) equal
+   to its eager output bit for bit, K1 once per forward. On more cards, at
+   dp = cards and at dp = cards / 2 x tp = 2: training img/s at global
+   batch 256 and 1,024 beside rank 0 alone, two same-seed runs compared,
+   the engine's eager and bucket img/s at 512 (bit for bit at dp), and
+   with ``--profile`` the NCCL share of two traced steps. Then two ranks
+   share card 0 over gloo: the DP step of full-width NIN-GC (exact path)
+   at 2 x 128 against one process at 256, block by block (``PAR_RTOL``),
+   and the engine at dp = 2 (bit for bit) and tp = 2 (within
+   ``PAR_RTOL``);
+22. the kernels line (JSON), then the final line
    ``{"ok": true, "device": {...}}``.
 
 Details of every measurement go to ``<out>/chip_smoke.json`` (``--out``,
@@ -3687,6 +3702,550 @@ def training_lowerings(dev, seed, out_dir: Path, card, report, train_res):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------- phase 21
+
+
+# slice 10: data and tensor parallelism over torch.distributed, one process
+# a card. The NCCL world is every card of the machine; on one card it is a
+# world of 1 (every collective still launched), and two more ranks then
+# share the card over gloo (NCCL refuses two ranks on one card)
+PAR_ENGINE_BATCH = RESNET_BATCH  # ResNet-18 W8A8 engine requests (one bucket)
+PAR_BATCHES = (TRAIN_BATCH, 1024)  # global training batches timed on more than one card
+PAR_TIMED = 6  # training steps timed, after 2 untimed
+# the shared-card DP step (2 x 128 against 1 x 256) block by block, and the
+# tensor-parallel engine's logits: f32 sums in another order (the batch
+# moments combined over ranks, a conv over fewer channels), TF32 off
+PAR_RTOL = 1e-5
+# the DP step's parameter gradients (the ranks' sum) on the card, x max|g|:
+# cuDNN's weight-gradient convolution sums a weight's 128 x 32 x 32 terms a
+# rank, against 256 x 32 x 32 in one process, in another order; NIN-GC's
+# first layer (the largest |g|) came out 1.13e-4 x max|g| apart in two of
+# four runs, 2.7e-6 in the others (its algorithm varies with the card's
+# free memory), about f32's rounding of a sum of 262,144 terms
+PAR_CARD_GRAD_RTOL = 1e-3
+
+
+def _cut(t, shape, rank_of_dim):
+    """``t`` (the single process's tensor) cut to a rank's ``shape``: each
+    dim that differs takes the slice of the rank ``rank_of_dim(d)``."""
+    for d, (a, b) in enumerate(zip(t.shape, shape)):
+        if a != b:
+            t = t.narrow(d, rank_of_dim(d) * b, b)
+    return t
+
+
+def _sharded_flips(rec_s, rec_h, dp_rank, tp_rank):
+    """Out channels of a block (the whole model's numbering) touched by an
+    IAO weight code, a sign, its STE mask or a ReLU's mask that a rank
+    rounds otherwise than the single process; fails on a flip that is not
+    at an edge. A weight sliced over the model axis is compared with the
+    single process's slice, an activation with its rows."""
+    from micronet_tpu_torch.nn import modules as M
+
+    chans = set()
+    for name, (m_h, x_h, out_h) in rec_h.items():
+        m_s, x_s, out_s = rec_s[name]
+        if getattr(m_h, "is_weight", False):
+            def cut(t):
+                return _cut(t, out_s.shape, lambda d: tp_rank)
+            flipped = torch.round(out_s / m_s.scale) != cut(torch.round(out_h / m_h.scale))
+            edge = cut(_near_half(x_h / m_h.scale - m_h.zero_point))
+            local = flipped.reshape(flipped.shape[0], -1).any(1).nonzero().flatten()
+            offset = tp_rank * out_s.shape[0] if out_s.shape[0] != out_h.shape[0] else 0
+            chans |= set((local + offset).tolist())
+        else:
+            x_h = _cut(x_h, x_s.shape, lambda d: dp_rank)
+            out_h = _cut(out_h, out_s.shape, lambda d: dp_rank)
+            if isinstance(m_h, M.ReLU):
+                flipped = (x_s > 0) != (x_h > 0)
+                edge = x_h.abs() < SIGN_EDGE
+            else:
+                flipped = (out_s != out_h) | ((x_s.abs() < 1) != (x_h.abs() < 1))
+                edge = (x_h.abs() < SIGN_EDGE) | ((x_h.abs() - 1).abs() < SIGN_EDGE)
+            chans |= set(flipped.transpose(0, 1).reshape(flipped.shape[1], -1).any(1)
+                         .nonzero().flatten().tolist())
+        if bool((flipped & ~edge).any()):
+            fail(f"parallel step: {name} rounds otherwise on a rank away from an edge")
+    return chans
+
+
+def sharded_step_vs_single(ref, sharded, mesh, x, y, rtol=PAR_RTOL, grad_rtol=None):
+    """One training step of ``sharded`` (``ref``'s weights, sharded over
+    ``mesh``: its rows of the batch on the data axis, its out channels on
+    the model axis) against ``ref`` on the whole batch in this process,
+    block by block, in the pattern of phase 14's card-vs-CPU step: each
+    sharded block gets the single process's input to it (its rows) and
+    gradient with respect to its output, and must give the single
+    process's output, input gradient, parameter gradients (summed over the
+    data axis; its slice on the model axis; within ``grad_rtol`` x
+    max|g|, by default ``rtol``) and state after the step, within
+    ``rtol``. Channels where a value rounds the other way at an edge
+    leave the comparison. Every rank of the mesh calls it, under cuDNN's
+    deterministic algorithms. Returns the numbers of the comparison."""
+    cudnn = torch.backends.cudnn
+    prev = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False  # as the trainer's steps run
+    try:
+        return _sharded_step(ref, sharded, mesh, x, y, rtol, grad_rtol or rtol)
+    finally:
+        cudnn.deterministic, cudnn.benchmark = prev
+
+
+def _sharded_step(ref, sharded, mesh, x, y, rtol, grad_rtol):
+    import copy
+
+    import torch.nn.functional as TF
+
+    from micronet_tpu_torch.parallel.distributed import all_reduce_, batch_reduction
+    from micronet_tpu_torch.parallel.sharding import axis_rank, axis_size, batch_group_for
+
+    n = x.shape[0]
+    dp, dp_rank, tp_rank = axis_size(mesh, "data"), axis_rank(mesh, "data"), axis_rank(mesh,
+                                                                                        "model")
+    group = batch_group_for(n, mesh)
+
+    def rows(t):
+        return _cut(t, (n // dp,) + tuple(t.shape[1:]), lambda d: dp_rank)
+
+    blocks_h, blocks_s = list(ref.model.layers), list(sharded.model.layers)
+    xs = [x]
+    with torch.no_grad():
+        for b in copy.deepcopy(ref).model.layers:
+            xs.append(b(xs[-1]))
+    logits = xs[-1].reshape(n, -1).requires_grad_()
+    loss_h = TF.cross_entropy(logits, y)
+    loss_h.backward()
+    g = logits.grad.reshape(xs[-1].shape)
+    grads = [None] * len(blocks_h)
+    for i in reversed(range(len(blocks_h))):  # the single process's backward, block by block
+        xi = xs[i].clone().requires_grad_()
+        rec, handles = _quant_points(blocks_h[i])
+        out = blocks_h[i](xi)
+        for h in handles:
+            h.remove()
+        (out * g).sum().backward()
+        grads[i] = (g, out.detach(), xi.grad, rec)
+        g = xi.grad
+    gmax = max(p.grad.abs().max().item() for p in ref.parameters())
+    n_chan = skipped_gx = 0
+    worst = dict(out=0.0, gx=0.0, grad=0.0, state=0.0)
+    for i, (bh, bs) in enumerate(zip(blocks_h, blocks_s)):
+        g, out_h, gx_h, rec_h = grads[i]
+        xi = rows(xs[i]).clone().requires_grad_()
+        rec_s, handles = _quant_points(bs)
+        with batch_reduction(group):
+            out = bs(xi)
+        for h in handles:
+            h.remove()
+        (out * rows(g)).sum().backward()
+        if i == len(blocks_s) - 1:
+            loss_s = TF.cross_entropy(out.detach().reshape(out.shape[0], -1), rows(y))
+            if group is not None:
+                loss_s = all_reduce_(loss_s, "sum", group) / dp
+        chans = _sharded_flips(rec_s, rec_h, dp_rank, tp_rank)
+        n_chan += len(chans)
+        keep = torch.ones(out_h.shape[1], dtype=torch.bool)
+        keep[list(chans)] = False
+        what = f"block {i} ({type(bh).__name__})"
+        worst["out"] = max(worst["out"], _close_or_fail(
+            what + " output", out.permute(1, 0, 2, 3), rows(out_h).permute(1, 0, 2, 3),
+            rtol * max(1.0, out_h.abs().max().item()), keep))
+        if chans:
+            skipped_gx += 1
+        else:
+            worst["gx"] = max(worst["gx"], _close_or_fail(
+                what + " input gradient", xi.grad, rows(gx_h),
+                rtol * max(gx_h.abs().max().item(), 1e-30)))
+
+        def kept(t_s, t_h):
+            """``keep`` over ``t_s``'s out channels (dim 0), where it has them."""
+            if not t_s.dim() or t_h.shape[0] != keep.shape[0]:
+                return None
+            k = t_s.shape[0]
+            return keep[tp_rank * k:(tp_rank + 1) * k] if k != keep.shape[0] else keep
+
+        for (name, ps), ph in zip(bs.named_parameters(), bh.parameters()):
+            gs = ps.grad if group is None else all_reduce_(ps.grad, "sum", group)
+            gh = _cut(ph.grad, gs.shape, lambda d: tp_rank)
+            worst["grad"] = max(worst["grad"], _close_or_fail(
+                f"{what} gradient of {name}", gs, gh, grad_rtol * gmax, kept(gs, ph)))
+        for (name, ts), th in zip(bs.state_dict().items(), bh.state_dict().values()):
+            th = _cut(th, ts.shape, lambda d: tp_rank)
+            if th.dtype == torch.bool:
+                if not torch.equal(ts.cpu(), th.cpu()):
+                    fail(f"parallel step: {what} state {name} differs")
+                continue
+            worst["state"] = max(worst["state"], _close_or_fail(
+                f"{what} state {name}", ts.float(), th.float(),
+                rtol * max(1.0, th.abs().max().item()), kept(ts, th)))
+    loss_s, loss_h = float(loss_s), float(loss_h.detach())
+    rel = abs(loss_s - loss_h) / abs(loss_h)
+    if not rel <= rtol:
+        fail(f"parallel step: loss {loss_s:.7f} against the single process's {loss_h:.7f}")
+    return dict(loss=loss_h, loss_rel_diff=rel, blocks=len(blocks_h),
+                channels_at_an_edge=n_chan, blocks_without_input_grad_check=skipped_gx,
+                gmax=gmax, **{f"max_abs_{k}": v for k, v in worst.items()})
+
+
+def _par_init(rank, world, port, gloo):
+    """This rank's process group: NCCL, one card a rank
+    (``parallel.initialize``), or gloo with every rank on card 0."""
+    import torch.distributed as dist
+
+    from micronet_tpu_torch.parallel import initialize
+
+    if gloo:
+        torch.cuda.set_device(0)
+        dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                                world_size=world, rank=rank)
+    else:
+        initialize(f"tcp://localhost:{port}", world, rank)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def _par_load_engine(dev, shared: Path):
+    """Phase 19's ResNet-18 W8A8 engine, its input and its eager output."""
+    eng = torch.load(shared / "engine.pt", weights_only=False, map_location=dev)
+    x, ref = (t.to(dev) for t in torch.load(shared / "io.pt", map_location=dev))
+    return eng, x, ref
+
+
+def _par_engine(dev, shared: Path, mesh, bit_equal: bool):
+    """Phase 19's engine behind ``build_engine(mesh=)`` with one bucket of
+    ``PAR_ENGINE_BATCH``: K1's launches counted from the build (two
+    warm-ups and a capture a bucket on the card, or eager forwards over
+    gloo's channel gathers) to the last call, then one more eager
+    forward of the sharded model alone (K1 once); the output against the
+    eager engine's (bit for bit, or within ``PAR_RTOL``); a call's ms
+    eager (every rank its rows, then the gather) and through the bucket."""
+    import torch.distributed as dist
+
+    from micronet_tpu_torch.infer import build_engine
+    from micronet_tpu_torch.ops import int_matmul as i8
+    from micronet_tpu_torch.parallel.distributed import _gather_parts
+    from micronet_tpu_torch.parallel.sharding import shard_batch
+
+    eng, x, ref = _par_load_engine(dev, shared)
+    b = PAR_ENGINE_BATCH
+    k1 = i8.int8_matmul_dequant
+    k1.launches = 0
+    # -- the main path: the sharded engine ---------------------------------
+    ce = build_engine(eng, profile=(b, b, b), example_shape=(32, 32, 3), mesh=mesh, device=dev)
+    out = ce(x)
+    torch.cuda.synchronize()
+    launches = k1.launches
+    # ----------------------------------------------------------------------
+    captured = bool(ce._graphs)
+    want = 3 * len(ce.buckets) if captured else 1
+    before = k1.launches
+    with torch.no_grad():
+        eng(shard_batch(x, mesh))
+    torch.cuda.synchronize()
+    if launches != want or k1.launches - before != 1:
+        fail(f"parallel engine: K1 launched {launches} times over the build and a call "
+             f"(expected {want}) and {k1.launches - before} in one eager forward")
+    diff = (out - ref).abs().max().item()
+    tol = 0.0 if bit_equal else PAR_RTOL * max(1.0, ref.abs().max().item())
+    if tuple(out.shape) != tuple(ref.shape) or not diff <= tol:
+        fail(f"parallel engine: max|diff| {diff:.3e} against the eager engine (tol {tol:.1e})")
+    data = mesh.get_group("data")
+
+    @torch.no_grad()
+    def eager():
+        return torch.cat(_gather_parts(eng(shard_batch(x, mesh)), data))
+
+    dist.barrier()
+    eager_ms = _events_ms(eager, ENGINE_ITERS)
+    dist.barrier()
+    call_ms = _events_ms(lambda: ce(x), ENGINE_ITERS)
+    return dict(launches=launches, captured=captured, max_abs_diff=diff, bit_equal=diff == 0.0,
+                eager_ms=eager_ms, eager_img_s=b / eager_ms * 1e3, call_ms=call_ms,
+                call_img_s=b / call_ms * 1e3)
+
+
+def _par_trainer(dev, seed, mesh, batch):
+    from micronet_tpu_torch.train import TrainConfig, Trainer
+    from micronet_tpu_torch.train import data as data_lib
+
+    return Trainer(_nin_gc_train_model(dev, seed, "iao"),
+                   TrainConfig(batch_size=batch, log_every=0, seed=seed),
+                   dataset=data_lib.load_cifar10(), mesh=mesh, device=dev)
+
+
+def _state(model):
+    return {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+
+def _equal_states(a, b):
+    return [k for k in a if not torch.equal(a[k], b[k])]
+
+
+def _par_trainer_equal(dev, seed, mesh):
+    """Phase 14's IAO ``--bn_fuse`` run (one epoch: 8 steps at batch 256,
+    the ``"auto"`` lowerings) through ``Trainer(mesh=)`` and without a mesh
+    from the same seed: the same state bit for bit."""
+    runs = {}
+    for label, m in (("single", None), ("mesh", mesh)):
+        tr = _par_trainer(dev, seed, m, TRAIN_BATCH)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = tr.train_epoch(0, log=lambda _msg: None)
+        torch.cuda.synchronize()
+        runs[label] = (loss, _state(tr.model), time.perf_counter() - t0)
+    differ = _equal_states(runs["single"][1], runs["mesh"][1])
+    if differ or runs["single"][0] != runs["mesh"][0]:
+        fail(f"Trainer(mesh=make_mesh(1, 1)): epoch loss {runs['mesh'][0]} against "
+             f"{runs['single'][0]}; {len(differ)} arrays differ, e.g. {differ[:4]}")
+    return dict(equal_arrays=len(runs["mesh"][1]), epoch_loss=runs["mesh"][0],
+                seconds_single=runs["single"][2], seconds_mesh=runs["mesh"][2])
+
+
+def _par_batches(dev, seed, batch, n):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return [(torch.randint(0, 256, (batch, 32, 32, 3), device=dev, generator=gen,
+                           dtype=torch.uint8).float() / 255.0,
+             torch.randint(0, 10, (batch,), device=dev, generator=gen)) for _ in range(n)]
+
+
+def _par_step_ms(tr, batches):
+    """ms a step over ``batches`` after the first two (CUDA events)."""
+    import torch.distributed as dist
+
+    for x, y in batches[:2]:
+        tr.train_step(x, y)
+    if tr.mesh is not None:
+        dist.barrier()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for x, y in batches[2:]:
+        tr.train_step(x, y)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (len(batches) - 2)
+
+
+def _nccl_share(tr, batches):
+    """The NCCL kernels' share of the device time of two traced steps."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for x, y in batches[:2]:
+            tr.train_step(x, y)
+        torch.cuda.synchronize()
+    total = nccl = 0.0
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", None)
+        t = e.self_cuda_time_total if t is None else t
+        total += t
+        if "nccl" in e.key.lower():
+            nccl += t
+    return dict(nccl_ms=nccl / 1e3 / 2, device_ms=total / 1e3 / 2,
+                nccl_share=nccl / total if total else float("nan"))
+
+
+def _par_mesh_numbers(dev, seed, mesh, shared: Path, profile: bool):
+    """At a (data, model) mesh of the whole world: training ms a step and
+    img/s at each of ``PAR_BATCHES`` (global), whether two same-seed runs
+    give the same state, the NCCL share of a traced step, and the ResNet-18
+    engine at ``PAR_ENGINE_BATCH`` (bit for bit without a model axis)."""
+    import torch.distributed as dist
+
+    from micronet_tpu_torch.parallel.distributed import all_reduce_
+    from micronet_tpu_torch.parallel.sharding import axis_size
+
+    res = {}
+    for batch in PAR_BATCHES:
+        tr = _par_trainer(dev, seed, mesh, batch)
+        ms = _par_step_ms(tr, _par_batches(dev, seed + 40, batch, PAR_TIMED + 2))
+        res[f"train_b{batch}"] = dict(step_ms=ms, img_s=batch / ms * 1e3)
+        if profile and batch == PAR_BATCHES[0]:
+            res["nccl"] = _nccl_share(tr, _par_batches(dev, seed + 41, batch, 2))
+        del tr
+    states = []
+    for _ in range(2):
+        tr = _par_trainer(dev, seed, mesh, TRAIN_BATCH)
+        tr.train_epoch(0, log=lambda _msg: None)
+        states.append(_state(tr.model))
+        del tr
+    differ = torch.tensor(float(len(_equal_states(*states))), device=dev)
+    res["repeat_arrays_differ"] = int(all_reduce_(differ, "sum", dist.group.WORLD).item())
+    res["engine"] = _par_engine(dev, shared, mesh, bit_equal=axis_size(mesh, "model") == 1)
+    torch.cuda.empty_cache()
+    return res
+
+
+def _par_single_card(dev, seed, shared: Path):
+    """Rank 0 alone on its card, without a mesh: training img/s at each of
+    ``PAR_BATCHES`` and the engine's eager and bucket ms at
+    ``PAR_ENGINE_BATCH``."""
+    from micronet_tpu_torch.infer import build_engine
+
+    res = {}
+    for batch in PAR_BATCHES:
+        tr = _par_trainer(dev, seed, None, batch)
+        ms = _par_step_ms(tr, _par_batches(dev, seed + 40, batch, PAR_TIMED + 2))
+        res[f"train_b{batch}"] = dict(step_ms=ms, img_s=batch / ms * 1e3)
+        del tr
+    eng, x, ref = _par_load_engine(dev, shared)
+    b = PAR_ENGINE_BATCH
+    with torch.no_grad():
+        eager_ms = _events_ms(lambda: eng(x), ENGINE_ITERS)
+    ce = build_engine(eng, profile=(b, b, b), example_shape=(32, 32, 3), device=dev)
+    call_ms = _events_ms(lambda: ce(x), ENGINE_ITERS)
+    res["engine"] = dict(eager_ms=eager_ms, eager_img_s=b / eager_ms * 1e3, call_ms=call_ms,
+                         call_img_s=b / call_ms * 1e3)
+    return res
+
+
+def _par_nccl_rank(rank, world, port, shared: Path, seed, profile):
+    """One NCCL rank of phase 21 (the world is every card): on one card,
+    ``Trainer(mesh=make_mesh(1, 1))`` equal to the trainer without a mesh
+    and the engine through ``build_engine(mesh=)`` equal to phase 19's;
+    on more, the numbers of :func:`_par_mesh_numbers` at dp = world and at
+    dp = world / 2 x tp = 2, beside rank 0's single-card numbers."""
+    import torch.distributed as dist
+
+    from micronet_tpu_torch.parallel import make_mesh
+
+    dev = _par_init(rank, world, port, gloo=False)
+    res = dict(world=world, backend=dist.get_backend())
+    if world == 1:
+        mesh = make_mesh(1, 1)
+        res["trainer"] = _par_trainer_equal(dev, seed, mesh)
+        res["engine"] = _par_engine(dev, shared, mesh, bit_equal=True)
+    else:
+        if rank == 0:
+            res["single_card"] = _par_single_card(dev, seed, shared)
+        dist.barrier()
+        for d, m in ((world, 1), (world // 2, 2)):
+            res[f"dp{d}_tp{m}"] = _par_mesh_numbers(dev, seed, make_mesh(d, m), shared, profile)
+    if rank == 0:
+        (shared / "nccl.json").write_text(json.dumps(res))
+    dist.destroy_process_group()
+
+
+def _par_gloo_rank(rank, world, port, shared: Path, seed):
+    """One of two gloo ranks sharing card 0: the DP step of full-width
+    NIN-GC IAO ``--bn_fuse`` (the exact path) at 2 x 128 against one
+    process at 256, block by block; the ResNet-18 engine at dp = 2 (bit for
+    bit) and tp = 2 (within ``PAR_RTOL``)."""
+    import copy
+
+    import torch.distributed as dist
+
+    from micronet_tpu_torch.parallel import make_mesh
+    from micronet_tpu_torch.train import data as data_lib
+
+    dev = _par_init(rank, world, port, gloo=True)
+    dp_mesh, tp_mesh = make_mesh(2, 1), make_mesh(1, 2)
+    ref = _nin_gc_train_model(dev, seed, "iao", exact=True)
+    sharded = copy.deepcopy(ref)
+    ds = data_lib._synthetic(TRAIN_BATCH, 1)
+    gen = torch.Generator().manual_seed(seed)
+    x = data_lib.augment_batch(gen, torch.from_numpy(ds[0])).permute(0, 3, 1, 2).to(dev)
+    y = torch.from_numpy(ds[1].astype(np.int64)).to(dev)
+    res = dict(step=sharded_step_vs_single(ref, sharded, dp_mesh, x, y,
+                                           grad_rtol=PAR_CARD_GRAD_RTOL),
+               engine_dp=_par_engine(dev, shared, dp_mesh, bit_equal=True),
+               engine_tp=_par_engine(dev, shared, tp_mesh, bit_equal=False))
+    if rank == 0:
+        (shared / "gloo.json").write_text(json.dumps(res))
+    dist.destroy_process_group()
+
+
+def _spawn(fn, nprocs, *args):
+    """``fn(rank, nprocs, port, *args)`` in ``nprocs`` fresh processes;
+    fails if one fails (the others are stopped)."""
+    import socket
+
+    import torch.multiprocessing as mp
+    from torch.multiprocessing.spawn import ProcessException
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    try:
+        mp.start_processes(fn, args=(nprocs, port, *args), nprocs=nprocs, start_method="spawn")
+    except ProcessException as e:
+        fail(f"phase 21: {e}")
+
+
+@torch.no_grad()
+def keep_parallel_engine(engine, dev, seed, out_dir: Path) -> Path:
+    """Phase 19's ResNet-18 engine, an input of ``PAR_ENGINE_BATCH`` images
+    and its eager output, saved for phase 21's ranks."""
+    shared = out_dir / "phase21"
+    shared.mkdir(parents=True, exist_ok=True)
+    for m in engine.modules():
+        if hasattr(m, "_gemm_cache"):
+            m._gemm_cache = None
+    x = torch.randn((PAR_ENGINE_BATCH, 32, 32, 3), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(seed + 21))
+    torch.save(engine, shared / "engine.pt")
+    torch.save((x, engine(x)), shared / "io.pt")
+    return shared
+
+
+def parallel(dev, seed, shared: Path, card: str, report, profile: bool):
+    """Phase 21: data and tensor parallelism (each check above). Returns
+    K1's launches over the NCCL ranks' engine path (rank 0's)."""
+    world = torch.cuda.device_count()
+    t0 = time.perf_counter()
+    _spawn(_par_nccl_rank, world, shared, seed, profile)
+    nccl = json.loads((shared / "nccl.json").read_text())
+    t1 = time.perf_counter()
+    _spawn(_par_gloo_rank, 2, shared, seed)
+    gloo = json.loads((shared / "gloo.json").read_text())
+    res = dict(card=card, nccl=nccl, gloo=gloo, nccl_seconds=t1 - t0,
+               gloo_seconds=time.perf_counter() - t1)
+    report["parallel"] = res
+    if world == 1:
+        log(f"parallel (NCCL, world 1): Trainer(mesh=make_mesh(1, 1)) 8 steps of full-width "
+            f"NIN-GC IAO --bn_fuse at batch {TRAIN_BATCH} equal the trainer without a mesh in "
+            f"{nccl['trainer']['equal_arrays']} arrays; build_engine(mesh=) equals phase 19's "
+            f"eager ResNet-18 engine bit for bit, K1 {nccl['engine']['launches']} launches "
+            f"over the build and a call ({res['nccl_seconds']:.1f} s)")
+        k1 = nccl["engine"]["launches"]
+    else:
+        k1 = nccl[f"dp{world}_tp1"]["engine"]["launches"]
+        one = nccl["single_card"]
+        for key in (f"dp{world}_tp1", f"dp{world // 2}_tp2"):
+            r = nccl[key]
+            log(json.dumps({"phase": 21, "mesh": key, "card": card, **{
+                f"train_b{b}_img_s": r[f"train_b{b}"]["img_s"] for b in PAR_BATCHES}, **{
+                f"train_b{b}_vs_one_card": r[f"train_b{b}"]["img_s"]
+                / one[f"train_b{b}"]["img_s"] for b in PAR_BATCHES},
+                "engine_eager_img_s": r["engine"]["eager_img_s"],
+                "engine_call_img_s": r["engine"]["call_img_s"],
+                "engine_bit_equal": r["engine"]["bit_equal"],
+                "repeat_arrays_differ": r["repeat_arrays_differ"],
+                "nccl_share": r.get("nccl", {}).get("nccl_share")}))
+        log(json.dumps({"phase": 21, "mesh": "one card", "card": card, **{
+            f"train_b{b}_img_s": one[f"train_b{b}"]["img_s"] for b in PAR_BATCHES},
+            "engine_eager_img_s": one["engine"]["eager_img_s"],
+            "engine_call_img_s": one["engine"]["call_img_s"]}))
+    st = gloo["step"]
+    log(f"parallel (gloo, two ranks on card 0): the DP step of full-width NIN-GC at 2 x "
+        f"{TRAIN_BATCH // 2} against one process at {TRAIN_BATCH}, block by block: loss rel "
+        f"diff {st['loss_rel_diff']:.2e}, max|diff| out {st['max_abs_out']:.2e}, input grads "
+        f"{st['max_abs_gx']:.2e}, grads {st['max_abs_grad']:.2e} "
+        f"({st['max_abs_grad'] / st['gmax']:.2e} x max|g| {st['gmax']:.2e}), "
+        f"state {st['max_abs_state']:.2e}; {st['channels_at_an_edge']} channels at an edge "
+        f"left out; engine dp=2 bit-equal, tp=2 max|diff| "
+        f"{gloo['engine_tp']['max_abs_diff']:.3e} ({res['gloo_seconds']:.1f} s)")
+    return k1
+
+
+def card_name() -> str:
+    """Card 0's name and power limit, as ``nvidia-smi`` gives them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader", "-i", "0"],
+                         capture_output=True, text=True, timeout=60, check=True)
+    return smi.stdout.strip()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3703,10 +4262,7 @@ def main() -> int:
 
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader", "-i", "0"],
-                         capture_output=True, text=True, timeout=60, check=True)
-    card = smi.stdout.strip()
+    card = card_name()
     log(card)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3759,6 +4315,7 @@ def main() -> int:
     # phase 19 runs here, before --profile's traces: after them, its replay
     # traces lost kernels
     k1_phase19 = deploy(engines, dev, args.seed, out_dir, card, report, profile_dir)
+    shared = keep_parallel_engine(engines["resnet18_w8a8"]["engine"], dev, args.seed, out_dir)
     del engines
     k1_op = k1_operator_times(dev, gen, report)
     for run in later:
@@ -3775,6 +4332,8 @@ def main() -> int:
     upcat_engines(dev, args.seed, report, profile_dir)
     dec_launches = serve_decoder(dev, args.seed, card, report, profile_dir)
     training_lowerings(dev, args.seed, out_dir, card, report, train_res)
+    torch.cuda.empty_cache()
+    k1_phase21 = parallel(dev, args.seed, shared, card, report, args.profile)
 
     src = "micronet_tpu_torch/ops/csrc/"
     long_per = (f"one call, G={ATT_G} R={ATT_R} D={ATT_D} S={LONG_CTX}, bounds 0..{LONG_CTX}")
@@ -3814,8 +4373,11 @@ def main() -> int:
                  "count over the ResNet-18 deploy path (two warm-up forwards and one capture "
                  "a bucket; a CUDA graph's replay runs it once by torch.profiler and counts "
                  "nothing); operator the wrapper through the registered operator, the same "
-                 "launch without it and one call in a replayed graph, by events",
-             launches_phase15=k1_phase15, launches_phase19=k1_phase19, operator=k1_op,
+                 "launch without it and one call in a replayed graph, by events; "
+                 "launches_phase21 its count on NCCL rank 0 over the sharded engine's build "
+                 "(two warm-ups and a capture of one bucket) and a call (phase 21)",
+             launches_phase15=k1_phase15, launches_phase19=k1_phase19,
+             launches_phase21=k1_phase21, operator=k1_op,
              **k1_row),
         dict(name="decode_attend_q8kv_blocked_cur", route="cuda",
              source=src + "decode_attention.cu",

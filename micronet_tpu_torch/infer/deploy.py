@@ -22,8 +22,17 @@ utilities, ``deploy/tensorrt/util_trt.py``).
   name and compute capability, and refuses to load elsewhere, as a JAX
   artifact refuses another platform.
 
-Not ported yet (ROADMAP.md, Queue 1 item 1: parallelism): sharded serving
-(``mesh=``).
+- sharded serving (``mesh=``, a ``parallel.make_mesh`` mesh; one process
+  per card, each building the same engine): the engine's state is
+  channel-sharded over the ``model`` axis (``parallel.shard_state``),
+  buckets round up to a multiple of the ``data`` axis, and every rank is
+  called with the same global batch, runs its rows and returns the whole
+  output (gathered over ``data``), as the JAX engine returns a global
+  array. On the card each bucket is still one CUDA graph at the rank's
+  rows, with the channel gathers captured inside it where NCCL carries
+  them; gloo collectives cannot be captured, so over gloo a
+  channel-sharded engine runs its buckets eagerly. The gather of the
+  output rows stays outside the graph.
 """
 
 from __future__ import annotations
@@ -41,6 +50,8 @@ from torch import nn
 from .._device import resolve_device
 from ..nn.modules import eval_mode
 from ..ops import int_matmul  # noqa: F401  (registers the K1/K2 operators)
+from ..parallel.distributed import _gather_parts
+from ..parallel.sharding import axis_size, check_mesh, shard_batch, shard_state
 from .engine import _no_tf32
 
 __all__ = [
@@ -99,6 +110,8 @@ class CompiledEngine:
     Calls pick the smallest covering bucket; oversized batches run in
     largest-bucket chunks; the padded tail rows are sliced away. Each call
     returns a new tensor (a replay overwrites its bucket's static output).
+    With ``mesh`` (module docstring) the model is sharded in place and a
+    bucket's graph runs the rank's rows of it.
     """
 
     def __init__(
@@ -110,25 +123,33 @@ class CompiledEngine:
         mesh=None,
         device=None,
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "sharded serving (mesh=) is not ported yet (ROADMAP.md, Queue 1 item 1: "
-                "parallelism)")
         if not buckets:
             raise ValueError("need at least one batch bucket")
+        if mesh is not None:
+            check_mesh(mesh)
         dev, self.device = resolve_device(device), _model_device(model)
         if self.device.type != dev.type:
             raise ValueError(f"the model lives on {self.device}, not on {dev}")
         self.model = eval_mode(model)
+        self.mesh = mesh
+        self._data = 1
+        capture = self.device.type == "cuda"
+        if mesh is not None:
+            shard_state(self.model, mesh)
+            self._data = axis_size(mesh, "data")
+            buckets = [-(-int(b) // self._data) * self._data for b in buckets]
+            capture = capture and (axis_size(mesh, "model") == 1
+                                   or torch.distributed.get_backend() == "nccl")
         self.buckets = tuple(sorted(set(int(b) for b in buckets)))
         self.example_shape = tuple(example_shape)
         self.dtype = dtype
         self._flops: Optional[Dict[int, float]] = None
         # bucket -> (graph, static input, static output), on the card only
         self._graphs = {}
-        if self.device.type == "cuda":
+        if capture:
             for b in self.buckets:
-                x = torch.zeros((b, *self.example_shape), dtype=dtype, device=self.device)
+                x = torch.zeros((b // self._data, *self.example_shape), dtype=dtype,
+                                device=self.device)
                 self._warm(x)
                 self._graphs[b] = self._capture(x)
 
@@ -156,15 +177,27 @@ class CompiledEngine:
 
     def _run_bucket(self, b: int, x: torch.Tensor) -> torch.Tensor:
         n = x.shape[0]
+        if self.mesh is not None:
+            # the rank's rows of the padded bucket, then every rank's output
+            if n < b:
+                x = torch.cat([x, x.new_zeros((b - n, *self.example_shape))])
+            y = self._run_rows(b, shard_batch(x, self.mesh))
+            return torch.cat(_gather_parts(y, self.mesh.get_group("data")))[:n]
+        return self._run_rows(b, x)
+
+    def _run_rows(self, b: int, x: torch.Tensor) -> torch.Tensor:
+        """The first ``len(x)`` rows of bucket ``b``'s forward (on this rank:
+        ``b`` over the data axis rows), zeros padding the rest."""
+        n, rows = x.shape[0], b // self._data
         if b in self._graphs:
             graph, sx, sy = self._graphs[b]
             sx[:n].copy_(x)
-            if n < b:
+            if n < rows:
                 sx[n:].zero_()
             graph.replay()
             return sy[:n].clone()
-        if n < b:
-            x = torch.cat([x, x.new_zeros((b - n, *self.example_shape))])
+        if n < rows:
+            x = torch.cat([x, x.new_zeros((rows - n, *self.example_shape))])
         with torch.no_grad():
             return self.model(x)[:n]
 
@@ -182,14 +215,16 @@ class CompiledEngine:
     def flops(self) -> dict:
         """Per-bucket operation counts of one forward, from
         ``torch.utils.flop_counter.FlopCounterMode`` over an eager forward
-        on zeros (on the card that forward launches the kernels)."""
+        on zeros (on the card that forward launches the kernels); under a
+        mesh, this rank's forward of its rows."""
         if self._flops is None:
             from torch.utils.flop_counter import FlopCounterMode
 
             _register_flop_formulas()
             self._flops = {}
             for b in self.buckets:
-                x = torch.zeros((b, *self.example_shape), dtype=self.dtype, device=self.device)
+                x = torch.zeros((b // self._data, *self.example_shape), dtype=self.dtype,
+                                device=self.device)
                 with torch.no_grad(), FlopCounterMode(display=False) as counter:
                     self.model(x)
                 self._flops[b] = float(counter.get_total_flops())
@@ -205,7 +240,8 @@ def build_engine(
     device=None,
 ) -> CompiledEngine:
     """TRT ``get_engine`` analog: profile = (min, opt, max) batch. ``opt``
-    is guaranteed its own exact bucket; min/max bound the ladder."""
+    is guaranteed its own exact bucket; min/max bound the ladder; ``mesh``
+    shards it (:class:`CompiledEngine`)."""
     lo, opt, hi = profile
     buckets = sorted(set(profile_buckets(lo, hi)) | {int(opt)})
     return CompiledEngine(model, buckets, example_shape, dtype, mesh=mesh, device=device)

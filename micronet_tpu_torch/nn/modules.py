@@ -23,6 +23,7 @@ import torch
 from torch import nn
 
 from .._device import resolve_device
+from ..parallel.distributed import batch_moments
 from . import functional as F
 from .functional import IntPair, _pair
 
@@ -149,7 +150,9 @@ class Linear(nn.Module):
 class BatchNorm2d(nn.Module):
     """Batch normalization over NCHW: normalizes with the biased batch
     variance, updates ``running_var`` with the unbiased one,
-    ``running = (1 - momentum) * running + momentum * batch``."""
+    ``running = (1 - momentum) * running + momentum * batch``. Under a
+    ``parallel.distributed.batch_reduction`` the batch moments are those
+    of the global batch (the port's SyncBatchNorm)."""
 
     def __init__(self, num_features: int, eps: float = 1e-5, momentum: float = 0.1, *,
                  device: Device = None):
@@ -165,10 +168,7 @@ class BatchNorm2d(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
-            x32 = x.to(torch.float32)
-            mean = torch.mean(x32, dim=(0, 2, 3))
-            var = torch.var(x32, dim=(0, 2, 3), unbiased=False)
-            n = x.shape[0] * x.shape[2] * x.shape[3]
+            mean, var, n = batch_moments(x.to(torch.float32), (0, 2, 3))
             unbiased = var * (n / max(n - 1, 1))
             m = self.momentum
             with torch.no_grad():

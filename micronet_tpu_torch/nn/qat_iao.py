@@ -43,6 +43,7 @@ import torch
 from torch import nn
 
 from .._device import resolve_device
+from ..parallel.distributed import batch_group, batch_moments
 from ..quant.config import QuantConfig
 from ..quant.observers import (EntropyState, HistogramState, MinMaxState, ema_minmax_update,
                                entropy_update, histogram_update, minmax_update)
@@ -117,13 +118,23 @@ class FakeQuantizer(nn.Module):
                                  f"quantizers are layer-level; got stat_shape={shape}")
             self.register_buffer("ent_counts", torch.zeros(entropy_bins, device=dev))
             self.register_buffer("ent_absmax", torch.zeros((), device=dev))
+        # the model group when this quantizer sees a channel slice of its
+        # tensor under tensor parallelism (set by ``parallel.shard_state``)
+        self.shard_group = None
+
+    def _groups(self):
+        """What a statistic reduces over: the batch group of the enclosing
+        ``parallel.distributed.batch_reduction`` (activations only: a
+        weight is whole on every data rank) and ``shard_group``."""
+        return (None if self.is_weight else batch_group(), self.shard_group)
 
     @torch.no_grad()
     def observe(self, x: torch.Tensor) -> None:
         """Update the observer's statistics from a batch."""
+        group = self._groups()
         if self.observer == "entropy":
             est = entropy_update(EntropyState(self.ent_counts, self.ent_absmax,
-                                              self.initialized), x)
+                                              self.initialized), x, group)
             self.ent_counts.copy_(est.counts)
             self.ent_absmax.copy_(est.absmax)
             self.initialized.copy_(est.initialized)
@@ -131,13 +142,13 @@ class FakeQuantizer(nn.Module):
         if self.observer == "histogram":
             state = histogram_update(HistogramState(self.min_val, self.max_val,
                                                     self.initialized),
-                                     x, self.percentile, self.momentum)
+                                     x, self.percentile, self.momentum, group)
         else:
             state = MinMaxState(self.min_val, self.max_val, self.initialized)
             if self.observer == "minmax":
-                state = minmax_update(state, x, self.axes)
+                state = minmax_update(state, x, self.axes, group)
             else:
-                state = ema_minmax_update(state, x, self.axes, self.momentum)
+                state = ema_minmax_update(state, x, self.axes, self.momentum, group)
         self.min_val.copy_(state.min_val)
         self.max_val.copy_(state.max_val)
         self.initialized.copy_(state.initialized)
@@ -417,10 +428,12 @@ class QuantBNFuseConv2d(Conv2d):
         return w if self.quant_inference else self.weight_quantizer(w)
 
     @staticmethod
-    def _unbiased_var(out: torch.Tensor) -> torch.Tensor:
-        n = out.shape[0] * out.shape[2] * out.shape[3]
-        return torch.var(out.to(torch.float32), dim=(0, 2, 3), unbiased=False) * (
-            n / max(n - 1, 1))
+    def _moments(out: torch.Tensor):
+        """The batch mean and unbiased variance (``* n / (n - 1)``) of the
+        pre-BN output in f32, over the global batch under a
+        ``parallel.distributed.batch_reduction``."""
+        mean, var, n = batch_moments(out, (0, 2, 3))
+        return mean, var * (n / max(n - 1, 1))
 
     @torch.no_grad()
     def _update_running(self, batch_mean, batch_var):
@@ -450,13 +463,12 @@ class QuantBNFuseConv2d(Conv2d):
                 # the statistics conv's output feeds only the reductions: bf16
                 # operands and output, f32 sums, the bias folded into the mean
                 out_f = self._conv(x.to(torch.bfloat16), w.to(torch.bfloat16), None)
-                batch_mean = torch.mean(out_f, dim=(0, 2, 3), dtype=torch.float32)
+                batch_mean, batch_var = self._moments(out_f)
                 if b is not None:
                     batch_mean = batch_mean + b
             else:
                 out_f = self._conv(x, w, b).to(torch.float32)
-                batch_mean = torch.mean(out_f, dim=(0, 2, 3))
-            batch_var = self._unbiased_var(out_f)
+                batch_mean, batch_var = self._moments(out_f)
             _, new_var = self._update_running(batch_mean, batch_var)
             inv_batch = gamma / F.sqrt(batch_var + self.eps)
             bias_fused = _fold_bias(beta, b, batch_mean, inv_batch)
@@ -485,10 +497,11 @@ class QuantBNFuseConv2d(Conv2d):
         inv_run = gamma / F.sqrt(run_var + eps)
         safe = torch.where(inv_run.abs() < 1e-12, 1e-12, inv_run)
         acc = self._qconv(x, self.weight_quantizer(w * _per_out(inv_run)), None)
-        batch_mean = torch.mean(acc, dim=(0, 2, 3), dtype=torch.float32) / safe
+        acc_mean, acc_var = self._moments(acc)
+        batch_mean = acc_mean / safe
         if b is not None:
             batch_mean = batch_mean + b
-        batch_var = self._unbiased_var(acc) / torch.square(safe)
+        batch_var = acc_var / torch.square(safe)
         self._update_running(batch_mean, batch_var)
         bias_fused = _fold_bias(beta, b, batch_mean, gamma / F.sqrt(batch_var + eps))
         corr = F.sqrt(run_var + eps) / F.sqrt(batch_var + eps)

@@ -10,10 +10,13 @@ so an edited source never loads a stale library.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch; the
 wrappers pass that code to :func:`check`, which raises on anything but 0.
+A C entry point launches on the current card, so each wrapper makes its
+tensors' card current around the call (:func:`on_card`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -27,7 +30,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 __all__ = ["SOURCES", "CSRC", "BUILD_DIR", "load", "build_all", "check", "check_operand",
-           "sm_count"]
+           "sm_count", "on_card"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -136,6 +139,16 @@ def _sm_count(index: int) -> int:
 def sm_count(device: torch.device) -> int:
     """The card's number of SMs, read once per card."""
     return _sm_count(torch.cuda.current_device() if device.index is None else device.index)
+
+
+def on_card(device: torch.device):
+    """A context in which ``device`` is the current card, for a launch
+    through ctypes (which runs on the current card whatever its pointers'
+    card). Nothing is entered when it is current already, so a decode
+    step on one card pays only the query."""
+    if device.index is None or torch.cuda.current_device() == device.index:
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
 
 
 def check(rc: int, what: str) -> None:

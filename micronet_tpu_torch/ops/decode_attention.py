@@ -213,13 +213,14 @@ def _launch(k_codes, k_scale, v_codes, v_scale, q, bound, cur, name):
     scratch = torch.empty((n_scratch,), dtype=torch.float32, device=dev) if n_scratch else None
     ptrs = [0, 0, 0, 0] if cur is None else [t.data_ptr() for t in cur]
     lib = _build.load("decode_attention", _LIB_SIGNATURES)
-    rc = lib.mn_decode_attend_q8kv(
-        k_codes.data_ptr(), k_scale.data_ptr(), v_codes.data_ptr(),
-        v_scale.data_ptr(), q3.data_ptr(), bound.data_ptr(), *ptrs,
-        out.data_ptr(), 0 if scratch is None else scratch.data_ptr(), n_scratch,
-        g, s, d, r, int(cur is not None), cluster, lmax,
-        torch._C._cuda_getCurrentRawStream(dev.index),
-    )
+    with _build.on_card(dev):
+        rc = lib.mn_decode_attend_q8kv(
+            k_codes.data_ptr(), k_scale.data_ptr(), v_codes.data_ptr(),
+            v_scale.data_ptr(), q3.data_ptr(), bound.data_ptr(), *ptrs,
+            out.data_ptr(), 0 if scratch is None else scratch.data_ptr(), n_scratch,
+            g, s, d, r, int(cur is not None), cluster, lmax,
+            torch._C._cuda_getCurrentRawStream(dev.index),
+        )
     _build.check(rc, name)
     return out if q.dim() == 3 else out[:, 0, :]
 

@@ -363,7 +363,9 @@ def _plain_call(fn: str, x: torch.Tensor, packed: torch.Tensor, scale: torch.Ten
     args = (x.data_ptr(), packed.data_ptr(), scale.data_ptr(), out.data_ptr(),
             None if ws is None else ws.data_ptr(),
             None if counters is None else counters.data_ptr(), m, k, n)
-    rc = launch(*args, group, splits, mb, stream) if group else launch(*args, splits, mb, stream)
+    with _build.on_card(dev):
+        rc = (launch(*args, group, splits, mb, stream) if group
+              else launch(*args, splits, mb, stream))
     _build.check(rc, fn[3:])
     return out
 
@@ -380,8 +382,10 @@ def _gemm_call(x: torch.Tensor, packed: torch.Tensor, gscale: torch.Tensor,
     mp = -(-m // _GEMM_ROWS) * _GEMM_ROWS
     xb = torch.empty(2 * mp * (k // 2), dtype=torch.bfloat16, device=x.device)
     out = x.new_empty((m, n))
-    rc = launch(x.data_ptr(), packed.data_ptr(), gscale.data_ptr(), out.data_ptr(),
-                xb.data_ptr(), m, k, n, group, torch._C._cuda_getCurrentRawStream(x.device.index))
+    with _build.on_card(x.device):
+        rc = launch(x.data_ptr(), packed.data_ptr(), gscale.data_ptr(), out.data_ptr(),
+                    xb.data_ptr(), m, k, n, group,
+                    torch._C._cuda_getCurrentRawStream(x.device.index))
     _build.check(rc, "int4_matmul_grouped_hl8_gemm")
     return out
 

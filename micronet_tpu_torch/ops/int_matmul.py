@@ -181,14 +181,15 @@ def _small_call(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor, quant
     lib = lib or _build.load("int_matmul", _LIB_SIGNATURES)
     out = x.new_empty((m, n))
     stream = torch._C._cuda_getCurrentRawStream(x.device.index)
-    if quant is None:
-        rc = lib.mn_binary_act_matmul_small(x.data_ptr(), w_q.data_ptr(), ws.data_ptr(),
-                                            out.data_ptr(), m, k, n, stream)
-    else:
-        s_x, zp, qmin, qmax = quant
-        rc = lib.mn_int8_matmul_dequant_small(x.data_ptr(), w_q.data_ptr(), ws.data_ptr(),
-                                              s_x.data_ptr(), zp.data_ptr(), out.data_ptr(),
-                                              m, k, n, qmin, qmax, stream)
+    with _build.on_card(x.device):
+        if quant is None:
+            rc = lib.mn_binary_act_matmul_small(x.data_ptr(), w_q.data_ptr(), ws.data_ptr(),
+                                                out.data_ptr(), m, k, n, stream)
+        else:
+            s_x, zp, qmin, qmax = quant
+            rc = lib.mn_int8_matmul_dequant_small(x.data_ptr(), w_q.data_ptr(), ws.data_ptr(),
+                                                  s_x.data_ptr(), zp.data_ptr(),
+                                                  out.data_ptr(), m, k, n, qmin, qmax, stream)
     _build.check(rc, "int_matmul small regime")
     return out
 
@@ -205,17 +206,18 @@ def _gemm_call(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor, quant=
     wt = x.new_empty(plan["wt"], dtype=torch.int8)
     out = x.new_empty((m, n))
     stream = torch._C._cuda_getCurrentRawStream(x.device.index)
-    if quant is None:
-        rc = lib.mn_binary_act_matmul_gemm(x.data_ptr(), w_q.data_ptr(), ws.data_ptr(),
-                                           out.data_ptr(), codes.data_ptr(), wt.data_ptr(),
-                                           m, k, n, stream)
-    else:
-        s_x, zp, qmin, qmax = quant
-        colsum = x.new_empty((n,), dtype=torch.int32)
-        rc = lib.mn_int8_matmul_dequant_gemm(x.data_ptr(), w_q.data_ptr(), ws.data_ptr(),
-                                             s_x.data_ptr(), zp.data_ptr(), out.data_ptr(),
-                                             codes.data_ptr(), wt.data_ptr(), colsum.data_ptr(),
-                                             m, k, n, qmin, qmax, stream)
+    colsum = None if quant is None else x.new_empty((n,), dtype=torch.int32)
+    with _build.on_card(x.device):
+        if quant is None:
+            rc = lib.mn_binary_act_matmul_gemm(x.data_ptr(), w_q.data_ptr(), ws.data_ptr(),
+                                               out.data_ptr(), codes.data_ptr(), wt.data_ptr(),
+                                               m, k, n, stream)
+        else:
+            s_x, zp, qmin, qmax = quant
+            rc = lib.mn_int8_matmul_dequant_gemm(x.data_ptr(), w_q.data_ptr(), ws.data_ptr(),
+                                                 s_x.data_ptr(), zp.data_ptr(), out.data_ptr(),
+                                                 codes.data_ptr(), wt.data_ptr(),
+                                                 colsum.data_ptr(), m, k, n, qmin, qmax, stream)
     _build.check(rc, "int_matmul GEMM regime")
     return out
 

@@ -116,12 +116,13 @@ def _launch(k_codes, k_scale, v_codes, v_scale, page_table, lengths, q, cur):
     scratch = torch.empty((n_scratch,), dtype=torch.float32, device=dev) if n_scratch else None
     ptrs = [0, 0, 0, 0] if cur is None else [t.data_ptr() for t in cur]
     lib = _build.load("paged_attention", _LIB_SIGNATURES)
-    rc = lib.mn_paged_decode_attend(
-        k_codes.data_ptr(), k_scale.data_ptr(), v_codes.data_ptr(), v_scale.data_ptr(),
-        q.data_ptr(), page_table.data_ptr(), lengths.data_ptr(), *ptrs, out.data_ptr(),
-        0 if scratch is None else scratch.data_ptr(), n_scratch, slots, h, page, mp, d, r,
-        int(cur is not None), cluster, lmax, torch._C._cuda_getCurrentRawStream(dev.index),
-    )
+    with _build.on_card(dev):
+        rc = lib.mn_paged_decode_attend(
+            k_codes.data_ptr(), k_scale.data_ptr(), v_codes.data_ptr(), v_scale.data_ptr(),
+            q.data_ptr(), page_table.data_ptr(), lengths.data_ptr(), *ptrs, out.data_ptr(),
+            0 if scratch is None else scratch.data_ptr(), n_scratch, slots, h, page, mp, d, r,
+            int(cur is not None), cluster, lmax, torch._C._cuda_getCurrentRawStream(dev.index),
+        )
     _build.check(rc, "paged_decode_attend" + ("_cur" if cur is not None else ""))
     return out
 

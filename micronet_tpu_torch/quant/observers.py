@@ -8,6 +8,14 @@ per-tensor ``(1,)``, per-out-channel conv weights ``(O, 1, 1, 1)`` over
 the port's OIHW axes (1, 2, 3), per-column linear weights ``(1, O)`` over
 the (in, out) axis 0. The first batch overwrites instead of merging.
 
+``group`` is the counterpart of the JAX observers' ``axis_name``: None,
+a process group or several (``parallel.distributed``). With it the
+batch's statistic is global over the group, as XLA makes it under GSPMD:
+min and max by MIN and MAX, the percentile as the k-th |x| of the ranks'
+gathered |x| (exact, where the JAX ``shard_map`` path takes the max of
+the ranks' percentiles), the entropy range by MAX and the batch's counts
+by SUM. Every rank then holds the same state.
+
 The entropy histogram counts each batch exactly (``torch.bincount``),
 then adds it to the stored f32 counts. The JAX package scatter-adds 1.0
 in f32, which stops counting a bin at 2^24 within one batch; the two
@@ -22,6 +30,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
+from ..parallel.distributed import Groups, all_reduce_, gather_flat, groups_of
 from .rounding import true_div
 
 __all__ = [
@@ -56,21 +65,25 @@ def init_minmax_state(stat_shape: Sequence[int] = (1,), device=None) -> MinMaxSt
 
 
 def reduce_min_max(x: torch.Tensor, axes: Optional[Sequence[int]] = None,
-                   stat_shape: Sequence[int] = (1,)) -> Tuple[torch.Tensor, torch.Tensor]:
-    """This batch's min and max over ``axes``, shaped as ``stat_shape``."""
+                   stat_shape: Sequence[int] = (1,),
+                   group: Groups = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """This batch's min and max over ``axes`` (and over ``group``), shaped
+    as ``stat_shape``."""
     x = x.detach().to(torch.float32)
     if axes is None:
         cur_min, cur_max = torch.min(x), torch.max(x)
     else:
         cur_min = torch.amin(x, dim=tuple(axes), keepdim=True)
         cur_max = torch.amax(x, dim=tuple(axes), keepdim=True)
+    if groups_of(group):
+        cur_min, cur_max = all_reduce_(cur_min, "min", group), all_reduce_(cur_max, "max", group)
     return cur_min.reshape(tuple(stat_shape)), cur_max.reshape(tuple(stat_shape))
 
 
 def minmax_update(state: MinMaxState, x: torch.Tensor,
-                  axes: Optional[Sequence[int]] = None) -> MinMaxState:
+                  axes: Optional[Sequence[int]] = None, group: Groups = None) -> MinMaxState:
     """Cumulative min/max; the first batch overwrites."""
-    cur_min, cur_max = reduce_min_max(x, axes, state.min_val.shape)
+    cur_min, cur_max = reduce_min_max(x, axes, state.min_val.shape, group)
     init = state.initialized
     return MinMaxState(
         torch.where(init, torch.minimum(cur_min, state.min_val), cur_min),
@@ -81,9 +94,9 @@ def minmax_update(state: MinMaxState, x: torch.Tensor,
 
 def ema_minmax_update(state: MinMaxState, x: torch.Tensor,
                       axes: Optional[Sequence[int]] = None,
-                      momentum: float = 0.1) -> MinMaxState:
+                      momentum: float = 0.1, group: Groups = None) -> MinMaxState:
     """``(1 - m) * stored + m * current``; the first batch overwrites."""
-    cur_min, cur_max = reduce_min_max(x, axes, state.min_val.shape)
+    cur_min, cur_max = reduce_min_max(x, axes, state.min_val.shape, group)
     ema_min = (1.0 - momentum) * state.min_val + momentum * cur_min
     ema_max = (1.0 - momentum) * state.max_val + momentum * cur_max
     init = state.initialized
@@ -108,21 +121,24 @@ def init_histogram_state(stat_shape: Sequence[int] = (1,), device=None) -> Histo
     return HistogramState(s.min_val, s.max_val, s.initialized)
 
 
-def percentile_absmax(x: torch.Tensor, percentile: float) -> torch.Tensor:
+def percentile_absmax(x: torch.Tensor, percentile: float, group: Groups = None) -> torch.Tensor:
     """The k-th smallest of |x|, ``k = int(percentile * N)`` clipped to
     [1, N], taken as the (N - k + 1)-th largest through ``torch.topk``
-    (``torch.quantile`` refuses more than 2^24 elements)."""
+    (``torch.quantile`` refuses more than 2^24 elements); over ``group``
+    the ranks' |x| are gathered first, so N counts the global batch."""
     flat = torch.abs(x.detach().reshape(-1)).to(torch.float32)
+    if groups_of(group):
+        flat = gather_flat(flat, group)
     n = flat.shape[0]
     k = max(min(int(percentile * n), n), 1)
     return torch.topk(flat, n - k + 1, largest=True, sorted=True).values[-1]
 
 
 def histogram_update(state: HistogramState, x: torch.Tensor, percentile: float = 0.9999,
-                     momentum: float = 0.1) -> HistogramState:
+                     momentum: float = 0.1, group: Groups = None) -> HistogramState:
     """EMA of the per-batch percentile |x|; the first batch overwrites;
     ``min_val`` is left as it is."""
-    cur = percentile_absmax(x, percentile).reshape(state.max_val.shape)
+    cur = percentile_absmax(x, percentile, group).reshape(state.max_val.shape)
     ema = (1.0 - momentum) * state.max_val + momentum * cur
     init = state.initialized
     return HistogramState(state.min_val, torch.where(init, ema, cur), torch.ones_like(init))
@@ -173,15 +189,21 @@ def _rescale_counts(counts: torch.Tensor, ratio: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def entropy_update(state: EntropyState, x: torch.Tensor) -> EntropyState:
+def entropy_update(state: EntropyState, x: torch.Tensor, group: Groups = None) -> EntropyState:
     """Add one batch to the |x| histogram; when the batch widens the range,
-    the stored counts move onto the wider grid first."""
+    the stored counts move onto the wider grid first. Over ``group`` the
+    range is the ranks' MAX and the batch's counts their SUM (every rank
+    holds the same stored state, so only the batch reduces)."""
     x = x.detach()
     bins = state.counts.shape[0]
     cur_max = torch.max(torch.abs(x)).to(torch.float32)
+    if groups_of(group):
+        cur_max = all_reduce_(cur_max, "max", group)
     new_max = torch.maximum(state.absmax, cur_max)
     one = torch.ones((), dtype=torch.float32, device=x.device)
     ratio = torch.where(new_max > 0, state.absmax / torch.clamp_min(new_max, 1e-30), one)
     old = torch.where(ratio >= 1.0 - 1e-12, state.counts, _rescale_counts(state.counts, ratio))
-    return EntropyState(old + _hist_absx(x, new_max, bins), new_max,
-                        torch.ones_like(state.initialized))
+    batch = _hist_absx(x, new_max, bins)
+    if groups_of(group):
+        batch = all_reduce_(batch, "sum", group)
+    return EntropyState(old + batch, new_max, torch.ones_like(state.initialized))

@@ -29,8 +29,22 @@ would not give the same trained net on the card, as the JAX package's
 does. ``remat`` recomputes the whole forward in the backward
 (``torch.utils.checkpoint``, as ``nnx.remat`` wraps it in the JAX
 package), from the observer and BN statistics as they were before the
-forward. Not ported: ``mesh=`` (data parallelism), which raises, naming
-its ROADMAP item.
+forward.
+
+``mesh=`` (a ``parallel.make_mesh`` mesh; one process per card, each
+with its own ``Trainer`` built the same way) runs data and tensor
+parallelism, the counterpart of the JAX trainer's GSPMD step: the model
+and Adam's moments are channel-sharded over the ``model`` axis
+(``parallel.shard_model_and_optimizer``); every rank draws the global
+batch's permutation and augmentation from the one seeded generator and
+takes its rows (``parallel.shard_batch``); the observers and BN batch
+statistics are global over the ``data`` axis (a
+``parallel.distributed.batch_reduction`` around the step; a ragged,
+replicated batch reduces over nothing); after the backward one flat
+all-reduce averages the gradients (with the loss and accuracy) over the
+``data`` axis, so every rank takes the same update. Eval sums its counts
+over the axis. Only rank 0 logs and writes metrics and checkpoints (the
+whole state, gathered from every rank: ``parallel.unsharded``).
 """
 
 from __future__ import annotations
@@ -43,12 +57,16 @@ from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as TF
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device
 from ..nn.modules import eval_mode, train_mode
+from ..parallel.distributed import all_reduce_, batch_group, batch_reduction
+from ..parallel.sharding import (batch_group_for, check_mesh, shard_batch,
+                                 shard_model_and_optimizer, unsharded)
 from ..utils.metrics import MetricsLogger
 from . import data as data_lib
 from .checkpoint import save_state, save_state_async, wait_for_saves
@@ -122,9 +140,11 @@ def _remat_forward(model: nn.Module, x: torch.Tensor) -> torch.Tensor:
     ranges and qparams, BN running statistics); the recompute runs on
     copies of them as they were before the forward and leaves the
     forward's own in place afterwards, so the observers update once and a
-    remat step equals a plain step."""
+    remat step equals a plain step. The recompute (on the backward's
+    thread) reduces its batch statistics over the forward's batch group."""
     before = [(m, name, buf.clone()) for m in model.modules()
               for name, buf in m.named_buffers(recurse=False)]
+    group = batch_group()
 
     @contextlib.contextmanager
     def from_before():
@@ -137,8 +157,13 @@ def _remat_forward(model: nn.Module, x: torch.Tensor) -> torch.Tensor:
             for m, name, buf in after:
                 setattr(m, name, buf)
 
+    @contextlib.contextmanager
+    def recompute():
+        with from_before(), batch_reduction(group):
+            yield
+
     return checkpoint(model, x, use_reentrant=False,
-                      context_fn=lambda: (contextlib.nullcontext(), from_before()))
+                      context_fn=lambda: (contextlib.nullcontext(), recompute()))
 
 
 class _StepClock:
@@ -175,18 +200,21 @@ class Trainer:
     def __init__(self, model: nn.Module, cfg: TrainConfig,
                  dataset: Optional[data_lib.Cifar10] = None, mesh=None, *, device=None):
         if mesh is not None:
-            raise NotImplementedError(
-                "data-parallel training (mesh=) is not ported yet (ROADMAP.md, Queue 1 "
-                "item 1: parallelism)")
+            check_mesh(mesh)
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.cfg = cfg
-        self.metrics = MetricsLogger(cfg.metrics_path)
+        self.mesh = mesh
+        # rank 0 logs and writes metrics and checkpoints
+        self.writer = mesh is None or dist.get_rank() == 0
+        self.metrics = MetricsLogger(cfg.metrics_path if self.writer else None)
         self.data = dataset or data_lib.load_cifar10()
         self.best_acc = 0.0
         self.epoch = 0
         self.params = list(model.parameters())
         self.optimizer = Adam(self.params, lr=cfg.lr, weight_decay=cfg.weight_decay)
+        if mesh is not None:
+            shard_model_and_optimizer(self.model, self.optimizer, mesh)
         self.gen = torch.Generator().manual_seed(cfg.seed)
         self.grad_hook: Optional[Callable[[nn.Module], None]] = None
         self._dev_data = None
@@ -197,10 +225,46 @@ class Trainer:
         logits = _remat_forward(self.model, x) if self.cfg.remat else self.model(x)
         return TF.cross_entropy(logits, labels), logits
 
+    def _local(self, x: torch.Tensor, labels: torch.Tensor):
+        """This rank's rows of a global batch and the group its statistics
+        reduce over (None without a mesh, or for a replicated batch)."""
+        if self.mesh is None:
+            return x, labels, None
+        return (shard_batch(x, self.mesh), shard_batch(labels, self.mesh),
+                batch_group_for(x.shape[0], self.mesh))
+
+    @staticmethod
+    def _mean_over(group, tensors):
+        """Each tensor averaged over ``group`` in place, through one flat
+        all-reduce (a SUM, then the division)."""
+        flat = all_reduce_(torch.cat([t.reshape(-1) for t in tensors]), "sum", group)
+        flat = flat / dist.get_world_size(group)
+        i = 0
+        for t in tensors:
+            t.copy_(flat[i:i + t.numel()].view_as(t))
+            i += t.numel()
+
     @_deterministic
     def train_step(self, x: torch.Tensor, labels: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """One optimizer step on the augmented batch ``x``; returns the
-        (mean loss, accuracy) as device tensors."""
+        """One optimizer step on the augmented (global) batch ``x``; returns
+        the (mean loss, accuracy) as device tensors."""
+        x, labels, group = self._local(x, labels)
+        with batch_reduction(group):
+            loss, acc = self._backward(x, labels)
+        for p in self.params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        if group is not None:
+            loss, acc = loss.clone(), acc.clone()
+            self._mean_over(group, [p.grad for p in self.params] + [loss, acc])
+        if self.grad_hook is not None:
+            self.grad_hook(self.model)
+        self.optimizer.step()
+        return loss, acc
+
+    def _backward(self, x: torch.Tensor, labels: torch.Tensor):
+        """Forward and backward (``grad_accum`` microbatches whose gradients
+        average); returns the detached (mean loss, accuracy)."""
         accum = max(int(self.cfg.grad_accum), 1)
         for p in self.params:
             p.grad = None
@@ -223,27 +287,32 @@ class Trainer:
                 if p.grad is not None:
                     p.grad.div_(accum)
             loss, acc = loss / accum, correct.to(torch.float32) / n
-        for p in self.params:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        if self.grad_hook is not None:
-            self.grad_hook(self.model)
-        self.optimizer.step()
         return loss.detach(), acc
 
     @_deterministic
     @torch.no_grad()
     def forward_step(self, x: torch.Tensor, labels: torch.Tensor):
         """A PTQ calibration step: the forward updates the observers."""
-        loss, logits = self._loss(x, labels)
-        return loss, (logits.argmax(-1) == labels).to(torch.float32).mean()
+        x, labels, group = self._local(x, labels)
+        with batch_reduction(group):
+            loss, logits = self._loss(x, labels)
+        acc = (logits.argmax(-1) == labels).to(torch.float32).mean()
+        if group is not None:
+            self._mean_over(group, [loss, acc])
+        return loss, acc
 
     @_deterministic
     @torch.no_grad()
     def eval_step(self, images_u8: torch.Tensor, labels: torch.Tensor):
+        """The (summed loss, correct count) of a global batch."""
+        images_u8, labels, group = self._local(images_u8, labels)
         logits = self.model(data_lib.normalize_batch(images_u8))
         loss = TF.cross_entropy(logits, labels, reduction="sum")
-        return loss, (logits.argmax(-1) == labels).sum()
+        correct = (logits.argmax(-1) == labels).sum()
+        if group is None:
+            return loss, correct
+        sums = all_reduce_(torch.stack([loss, correct.to(loss.dtype)]), "sum", group)
+        return sums[0], sums[1].to(correct.dtype)
 
     # -- data ---------------------------------------------------------------
 
@@ -274,7 +343,19 @@ class Trainer:
 
     # -- epochs -------------------------------------------------------------
 
+    def _log(self, log: Callable[[str], None]) -> Callable[[str], None]:
+        return log if self.writer else (lambda _msg: None)
+
+    def _save(self, saver, path: str, **kw) -> None:
+        """A checkpoint of the whole state, written by rank 0 (every rank
+        takes part in gathering a sharded one)."""
+        with unsharded(self.model, self.optimizer) if self.mesh is not None \
+                else contextlib.nullcontext():
+            if self.writer:
+                saver(path, self.model, optimizer=self.optimizer, **kw)
+
     def train_epoch(self, epoch: int, log: Callable[[str], None] = print) -> float:
+        log = self._log(log)
         cfg = self.cfg
         train_mode(self.model)
         lr = lr_at_epoch(cfg.lr, epoch, cfg.milestones)
@@ -319,7 +400,8 @@ class Trainer:
 
         if any(isinstance(m, FakeQuantizer) and m.observer == "entropy"
                for m in self.model.modules()):
-            table = finalize_entropy_calibration(self.model, cache=self.cfg.calib_cache)
+            table = finalize_entropy_calibration(
+                self.model, cache=self.cfg.calib_cache if self.writer else None)
             log(f"entropy calibration resolved {len(table)} thresholds")
 
     def evaluate(self) -> Tuple[float, float]:
@@ -340,6 +422,7 @@ class Trainer:
         keeps the best epoch's state in memory and loads it back before
         returning, so the model handed on is the one ``best_acc``
         describes."""
+        log = self._log(log)
         cfg = self.cfg
         end = epochs if epochs is not None else cfg.epochs
         if cfg.ptq and cfg.ptq_control:
@@ -357,12 +440,12 @@ class Trainer:
                     best_state = {k: v.detach().clone()
                                   for k, v in self.model.state_dict().items()}
                 if checkpoint_path:
-                    saver(checkpoint_path, self.model, optimizer=self.optimizer, step=epoch,
-                          best_acc=self.best_acc, extra=checkpoint_extra)
+                    self._save(saver, checkpoint_path, step=epoch, best_acc=self.best_acc,
+                               extra=checkpoint_extra)
                     log(f"saved best checkpoint to {checkpoint_path}")
             if checkpoint_path and cfg.keep_latest:
-                saver(checkpoint_path + ".latest.npz", self.model, optimizer=self.optimizer,
-                      step=epoch, best_acc=self.best_acc, extra=checkpoint_extra)
+                self._save(saver, checkpoint_path + ".latest.npz", step=epoch,
+                           best_acc=self.best_acc, extra=checkpoint_extra)
             self.epoch = epoch + 1
         if cfg.async_checkpoint:
             wait_for_saves()

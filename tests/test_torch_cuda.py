@@ -1274,3 +1274,66 @@ def test_graft_entry_on_the_card(cuda):
     assert torch.equal(a, b)
     torch.testing.assert_close(a.cpu(), ref, rtol=0.05,
                                atol=0.05 * max(1.0, ref.abs().max().item()))
+
+
+def test_every_kernel_launches_on_its_tensors_card(cuda):
+    """With card 0 current and every operand on card 1, each wrapper (K1 to
+    K9) launches on card 1: its output lies there, equals the twin's, and
+    equals the same call on card 0 bit for bit; card 0 stays current."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    torch.cuda.set_device(0)
+    one = torch.device("cuda", 1)
+    gen = _gen(7)
+    w = torch.randn((512, 256), device=cuda, generator=gen) * 0.05
+    w_q, scale = tim.quantize_int4_weight(w)
+    wg_q, gs = tim.quantize_int4_weight_grouped(w, 64)
+    x8, x200 = (torch.randn((m, 512), device=cuda, generator=gen) for m in (8, 200))
+    xk = torch.randn((64, 96), device=cuda, generator=gen) * 2
+    wk = torch.randint(-127, 128, (96, 40), dtype=torch.int8, device=cuda, generator=gen)
+    wks = torch.rand((40,), device=cuda, generator=gen) * 0.02 + 1e-3
+    s_x, zp = torch.tensor(0.05, device=cuda), torch.tensor(0.0, device=cuda)
+    base, cur = _attn_case(4, 256, 128, 4, seed=8)
+    long_base, long_cur = _attn_case(2, 1200, 128, 4, seed=9)
+    bound = torch.tensor([0, 1, 100, 256], dtype=torch.int32, device=cuda)
+    long_bound = torch.tensor([513, 1200], dtype=torch.int32, device=cuda)
+    pool, table, lengths, q, pcur = _paged_case(3, 2, 4, 16, 8, seed=10)
+    hl8 = tim.pack_int4_hl8(wg_q)
+    calls = [
+        ("K1", ti8.int8_matmul_dequant, ti8.int8_matmul_dequant_ref,
+         (xk, wk, wks, s_x, zp, -128.0, 127.0), True),
+        ("K2", ti8.binary_act_matmul, ti8.binary_act_matmul_ref, (xk, wk, wks), True),
+        ("K3 regime A", tim.int4_matmul_grouped_hl8, tim.int4_matmul_grouped_hl8_ref,
+         (x8, hl8, gs), False),
+        ("K3 regime B", tim.int4_matmul_grouped_hl8, tim.int4_matmul_grouped_hl8_ref,
+         (x200, hl8, gs), False),
+        ("K8", tim.int4_matmul, tim.int4_matmul_ref, (x8, tim.pack_int4(w_q), scale), False),
+        ("K9", tim.int4_matmul_grouped, tim.int4_matmul_grouped_ref,
+         (x8, tim.pack_int4(wg_q), gs), False),
+        ("K5a", tda.decode_attend_q8kv, tda.decode_attend_q8kv_ref, (*base, bound), False),
+        ("K4a", tda.decode_attend_q8kv_cur, tda.decode_attend_q8kv_cur_ref,
+         (*base, bound, *cur), False),
+        ("K5b", tda.decode_attend_q8kv_blocked, tda.decode_attend_q8kv_ref,
+         (*long_base, long_bound), False),
+        ("K4b", tda.decode_attend_q8kv_blocked_cur, tda.decode_attend_q8kv_cur_ref,
+         (*long_base, long_bound, *long_cur), False),
+        ("K7", tpa.paged_decode_attend, tpa.paged_decode_attend_ref,
+         (*pool, table, lengths, q), False),
+        ("K6", tpa.paged_decode_attend_cur, tpa.paged_decode_attend_cur_ref,
+         (*pool, table, lengths, q, *pcur), False),
+    ]
+    for name, fn, twin, args, exact in calls:
+        on_one = [a.to(one) if isinstance(a, torch.Tensor) else a for a in args]
+        before = fn.launches
+        out = fn(*on_one)
+        torch.cuda.synchronize(one)
+        assert fn.launches == before + 1, name
+        assert out.device == one and torch.cuda.current_device() == 0, name
+        ref = twin(*args)
+        if exact:
+            assert torch.equal(out.cpu(), ref.cpu()), name
+        else:
+            torch.testing.assert_close(out.cpu(), ref.cpu(), rtol=0,
+                                       atol=max(_ATTN_ATOL, 2e-5 * ref.abs().max().item()),
+                                       msg=name)
+        assert torch.equal(out.cpu(), fn(*args).cpu()), name

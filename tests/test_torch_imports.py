@@ -26,7 +26,8 @@ from micronet_tpu_torch.models.lenet import LeNet
 from micronet_tpu_torch.train import TrainConfig, Trainer
 from micronet_tpu_torch.models.tiny_decoder import TinyDecoder
 from micronet_tpu_torch.parallel import init_moe
-from micronet_tpu_torch.graft_entry import entry as graft_entry
+from micronet_tpu_torch.graft_entry import dryrun_multichip, entry as graft_entry
+from micronet_tpu_torch.parallel import initialize, make_mesh
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -43,7 +44,8 @@ def test_port_and_chip_smoke_import_no_jax():
               "prune", "prune.slimming", "utils", "utils.metrics", "train", "train.data",
               "train.native_loader", "train.checkpoint", "train.loop", "train.optim",
               "infer.evaluate", "infer.dump", "models.tiny_decoder", "parallel",
-              "parallel.moe", "infer.deploy", "infer.bf16", "utils.profiling", "graft_entry"):
+              "parallel.moe", "infer.deploy", "infer.bf16", "utils.profiling", "graft_entry",
+              "parallel.distributed", "parallel.sharding"):
         assert f"micronet_tpu_torch.{m}" in mods
     code = "\n".join(
         ["import sys", "preloaded = set(sys.modules)"]
@@ -68,7 +70,8 @@ def test_port_and_chip_smoke_import_no_jax():
                                    "fuse_bn_wbwtab", "freeze_wbwtab", "lenet", "prepare_dorefa",
                                    "trainer", "cli", "quant_test_auto", "tiny_decoder",
                                    "init_moe", "tiny_decoder_serve_loop", "build_engine",
-                                   "serialize_engine", "graft_entry"])
+                                   "serialize_engine", "graft_entry", "initialize",
+                                   "make_mesh", "dryrun_multichip"])
 def test_entry_points_default_to_cuda_and_raise_without_card(monkeypatch, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cpu_model = Llama(llama_tiny(8), device="cpu")
@@ -99,6 +102,9 @@ def test_entry_points_default_to_cuda_and_raise_without_card(monkeypatch, entry)
         "build_engine": lambda: build_engine(cpu_nin),
         "serialize_engine": lambda: serialize_engine(cpu_nin, batch=2),
         "graft_entry": lambda: graft_entry(),
+        "initialize": lambda: initialize("tcp://localhost:1", 1, 0),
+        "make_mesh": lambda: make_mesh(1, 1),
+        "dryrun_multichip": lambda: dryrun_multichip(2),
     }
     with pytest.raises(RuntimeError, match="CUDA"):
         calls[entry]()

@@ -195,7 +195,7 @@ def test_grad_accum_equals_the_full_batch():
 
 
 def test_mesh_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="make_mesh"):
         tloop.Trainer(LeNet(device="cpu"), tloop.TrainConfig(), dataset=_dataset(), mesh=object(),
                       device="cpu")
 
