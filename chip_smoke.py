@@ -197,7 +197,34 @@ Phases, each fatal on failure (non-zero exit, no final line):
    at 2 x 128 against one process at 256, block by block (``PAR_RTOL``),
    and the engine at dp = 2 (bit for bit) and tp = 2 (within
    ``PAR_RTOL``);
-22. the kernels line (JSON), then the final line
+22. serving parallelism (slice 11's main path), one rank a card as in
+   phase 21. On one card a world of 1 over NCCL: the W4 Llama (4 blocks)
+   behind ``ServeLoop(8)``, dense and paged, through ``shard_state`` over
+   ``make_mesh(1, 1)`` equal to the unsharded loop bit for bit. Then two
+   gloo ranks share card 0 (on four cards the NCCL ranks, at the full 32
+   blocks): ``Llama(llama3_8b(2048), w4_group=128)`` cut to 4 blocks,
+   sharded over ``model`` (every W4 projection and the W4 lm_head by
+   column, K3 at N / tp), 12 requests of 16 to 256 prompt tokens and 16
+   new tokens each through the dense and the paged ``ServeLoop(8)`` (page
+   16) against the unsharded loops run first on rank 0 (the single-card
+   numbers): logits within 1e-4 and tokens up to the first near tie, K3,
+   K4a and K6 counted exactly; ``generate`` on one prompt (K5a); on four
+   cards again at tp = 2 on a (2, 2) mesh. The W4 TinyDecoder of phase 18
+   tensor-parallel behind ``ServeLoop(4)`` (K3 at N = 64 and 32, K5a), the
+   same checks; its MoE form (8 int8 experts, top-1) with ``use_ep`` over
+   ``expert`` against the dense path (2e-5), ``moe_apply_ep`` forward and
+   backward and top-2 ``moe_apply_ep_a2a`` against their oracles (1e-5);
+   ``prefill_sp`` of 64- and 32-token prompts over ``seq`` (zigzag; 2e-5,
+   caches bit for bit, 16 decode steps from either cache bit for bit) and
+   ring attention forward and backward (1e-5); ``pipeline_apply_stateful``
+   over one stage a rank of NIN's seventh block (IAO W8A8 ``bn_fuse``,
+   training mode, 2 x S microbatches of 64 on 8x8 maps) forward and
+   backward against the sequential fold (loss 1e-3, gradients 1e-3 and
+   state 1e-5 x max|.|), img/s and the bubble share beside the fold's.
+   Then, in this process, K3 at one rank's column slices of an 8B decode
+   step at tp = 2 and 4 (M = 8, ``split_cols`` the whole N) against its
+   twin, timed beside the twin, ``torch.matmul`` and the bound;
+23. the kernels line (JSON), then the final line
    ``{"ok": true, "device": {...}}``.
 
 Details of every measurement go to ``<out>/chip_smoke.json`` (``--out``,
@@ -4238,6 +4265,780 @@ def parallel(dev, seed, shared: Path, card: str, report, profile: bool):
     return k1
 
 
+# ---------------------------------------------------------------- phase 22
+
+
+# slice 11: tensor-parallel W4 serving, expert, sequence and pipeline parallelism, one
+# process a card. The NCCL world is every card of the machine: on one card a world of 1
+# (the W4 Llama's loop through a (1, 1) mesh, bit for bit the unsharded loop), then two
+# gloo ranks share card 0 for the rest; on four cards the NCCL ranks run it all
+SRV_DEPTH_SHARED = 4  # Llama blocks when two ranks share card 0 (32 on their own cards)
+SRV_SLOTS, SRV_REQUESTS, SRV_NEW = 8, 12, 16  # phase 5's kind: prompts of 16 to 256 tokens
+SRV_PROMPTS = (16, 256)
+# TP logits against the unsharded model's: JAX's bound (__graft_entry__.py:155, :395): a
+# column slice may take another K-split of K3 (_w4_splits depends on N), so f32 sums in
+# another order; |a - b| <= atol + rtol |b|
+SRV_TP_RTOL = SRV_TP_ATOL = 1e-4
+SRV_EP_ATOL = 2e-5  # the EP MoE decoder against dense (__graft_entry__.py:342)
+SRV_SP_ATOL = 2e-5  # the SP prefill against the dense prefill (:287)
+SRV_RTOL = 1e-5  # EP MoE and ring attention forward and backward against dense (:256, :311)
+SRV_PIPE_RTOL = 1e-3  # the quantized pipeline's loss against the fold (:228)
+# the pipeline's gradients and state against the fold, x max|.|: cuDNN's weight-gradient
+# convolutions sum in another order on another card (PAR_CARD_GRAD_RTOL's cause); the state
+# is the forward's, the same kernels on the same inputs
+SRV_PIPE_GRAD_RTOL, SRV_PIPE_STATE_RTOL = 1e-3, 1e-5
+SRV_PIPE_C, SRV_PIPE_MICRO, SRV_PIPE_SIZE = 192, 64, 8  # NIN's seventh block on 8x8 maps
+SRV_SP_PROMPTS, SRV_SP_STEPS = (64, 32), 16
+SRV_EP_STEPS = 16
+SRV_TIMED = 3  # repeats of each timed prefill and pipeline step
+
+
+def _compare_row(a, b, atol, rtol):
+    """Row ``a`` against the reference row ``b``: (max|a - b|, whether an
+    element lies outside ``atol + rtol |b|``, and where the argmaxes differ
+    the reference's top-2 gap and twice the bound at its top: a near tie
+    when the gap lies within it, else None)."""
+    diff = (a.float() - b.float()).abs()
+    outside = bool((diff > atol + rtol * b.float().abs()).any())
+    tie = None
+    if int(a.argmax()) != int(b.argmax()):
+        top = torch.topk(b.float(), 2).values
+        tie = dict(ref_gap=(top[0] - top[1]).item(),
+                   tie_bound=2 * (atol + rtol * top[0].abs().item()))
+    return diff.max().item(), outside, tie
+
+
+class _Rec(_Timed):
+    """:class:`_Timed` that keeps (``ref`` None) or checks against ``ref``
+    the logits each slot's request gets from every prefill and decode
+    step, until that request's greedy token first differs: there it
+    records the output position and the reference's top-2 gap, which must
+    lie within twice the tolerance (a near tie)."""
+
+    def __init__(self, model, ref=None, rtol=0.0, atol=0.0):
+        super().__init__(model)
+        self.ref, self.rtol, self.atol = ref, rtol, atol
+        self.loop, self.admitting = None, None
+        self.calls, self.i = [], 0
+        self.max_abs, self.violations, self.diverged = 0.0, 0, {}
+
+    def attach(self, loop):
+        self.loop = loop
+        admit = loop._admit
+
+        def tracked(slot, req):
+            self.admitting = req
+            return admit(slot, req)
+
+        loop._admit = tracked
+        return loop
+
+    def _rows(self, logits, prefill):
+        if prefill:
+            req = self.admitting
+            return [(req.rid, len(req.output))], logits[-1:].detach()
+        reqs = self.loop.slot_req
+        keys = [(r.rid, len(r.output)) if r is not None else None for r in reqs]
+        return keys, logits[:, 0].detach()
+
+    def _see(self, logits, prefill):
+        keys, rows = self._rows(logits, prefill)
+        if self.ref is None:
+            self.calls.append((keys, rows))
+            return
+        rkeys, rrows = self.ref.calls[self.i]
+        self.i += 1
+        if rkeys != keys:
+            fail(f"phase 22: the loops' schedules differ at call {self.i}: {keys} vs {rkeys}")
+        for j, key in enumerate(keys):
+            if key is None or key[0] in self.diverged:
+                continue
+            diff, outside, tie = _compare_row(rows[j], rrows[j], self.atol, self.rtol)
+            self.max_abs = max(self.max_abs, diff)
+            self.violations += int(outside)
+            if tie is not None:
+                self.diverged[key[0]] = dict(position=key[1], **tie)
+
+    def forward(self, *a):
+        out = super().forward(*a)
+        self._see(out[0], True)
+        return out
+
+    def decode_batch(self, *a):
+        out = super().decode_batch(*a)
+        self._see(out[0], False)
+        return out
+
+    def decode_batch_paged(self, *a):
+        out = super().decode_batch_paged(*a)
+        self._see(out[0], False)
+        return out
+
+    def forward_batch(self, *a):
+        out = self._time(self._m.forward_batch, self.decode_s, *a)
+        self._see(out[0], False)
+        return out
+
+    def verdict(self, what):
+        """The comparison's numbers; fails on a logit outside the bound or a
+        token that left the reference away from a near tie."""
+        if self.ref is None:
+            return {}
+        bad = {r: d for r, d in self.diverged.items() if d["ref_gap"] > d["tie_bound"]}
+        if self.violations or bad or self.i != len(self.ref.calls):
+            fail(f"{what}: {self.violations} rows outside the bound (max|diff| "
+                 f"{self.max_abs:.3e}), tokens left the reference away from a tie: {bad}, "
+                 f"{self.i} of {len(self.ref.calls)} calls")
+        first = min((d["position"] for d in self.diverged.values()), default=None)
+        return dict(max_abs_diff=self.max_abs, compared_calls=self.i,
+                    diverged_requests=len(self.diverged), first_tie_position=first,
+                    diverged=self.diverged)
+
+
+class _TimedDecoder(_Rec):
+    decode_batch = None  # the TinyDecoder steps through forward_batch
+
+
+def _srv_requests(seed, vocab):
+    from micronet_tpu_torch.serve import Request
+
+    rng = np.random.default_rng(seed + 22)
+    lens = rng.integers(SRV_PROMPTS[0], SRV_PROMPTS[1] + 1, SRV_REQUESTS)
+    lens[0], lens[1] = SRV_PROMPTS
+    return [Request(i, [int(t) for t in rng.integers(0, vocab, n)], SRV_NEW)
+            for i, n in enumerate(lens)]
+
+
+def _srv_loop(model, reqs, dev, paged, ref=None, rtol=0.0, atol=0.0, slots=SRV_SLOTS,
+              rec_cls=_Rec):
+    """``reqs`` (fresh copies) through a ``ServeLoop`` over ``model``,
+    recorded or checked against ``ref``: (outputs, recorder, wall s)."""
+    from micronet_tpu_torch.serve import Request, ServeLoop
+
+    rec = rec_cls(model, ref, rtol, atol)
+    loop = rec.attach(ServeLoop(rec, slots, device=dev, paged=paged, page_size=PAGE))
+    for r in reqs:
+        loop.submit(Request(r.rid, list(r.prompt), r.max_new_tokens))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = loop.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if sorted(done) != [r.rid for r in reqs]:
+        fail(f"phase 22: served {sorted(done)} of {len(reqs)} requests")
+    return {rid: r.output for rid, r in done.items()}, rec, wall
+
+
+def _srv_stats(rec, wall, n_tokens):
+    step_ms = sorted(1e3 * x for x in rec.decode_s)
+    return dict(wall_s=wall, decode_steps=len(step_ms), prefills=len(rec.prefill_s),
+                prefill_ms=1e3 * sum(rec.prefill_s), decode_tok_s=n_tokens / sum(rec.decode_s),
+                step_ms_median=step_ms[len(step_ms) // 2], step_ms_max=step_ms[-1])
+
+
+def _srv_counts(kernels):
+    return {k.__name__: k.launches for k in kernels}
+
+
+def _srv_llama(dev, seed, mesh, depth):
+    """The W4 Llama-3-8B (``depth`` blocks) tensor-parallel over ``mesh``'s
+    ``model`` axis behind the dense and the paged ``ServeLoop(8)``, then
+    ``generate`` on request 0's prompt: on rank 0 first the unsharded
+    model's loops (the single-card numbers and the reference), then every
+    rank the sharded loops, logits within 1e-4 and tokens up to the first
+    near tie, K3, K4a, K6 and K5a counted exactly."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from micronet_tpu_torch.models.llama import Llama, llama3_8b
+    from micronet_tpu_torch.ops import decode_attention as da
+    from micronet_tpu_torch.ops import int4_matmul as im
+    from micronet_tpu_torch.ops import paged_attention as pa
+    from micronet_tpu_torch.parallel import shard_state
+    from micronet_tpu_torch.parallel.sharding import axis_size
+
+    cfg = dataclasses.replace(llama3_8b(2048), n_layers=depth)
+    tp = axis_size(mesh, "model")
+    t0 = time.perf_counter()
+    model = Llama(cfg, w4_group=GROUP, device=dev,
+                  generator=torch.Generator(device=dev).manual_seed(seed))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    reqs = _srv_requests(seed, cfg.vocab)
+    tokens = SRV_REQUESTS * (SRV_NEW - 1)
+    prompt = torch.tensor(reqs[0].prompt, device=dev)
+    res = dict(depth=depth, tp=tp, build_s=build_s, prompt_lens=[len(r.prompt) for r in reqs])
+    refs = {}
+    if dist.get_rank() == 0:
+        for paged in (False, True):
+            out, rec, wall = _srv_loop(model, reqs, dev, paged)
+            refs[paged] = (out, rec)
+            res["one_card_paged" if paged else "one_card"] = _srv_stats(rec, wall, tokens)
+        refs["generate"] = model.generate(prompt, SRV_NEW).tolist()
+    dist.barrier()
+    shard_state(model, mesh)
+    k3, k4a, k5a, k6 = (im.int4_matmul_grouped_hl8, da.decode_attend_q8kv_cur,
+                        da.decode_attend_q8kv, pa.paged_decode_attend_cur)
+    kernels = (k3, k4a, k5a, k6)
+    per_fwd = 4 * depth + 1
+    for paged in (False, True):
+        ref = refs.get(paged, (None, None))[1]
+        for k in kernels:
+            k.launches = 0
+        # -- the main path: the sharded loop --------------------------------
+        out, rec, wall = _srv_loop(model, reqs, dev, paged, ref, SRV_TP_RTOL, SRV_TP_ATOL)
+        launches = _srv_counts(kernels)
+        # --------------------------------------------------------------------
+        steps, prefills = len(rec.decode_s), len(rec.prefill_s)
+        want = {k.__name__: 0 for k in kernels}
+        want[k3.__name__] = per_fwd * (steps + prefills)
+        want[(k6 if paged else k4a).__name__] = depth * steps
+        if launches != want:
+            fail(f"phase 22 llama tp={tp} paged={paged}: launches {launches}, expected {want}")
+        key = "paged" if paged else "dense"
+        res[key] = dict(_srv_stats(rec, wall, tokens), launches=launches,
+                        **rec.verdict(f"phase 22 llama tp={tp} {key}"))
+        if ref is not None:
+            res[key]["tokens_equal"] = out == refs[paged][0]
+    for k in kernels:
+        k.launches = 0
+    # -- the main path: generate on one prompt ------------------------------------
+    gen = model.generate(prompt, SRV_NEW).tolist()
+    torch.cuda.synchronize()
+    launches = _srv_counts(kernels)
+    # --------------------------------------------------------------------------
+    want = {k.__name__: 0 for k in kernels}
+    want[k3.__name__], want[k5a.__name__] = per_fwd * SRV_NEW, depth * (SRV_NEW - 1)
+    if launches != want:
+        fail(f"phase 22 llama tp={tp} generate: launches {launches}, expected {want}")
+    res["generate"] = dict(launches=launches)
+    if "generate" in refs:
+        res["generate"]["tokens_equal"] = gen == refs["generate"]
+        n = next((i for i, (a, b) in enumerate(zip(gen, refs["generate"])) if a != b), None)
+        res["generate"]["first_difference"] = n
+    del model
+    torch.cuda.empty_cache()
+    return res
+
+
+def _srv_llama_world1(dev, seed):
+    """A world of 1 over NCCL: the W4 Llama's dense loop through a (1, 1)
+    mesh equals the unsharded loop bit for bit."""
+    from micronet_tpu_torch.parallel import make_mesh
+
+    res = _srv_llama(dev, seed, make_mesh(1, 1), SRV_DEPTH_SHARED)
+    for key in ("dense", "paged"):
+        r = res[key]
+        if r["max_abs_diff"] != 0.0 or not r["tokens_equal"]:
+            fail(f"phase 22 world of 1 ({key}): max|diff| {r['max_abs_diff']}, tokens equal "
+                 f"{r['tokens_equal']}")
+    return res
+
+
+def _srv_decoder(dev, seed, mesh):
+    """The W4 TinyDecoder (phase 18's dense form) tensor-parallel behind
+    ``ServeLoop(4)`` against the unsharded loop on rank 0: logits within
+    1e-4, tokens up to a near tie, K3 and K5a counted."""
+    import torch.distributed as dist
+
+    from micronet_tpu_torch.ops import decode_attention as da
+    from micronet_tpu_torch.ops import int4_matmul as im
+    from micronet_tpu_torch.parallel import shard_state
+    from micronet_tpu_torch.parallel.sharding import axis_size
+    from micronet_tpu_torch.serve import Request
+
+    model = _decoder_pair(0, 1, dev, seed)[1]
+    rng = np.random.default_rng(seed + 18)
+    reqs = [Request(i, rng.integers(0, DECODER_KW["vocab"], p).tolist(), new)
+            for i, (p, new, _) in enumerate(DECODER_REQUESTS)]
+    tokens = sum(r.max_new_tokens - 1 for r in reqs)
+    ref, res = None, dict(tp=axis_size(mesh, "model"))
+    if dist.get_rank() == 0:
+        _, ref, wall = _srv_loop(model, reqs, dev, False, slots=DECODER_SLOTS,
+                                 rec_cls=_TimedDecoder)
+        res["one_card"] = _srv_stats(ref, wall, tokens)
+    dist.barrier()
+    shard_state(model, mesh)
+    kernels = (im.int4_matmul_grouped_hl8, da.decode_attend_q8kv)
+    for k in kernels:
+        k.launches = 0
+    # -- the main path: the sharded TinyDecoder loop ------------------------------
+    _, rec, wall = _srv_loop(model, reqs, dev, False, ref, SRV_TP_RTOL, SRV_TP_ATOL,
+                             slots=DECODER_SLOTS, rec_cls=_TimedDecoder)
+    launches = _srv_counts(kernels)
+    # --------------------------------------------------------------------------
+    depth = DECODER_KW["depth"]
+    steps, prefills = len(rec.decode_s), len(rec.prefill_s)
+    want = {kernels[0].__name__: 6 * depth * (prefills + DECODER_SLOTS * steps),
+            kernels[1].__name__: depth * DECODER_SLOTS * steps}
+    if launches != want:
+        fail(f"phase 22 decoder tp: launches {launches}, expected {want}")
+    res.update(_srv_stats(rec, wall, tokens), launches=launches,
+               **rec.verdict("phase 22 decoder tp"))
+    return res
+
+
+def _greedy_logits(model, prompt, steps):
+    """Prefill ``prompt``, then ``steps`` T = 1 forwards of the greedy
+    tokens: (logits of each step's last position, tokens, caches)."""
+    logits, caches = model.forward(prompt, model.init_cache(), 0)
+    outs, toks = [logits[-1]], []
+    pos = int(prompt.shape[0])
+    for _ in range(steps):
+        tok = int(outs[-1].argmax())
+        toks.append(tok)
+        logits, caches = model.forward(torch.tensor([tok], device=prompt.device), caches, pos)
+        pos += 1
+        outs.append(logits[-1])
+    return torch.stack(outs), toks, caches
+
+
+def _first_tie(a, b, atol):
+    """Rows of ``a`` against the reference rows ``b`` up to the first whose
+    argmax differs: (that row or None, max|diff| up to it, whether every
+    row before lies within ``atol`` and the reference's top-2 gap there
+    within twice it)."""
+    worst = 0.0
+    for i in range(a.shape[0]):
+        diff, outside, tie = _compare_row(a[i], b[i], atol, 0.0)
+        worst = max(worst, diff)
+        if outside or tie is not None:
+            return i, worst, not outside and tie["ref_gap"] <= tie["tie_bound"]
+    return None, worst, True
+
+
+def _srv_ep(dev, seed, group_size):
+    """The MoE TinyDecoder (8 int8 experts, top-1) with ``use_ep`` over the
+    ``expert`` axis against the same model dense: prefill and greedy decode
+    logits within 2e-5, tokens up to a near tie; then ``moe_apply_ep``
+    forward and backward against ``moe_apply`` (1e-5) and top-2
+    ``moe_apply_ep_a2a`` against ``moe_apply`` on each token shard."""
+    import dataclasses
+
+    from micronet_tpu_torch.parallel import (init_moe, moe_apply, moe_apply_ep,
+                                             moe_apply_ep_a2a, quantize_moe)
+    from micronet_tpu_torch.parallel.sharding import axis_mesh
+
+    mesh = axis_mesh("expert", group_size)
+    dense = _decoder_pair(8, 1, dev, seed)[1]
+    ep = _decoder_pair(8, 1, dev, seed)[1]
+    for blk in ep.blocks:
+        blk.moe.use_ep(mesh)
+    prompt = torch.tensor(DECODER_PROMPT, device=dev)
+    ld, toks, _ = _greedy_logits(dense, prompt, SRV_EP_STEPS)
+    le, toks_e, _ = _greedy_logits(ep, prompt, SRV_EP_STEPS)
+    where, diff, tie = _first_tie(le, ld, SRV_EP_ATOL)
+    if not tie:
+        fail(f"phase 22 EP decoder: row {where} max|diff| {diff:.3e} against dense")
+    res = dict(experts_per_rank=ep.blocks[0].moe.w_up.shape[0], max_abs_diff=diff,
+               first_tie_position=where, tokens_equal=toks == toks_e)
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 23)
+    dim, mlp = DECODER_KW["dim"], DECODER_KW["mlp_dim"]
+    p = init_moe(dim, mlp, 8, device=dev, generator=gen)
+    x = torch.randn((64 * group_size, dim), device=dev, generator=gen)
+    grads = {}
+    for label, fn in (("ep", lambda q, xi: moe_apply_ep(q, xi, mesh, capacity_factor=2.0)),
+                      ("dense", lambda q, xi: moe_apply(q, xi, 2.0))):
+        q = dataclasses.replace(p, **{n: getattr(p, n).clone().requires_grad_()
+                                      for n in ("router", "w_up", "w_down")})
+        xi = x.clone().requires_grad_()
+        loss = torch.mean(fn(q, xi) ** 2)
+        loss.backward()
+        grads[label] = [loss.detach(), q.router.grad, q.w_up.grad, q.w_down.grad, xi.grad]
+    worst = 0.0
+    for a, b in zip(grads["ep"], grads["dense"]):
+        err = ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+        worst = max(worst, err)
+    if not worst <= SRV_RTOL:
+        fail(f"phase 22 moe_apply_ep: value or gradient {worst:.3e} x max|.| from dense")
+    res["moe_apply_ep_rel_diff"] = worst
+    qp = quantize_moe(p)
+    with torch.no_grad():
+        got = moe_apply_ep_a2a(qp, x, mesh, capacity_factor=2.0, top_k=2)
+        ref = torch.cat([moe_apply(qp, xs, 2.0, top_k=2) for xs in x.chunk(group_size)])
+    err = ((got - ref).abs().max() / ref.abs().max()).item()
+    if not err <= SRV_RTOL:
+        fail(f"phase 22 moe_apply_ep_a2a top-2: {err:.3e} x max|.| from moe_apply by shard")
+    res["a2a_top2_rel_diff"] = err
+    return res
+
+
+def _median_ms(fn, barrier=False):
+    """Median wall ms of ``SRV_TIMED`` synchronised calls of ``fn`` (each
+    after a barrier of the world where ``barrier``)."""
+    import torch.distributed as dist
+
+    ms = []
+    for _ in range(SRV_TIMED):
+        if barrier:
+            dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+    return sorted(ms)[len(ms) // 2]
+
+
+def _srv_sp_exact(dev, mesh, group_size):
+    """The dry run's SP check at its configuration (``__graft_entry__.py:
+    268-290``): the W4 TinyDecoder of dim 16, 2 heads, depth 1, group 8,
+    on 2 x S tokens, ``prefill_sp`` against ``forward`` within 2e-5 and
+    the int8 codes equal."""
+    from micronet_tpu_torch.models.tiny_decoder import TinyDecoder, quantize_decoder
+
+    dec = quantize_decoder(TinyDecoder(vocab=32, dim=16, heads=2, depth=1, mlp_dim=32,
+                                       max_seq=2 * group_size + 2, device=dev,
+                                       generator=torch.Generator(device=dev).manual_seed(0)),
+                           group=8)
+    toks = torch.arange(2 * group_size, device=dev) % 32
+    ls, cs = dec.prefill_sp(toks, dec.init_cache(), mesh)
+    ld, cd = dec.forward(toks, dec.init_cache(), 0)
+    diff = (ls - ld).abs().max().item()
+    if not diff <= SRV_SP_ATOL or not torch.equal(cs[0].k_codes, cd[0].k_codes):
+        fail(f"phase 22 SP (the dry run's decoder): max|diff| {diff:.3e}, codes equal "
+             f"{torch.equal(cs[0].k_codes, cd[0].k_codes)}")
+    return diff
+
+
+def _srv_sp_blocks(model, toks, mesh):
+    """Each block of ``model`` fed the dense prefill's input to it: its
+    cache from the SP prefill equals the dense one bit for bit, and ring
+    attention over the dequantized rows equals ``attend`` on them within
+    2e-5. Returns the largest attention difference."""
+    from micronet_tpu_torch.parallel import ring_attention
+    from micronet_tpu_torch.quant.kv_cache import append_kv, attend
+
+    t = toks.shape[0]
+    x = model.embed[toks] + model.pos[torch.arange(t, device=toks.device)]
+    worst = 0.0
+    with torch.no_grad():
+        for i, blk in enumerate(model.blocks):
+            _, c_sp = blk.prefill_sp(x, model.init_cache()[i], mesh)
+            y, c_d = blk(x, model.init_cache()[i], 0)
+            if not all(torch.equal(getattr(c_sp, f), getattr(c_d, f))
+                       for f in ("k_codes", "v_codes", "k_scale", "v_scale", "length")):
+                fail(f"phase 22 SP T={t}: block {i}'s cache differs from the dense prefill's")
+            h = blk.norm1(x)
+            q, k, v = blk._split(blk.wq(h)), blk._split(blk.wk(h)), blk._split(blk.wv(h))
+            cache = append_kv(model.init_cache()[i], k, v)
+            ref = attend(cache, q, causal_offset=0).transpose(0, 1)
+            ring = ring_attention(q.transpose(0, 1).to(torch.float32),
+                                  cache.dequant_k()[:, :t].transpose(0, 1),
+                                  cache.dequant_v()[:, :t].transpose(0, 1), mesh)
+            worst = max(worst, (ring - ref).abs().max().item())
+            x = y
+    if not worst <= SRV_SP_ATOL:
+        fail(f"phase 22 SP T={t}: ring attention {worst:.3e} from attend on the same rows")
+    return worst
+
+
+def _srv_sp(dev, seed, group_size):
+    """Sequence parallelism over the ``seq`` axis: the dry run's SP check at
+    its configuration (:func:`_srv_sp_exact`); ``prefill_sp`` of phase
+    18's W4 TinyDecoder at each prompt of ``SRV_SP_PROMPTS`` (the zigzag
+    schedule), block by block (:func:`_srv_sp_blocks`: caches bit for bit,
+    attention 2e-5), then whole: its ms beside the dense prefill's, the
+    logits within ``DECODER_CARD_CPU_TOL`` of the dense prefill's (each
+    block's W4 matmuls round their input to bf16, so an f32-level
+    difference of the two attentions can move a term by 2^-8: the cause of
+    that bound), the first layer's cache bit for bit; from the shorter
+    prompt's caches, 16 decode steps of the dense path's greedy tokens,
+    within the same bound; ring attention forward and backward against the
+    dense oracle (1e-5)."""
+    from micronet_tpu_torch.parallel import attention_reference, ring_attention
+    from micronet_tpu_torch.parallel.sharding import axis_mesh
+
+    mesh = axis_mesh("seq", group_size)
+    res = dict(dry_run_max_abs=_srv_sp_exact(dev, mesh, group_size))
+    model = _decoder_pair(0, 1, dev, seed)[1]
+    gen = torch.Generator(device=dev).manual_seed(seed + 24)
+    for n in SRV_SP_PROMPTS:
+        toks = torch.randint(0, DECODER_KW["vocab"], (n,), device=dev, generator=gen)
+        r = dict(block_attention_max_abs=_srv_sp_blocks(model, toks, mesh))
+        times = {}
+        with torch.no_grad():
+            for label, fn in (("sp", lambda: model.prefill_sp(toks, model.init_cache(), mesh)),
+                              ("dense", lambda: model.forward(toks, model.init_cache(), 0))):
+                times[label] = (fn(), _median_ms(fn))
+        (ls, cs), (ld, cd) = times["sp"][0], times["dense"][0]
+        bound = DECODER_CARD_CPU_TOL * max(1.0, ld.abs().max().item())
+        diff = (ls - ld).abs().max().item()
+        codes_differ = [int((a.k_codes != b.k_codes).sum() + (a.v_codes != b.v_codes).sum())
+                        for a, b in zip(cs, cd)]
+        if not diff <= bound or codes_differ[0]:
+            fail(f"phase 22 SP prefill T={n}: max|diff| {diff:.3e} (bound {bound:.1e}), codes "
+                 f"differing by layer {codes_differ}")
+        r.update(max_abs_diff=diff, codes_differing_by_layer=codes_differ,
+                 sp_ms=times["sp"][1], dense_ms=times["dense"][1])
+        if n + SRV_SP_STEPS <= DECODER_KW["max_seq"]:
+            with torch.no_grad():
+                _, toks_d, _ = _greedy_logits(model, toks, SRV_SP_STEPS)
+                steps = {}
+                for label, caches in (("sp", cs), ("dense", cd)):
+                    outs = []
+                    for i, tok in enumerate(toks_d):
+                        logits, caches = model.forward(torch.tensor([tok], device=dev), caches,
+                                                       n + i)
+                        outs.append(logits[-1])
+                    steps[label] = torch.stack(outs)
+            where, sdiff, tie = _first_tie(steps["sp"], steps["dense"], bound)
+            if not tie:
+                fail(f"phase 22 SP T={n}: decode step {where} from the SP caches max|diff| "
+                     f"{sdiff:.3e} from the dense caches'")
+            r.update(decode_steps=SRV_SP_STEPS, decode_max_abs_diff=sdiff,
+                     decode_first_tie=where)
+        res[f"T{n}"] = r
+    q, k, v = (torch.randn((64, DECODER_KW["heads"], DECODER_KW["dim"] // DECODER_KW["heads"]),
+                           device=dev, generator=gen) for _ in range(3))
+    out = {}
+    for label, fn in (("ring", lambda a: ring_attention(a, k, v, mesh, causal=True)),
+                      ("dense", lambda a: attention_reference(a, k, v, causal=True))):
+        a = q.clone().requires_grad_()
+        loss = torch.mean(fn(a) ** 2)
+        loss.backward()
+        out[label] = (loss.detach(), a.grad)
+    rel = max(abs(out["ring"][0].item() - out["dense"][0].item()) / out["dense"][0].item(),
+              ((out["ring"][1] - out["dense"][1]).abs().max()
+               / out["dense"][1].abs().max()).item())
+    if not rel <= SRV_RTOL:
+        fail(f"phase 22 ring attention: {rel:.3e} x max|.| from the dense oracle")
+    res["ring_rel_diff"] = rel
+    return res
+
+
+def _srv_pipeline(dev, seed, group_size):
+    """``pipeline_apply_stateful`` over ``group_size`` stages of NIN's
+    seventh block (IAO W8A8 ``bn_fuse``, training mode), one a rank, 2 x S
+    microbatches of 64 on 8x8 maps, forward and backward, against the
+    sequential fold on rank 0 (loss, every gradient, every observer and BN
+    buffer); img/s of both and the measured bubble share."""
+    import torch.distributed as dist
+
+    from micronet_tpu_torch.graft_entry import _stage_fn
+    from micronet_tpu_torch.models.nin import ConvBNReLU
+    from micronet_tpu_torch.nn import prepare, train_mode
+    from micronet_tpu_torch.parallel import pipeline_apply_stateful, stack_stage_params
+    from micronet_tpu_torch.parallel.sharding import axis_mesh
+    from micronet_tpu_torch.quant.config import QuantConfig
+
+    s = group_size
+    mesh = axis_mesh("stage", s)
+    rank = dist.get_rank(mesh.get_group("stage"))
+    c, n_micro = SRV_PIPE_C, 2 * s
+
+    def stage(i):
+        return train_mode(prepare(ConvBNReLU(c, c, 3, padding=1, device=dev,
+                                             generator=torch.Generator(device=dev)
+                                             .manual_seed(seed + i)),
+                                  QuantConfig(a_bits=8, w_bits=8, bn_fuse=True), method="iao",
+                                  device=dev))
+
+    stages = [stage(i) for i in range(s)]
+    plist = [{k: v.detach() for k, v in m.named_parameters()} for m in stages]
+    rlist = [{k: v.detach() for k, v in m.named_buffers()} for m in stages]
+    fn = _stage_fn(stages[0])
+    x = torch.randn((n_micro, SRV_PIPE_MICRO, c, SRV_PIPE_SIZE, SRV_PIPE_SIZE), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(seed + 25))
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+
+    def pipe():
+        p = {k: v[rank:rank + 1].clone().requires_grad_()
+             for k, v in stack_stage_params(plist).items()}
+        st = {k: v[rank:rank + 1] for k, v in stack_stage_params(rlist).items()}
+        out, new = pipeline_apply_stateful(fn, p, st, x, mesh)
+        loss = torch.mean(out ** 2)
+        loss.backward()
+        return loss.detach(), {k: v.grad[0] for k, v in p.items()}, {k: v[0] for k, v in
+                                                                      new.items()}
+
+    def fold():
+        ps = [{k: v.clone().requires_grad_() for k, v in p.items()} for p in plist]
+        rests = [{k: v.clone() for k, v in r.items()} for r in rlist]
+        outs = []
+        for mb in range(n_micro):
+            h = x[mb]
+            for i in range(s):
+                h, rests[i] = fn(ps[i], rests[i], h)
+            outs.append(h)
+        loss = torch.mean(torch.stack(outs) ** 2)
+        loss.backward()
+        return loss.detach(), [{k: v.grad for k, v in p.items()} for p in ps], rests
+
+    try:
+        loss, grads, state = pipe()
+        pipe_ms = _median_ms(pipe, barrier=True)
+        res = dict(stages=s, microbatches=n_micro, micro_batch=SRV_PIPE_MICRO)
+        if rank == 0:
+            f_loss, f_grads, f_state = fold()
+            fold_ms = _median_ms(fold)
+        dist.barrier()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    # each rank's stage against the fold's: rank 0 holds the fold, so the
+    # ranks' gradients and state come to it
+    from micronet_tpu_torch.parallel.distributed import _gather_parts
+
+    group = mesh.get_group("stage")
+    g_all = {k: _gather_parts(v, group) for k, v in grads.items()}
+    s_all = {k: _gather_parts(v, group) for k, v in state.items()}
+    if rank == 0:
+        rel = abs(loss.item() - f_loss.item()) / abs(f_loss.item())
+        g_worst = max(((g_all[k][i] - f_grads[i][k]).abs().max()
+                       / f_grads[i][k].abs().max().clamp_min(1e-30)).item()
+                      for k in g_all for i in range(s))
+        s_worst = max(((s_all[k][i].float() - f_state[i][k].float()).abs().max()
+                       / f_state[i][k].float().abs().max().clamp_min(1e-30)).item()
+                      for k in s_all for i in range(s))
+        if not (rel <= SRV_PIPE_RTOL and g_worst <= SRV_PIPE_GRAD_RTOL
+                and s_worst <= SRV_PIPE_STATE_RTOL):
+            fail(f"phase 22 pipeline: loss rel {rel:.3e}, gradients {g_worst:.3e}, state "
+                 f"{s_worst:.3e} x max|.| from the fold")
+        images = n_micro * SRV_PIPE_MICRO
+        res.update(loss_rel_diff=rel, grad_rel_diff=g_worst, state_rel_diff=s_worst,
+                   pipe_ms=pipe_ms, fold_ms=fold_ms, pipe_img_s=images / pipe_ms * 1e3,
+                   fold_img_s=images / fold_ms * 1e3,
+                   bubble_predicted=(s - 1) / (n_micro + s - 1),
+                   bubble_measured=1.0 - fold_ms / (s * pipe_ms))
+    return res
+
+
+def _srv_rank(rank, world, port, shared: Path, seed, gloo):
+    """One rank of phase 22: with NCCL on one card the world of 1
+    (:func:`_srv_llama_world1`); otherwise, over ``world`` ranks, the W4
+    Llama at tp = world (and, on four cards, at tp = 2 on a (2, 2) mesh),
+    the TinyDecoder at tp = world, EP, SP and the pipeline at world."""
+    import torch.distributed as dist
+
+    from micronet_tpu_torch.models.llama import llama3_8b
+    from micronet_tpu_torch.parallel import make_mesh
+
+    dev = _par_init(rank, world, port, gloo)
+    res = dict(world=world, backend=dist.get_backend())
+    if world == 1:
+        res["llama_world1"] = _srv_llama_world1(dev, seed)
+    else:
+        depth = SRV_DEPTH_SHARED if gloo else llama3_8b().n_layers
+        res[f"llama_tp{world}"] = _srv_llama(dev, seed, make_mesh(1, world), depth)
+        if world == 4:
+            res["llama_tp2"] = _srv_llama(dev, seed, make_mesh(2, 2), depth)
+        res["decoder_tp"] = _srv_decoder(dev, seed, make_mesh(1, world))
+        res["ep"] = _srv_ep(dev, seed, world)
+        res["sp"] = _srv_sp(dev, seed, world)
+        res["pipeline"] = _srv_pipeline(dev, seed, world)
+    if rank == 0:
+        (shared / f"serving_{'gloo' if gloo else 'nccl'}.json").write_text(json.dumps(res))
+    dist.destroy_process_group()
+
+
+SRV_K3_TPS = (2, 4)
+
+
+def k3_tp_times(dev, gen, report) -> dict:
+    """K3 at the column slices one rank of a tensor-parallel 8B decode step
+    runs (each of ``K3_SHAPES`` at N / tp, M = 8, ``split_cols`` the whole
+    N, as ``shard_state`` sets it), against its twin within K3's tolerance;
+    a step's 129 calls' ms (events, weights cold in L2) beside the twin's,
+    ``torch.matmul``'s on the dequantized bf16 slice and the bytes bound,
+    for each tp of ``SRV_K3_TPS``."""
+    from micronet_tpu_torch.ops import int4_matmul as im
+
+    res = {}
+    for tp in SRV_K3_TPS:
+        step = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, max_abs_err=0.0)
+        for (k, n), per_step in K3_SHAPES:
+            weights, w_bf16 = _k3_weights(k, n // tp, dev, gen)
+            x = torch.randn((8, k), device=dev, generator=gen)
+
+            def sliced(xx, packed, gs, n=n):
+                return im.int4_matmul_grouped_hl8(xx, packed, gs, split_cols=n)
+
+            out = sliced(x, *weights[0])
+            ref = im.int4_matmul_grouped_hl8_ref(x, *weights[0])
+            err, scale = (out - ref).abs().max().item(), ref.abs().max().item()
+            if not err <= K3_REL_TOL * scale:
+                fail(f"K3 tp={tp} K={k} N={n // tp}: max|err| {err:.3e} > {K3_REL_TOL} * "
+                     f"{scale:.3e}")
+            args, lib_args, iters = _k3_calls(8, x, weights, w_bf16)
+            step["ms"] += per_step * time_ms(sliced, args, iters)
+            step["plain_ms"] += per_step * time_ms(im.int4_matmul_grouped_hl8_ref, args, 5, 1)
+            step["library_ms"] += per_step * time_ms(torch.matmul, lib_args, iters)
+            step["bound_ms"] += per_step * _k3_bound(8, k, n // tp)[0]
+            step["max_abs_err"] = max(step["max_abs_err"], err)
+            del weights, w_bf16, args, lib_args
+            torch.cuda.empty_cache()
+        res[f"tp{tp}"] = step
+        log(f"K3 tp={tp}, one rank's decode step at M=8 (129 calls at N / {tp}): "
+            f"{step['ms']:.4f} ms, plain {step['plain_ms']:.3f} ms, torch.matmul bf16 "
+            f"{step['library_ms']:.4f} ms, bound {step['bound_ms']:.4f} ms (bytes)")
+    report["k3_tp"] = res
+    return res
+
+
+def serving_parallel(dev, seed, shared: Path, card: str, report) -> dict:
+    """Phase 22: tensor-parallel W4 serving, expert, sequence and pipeline
+    parallelism (each check above). Returns the kernels' launch counts of
+    the phase's main paths (rank 0's)."""
+    world = torch.cuda.device_count()
+    t0 = time.perf_counter()
+    _spawn(_srv_rank, world, shared, seed, False)
+    nccl = json.loads((shared / "serving_nccl.json").read_text())
+    t1 = time.perf_counter()
+    runs = dict(nccl=nccl, nccl_seconds=t1 - t0)
+    if world == 1:
+        _spawn(_srv_rank, 2, shared, seed, True)
+        runs["gloo"] = json.loads((shared / "serving_gloo.json").read_text())
+        runs["gloo_seconds"] = time.perf_counter() - t1
+    report["serving_parallel"] = dict(card=card, **runs)
+    main = runs.get("gloo", nccl)
+    w = main["world"]
+    w1 = nccl.get("llama_world1")
+    if w1 is not None:
+        log(f"serving parallel (NCCL, world 1): the W4 Llama ({w1['depth']} blocks) through "
+            f"make_mesh(1, 1) equals the unsharded loop bit for bit, dense and paged "
+            f"({runs['nccl_seconds']:.1f} s)")
+    counts = {}
+    for key in [k for k in main if k.startswith("llama_tp")]:
+        r = main[key]
+        for loop in ("dense", "paged"):
+            x = r[loop]
+            log(json.dumps({"phase": 22, "what": f"llama {key} {loop}", "card": card,
+                            "backend": main["backend"], "depth": r["depth"], **{
+                                k: x[k] for k in ("decode_tok_s", "step_ms_median",
+                                                  "step_ms_max", "prefill_ms", "max_abs_diff",
+                                                  "first_tie_position", "diverged_requests")},
+                            "one_card": {k: r["one_card_paged" if loop == "paged" else
+                                              "one_card"][k]
+                                         for k in ("decode_tok_s", "step_ms_median",
+                                                   "step_ms_max", "prefill_ms")},
+                            "launches": x["launches"]}))
+        counts[key] = {"dense": r["dense"]["launches"], "paged": r["paged"]["launches"],
+                       "generate": r["generate"]["launches"]}
+    d = main["decoder_tp"]
+    counts["decoder_tp"] = d["launches"]
+    log(json.dumps({"phase": 22, "what": f"decoder tp={d['tp']}", "card": card, **{
+        k: d[k] for k in ("decode_tok_s", "step_ms_median", "step_ms_max", "max_abs_diff",
+                          "first_tie_position")},
+        "one_card_tok_s": d["one_card"]["decode_tok_s"], "launches": d["launches"]}))
+    e, s, p = main["ep"], main["sp"], main["pipeline"]
+    log(json.dumps({"phase": 22, "what": f"ep={w} sp={w} pp={w}", "card": card,
+                    "ep_decoder_max_abs": e["max_abs_diff"],
+                    "ep_first_tie": e["first_tie_position"],
+                    "moe_apply_ep_rel": e["moe_apply_ep_rel_diff"],
+                    "a2a_top2_rel": e["a2a_top2_rel_diff"],
+                    **{f"sp_T{n}_ms": s[f"T{n}"]["sp_ms"] for n in SRV_SP_PROMPTS},
+                    **{f"dense_T{n}_ms": s[f"T{n}"]["dense_ms"] for n in SRV_SP_PROMPTS},
+                    "sp_max_abs": max(s[f"T{n}"]["max_abs_diff"] for n in SRV_SP_PROMPTS),
+                    "ring_rel": s["ring_rel_diff"], "pipe_img_s": p["pipe_img_s"],
+                    "fold_img_s": p["fold_img_s"], "bubble_predicted": p["bubble_predicted"],
+                    "bubble_measured": p["bubble_measured"],
+                    "pipe_loss_rel": p["loss_rel_diff"], "pipe_grad_rel": p["grad_rel_diff"]}))
+    return counts
+
+
 def card_name() -> str:
     """Card 0's name and power limit, as ``nvidia-smi`` gives them."""
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4334,6 +5135,10 @@ def main() -> int:
     training_lowerings(dev, args.seed, out_dir, card, report, train_res)
     torch.cuda.empty_cache()
     k1_phase21 = parallel(dev, args.seed, shared, card, report, args.profile)
+    torch.cuda.empty_cache()
+    srv = serving_parallel(dev, args.seed, shared, card, report)
+    tp_key = next(k for k in srv if k.startswith("llama_tp"))
+    k3_tp = k3_tp_times(dev, gen, report)
 
     src = "micronet_tpu_torch/ops/csrc/"
     long_per = (f"one call, G={ATT_G} R={ATT_R} D={ATT_D} S={LONG_CTX}, bounds 0..{LONG_CTX}")
@@ -4346,22 +5151,34 @@ def main() -> int:
              launches=launches["int4_matmul_grouped_hl8"],
              per="one decode step at M=8: 129 calls over the five 8B shapes; launches_phase18 "
                  "is its count over each TinyDecoder form's serving loop (phase 18), phase18 "
-                 "its times at M=1 for one slot's decode forward there",
+                 "its times at M=1 for one slot's decode forward there; launches_phase22 its "
+                 "counts on rank 0 over phase 22's tensor-parallel loops (the Llama's dense "
+                 "and paged loops and generate, the TinyDecoder's loop), phase22 one rank's "
+                 "decode step at M=8 at each tp (129 calls at N / tp, split_cols N)",
+             phase22=k3_tp,
              launches_phase18={f: v["int4_matmul_grouped_hl8"] for f, v in dec_launches.items()},
+             launches_phase22={k: {p: c["int4_matmul_grouped_hl8"] for p, c in v.items()}
+                               if k.startswith("llama") else v["int4_matmul_grouped_hl8"]
+                               for k, v in srv.items()},
              phase18=dict(dec_kernels["k3_per_slot_step"],
                           max_abs_err=dec_kernels["k3_max_abs_err"]), **k3),
         dict(name="decode_attend_q8kv_cur", route="cuda", source=src + "decode_attention.cu",
              replaces="micronet_tpu/ops/decode_attention.py:519",
              launches=launches["decode_attend_q8kv_cur"],
-             per=f"one call, G={ATT_G} R={ATT_R} D={ATT_D} S={ATT_S}",
+             per=f"one call, G={ATT_G} R={ATT_R} D={ATT_D} S={ATT_S}; launches_phase22 its "
+                 "count on rank 0 over phase 22's tensor-parallel dense loop",
+             launches_phase22=srv[tp_key]["dense"]["decode_attend_q8kv_cur"],
              **att["decode_attend_q8kv_cur"]),
         dict(name="decode_attend_q8kv", route="cuda", source=src + "decode_attention.cu",
              replaces="micronet_tpu/ops/decode_attention.py:107",
              launches=launches["decode_attend_q8kv"],
              per=f"one call, G={ATT_G} R={ATT_R} D={ATT_D} S={ATT_S}; launches_phase18 is its "
                  "count over each TinyDecoder form's serving loop (phase 18), phase18 one call "
-                 "there (G=8 R=1 D=16 S=64, bounds 0..64)",
+                 "there (G=8 R=1 D=16 S=64, bounds 0..64); launches_phase22 its counts on rank 0 "
+                 "over phase 22's tensor-parallel generate and TinyDecoder loop",
              launches_phase18={f: v["decode_attend_q8kv"] for f, v in dec_launches.items()},
+             launches_phase22=dict(generate=srv[tp_key]["generate"]["decode_attend_q8kv"],
+                                   decoder_tp=srv["decoder_tp"]["decode_attend_q8kv"]),
              phase18=dec_kernels["k5a"], **att["decode_attend_q8kv"]),
         dict(name="int8_matmul_dequant", route="cuda", source=src + "int_matmul.cu",
              replaces="micronet_tpu/ops/int_matmul.py:114",
@@ -4390,7 +5207,10 @@ def main() -> int:
              **long_att["decode_attend_q8kv_blocked"]),
         dict(name="paged_decode_attend_cur", route="cuda", source=src + "paged_attention.cu",
              replaces="micronet_tpu/ops/paged_attention.py:306",
-             launches=launches["paged_decode_attend_cur"], per=paged_per,
+             launches=launches["paged_decode_attend_cur"],
+             per=paged_per + "; launches_phase22 its count on rank 0 over phase 22's "
+                             "tensor-parallel paged loop",
+             launches_phase22=srv[tp_key]["paged"]["paged_decode_attend_cur"],
              **long_att[f"paged_decode_attend_cur_page{PAGE}"]),
         dict(name="paged_decode_attend", route="cuda", source=src + "paged_attention.cu",
              replaces="micronet_tpu/ops/paged_attention.py:131",

@@ -20,9 +20,11 @@ Serving API (the :class:`..serve.ServeLoop` contract): ``init_cache``,
 where the JAX package vmaps). There is no batched decode step and no
 paged cache, as in the JAX package.
 
-Not ported yet (ROADMAP.md, Queue 1 item 2: parallelism): serving MoE
-blocks expert-parallel (``MoEMLP.use_ep``) and the sequence-parallel
-prefill (``prefill_sp``).
+Parallel serving: ``parallel.shard_state`` shards every W4 linear (and the
+float lm_head) by column over a ``model`` axis; ``MoEMLP.use_ep`` serves
+a MoE block expert-parallel over an ``expert`` axis; ``prefill_sp`` runs
+the prompt's attention as ring attention over a ``seq`` axis
+(``parallel.sequence``) and writes the same int8 cache as ``forward``.
 """
 
 from __future__ import annotations
@@ -35,7 +37,7 @@ from torch import nn
 
 from .._device import resolve_device
 from ..nn.modules import Linear
-from ..parallel.moe import MoEParams, init_moe, moe_apply, quantize_moe
+from ..parallel.moe import MoEParams, init_moe, moe_apply, moe_apply_ep, quantize_moe
 from ..quant.kv_cache import QuantKVCache, append_kv, attend, forward_by_slot, init_kv_cache
 from ..quant.weight_only import wo_quantize_linear
 from ..serve.sampling import generate_sampled
@@ -44,6 +46,21 @@ from .llama import RMSNorm
 __all__ = ["TinyDecoder", "DecoderBlock", "MoEMLP", "quantize_decoder"]
 
 _NORM_EPS = 1e-6  # the JAX package's RMSNorm here (Llama's is 1e-5)
+
+
+def _load_local_experts(moe: "MoEMLP", state_dict, prefix, *_args) -> None:
+    """Loading into an EP block: a whole-E expert tensor becomes the rank's
+    slice."""
+    if moe.ep_mesh is None:
+        return
+    from ..parallel.sharding import axis_rank, axis_size
+
+    size, rank = axis_size(moe.ep_mesh, moe.ep_axis), axis_rank(moe.ep_mesh, moe.ep_axis)
+    e = moe.n_experts // size
+    for name in moe._EXPERT_TENSORS:
+        t = state_dict.get(prefix + name)
+        if t is not None and t.shape[0] == moe.n_experts and size > 1:
+            state_dict[prefix + name] = t[rank * e:(rank + 1) * e]
 
 
 class MoEMLP(nn.Module):
@@ -63,6 +80,9 @@ class MoEMLP(nn.Module):
         self.register_buffer("down_scale", None)
         self.capacity_factor = capacity_factor or float(n_experts)
         self.top_k = top_k
+        self.n_experts = n_experts
+        self.ep_mesh, self.ep_axis = None, "expert"
+        self._register_load_state_dict_pre_hook(_load_local_experts, with_module=True)
 
     def params(self) -> MoEParams:
         return MoEParams(self.router, self.w_up, self.w_down, self.up_scale, self.down_scale)
@@ -77,12 +97,43 @@ class MoEMLP(nn.Module):
         self.register_buffer("up_scale", qp.up_scale)
         self.register_buffer("down_scale", qp.down_scale)
 
+    _EXPERT_TENSORS = ("w_up", "w_down", "up_scale", "down_scale")
+
     def use_ep(self, mesh, axis: str = "expert") -> None:
-        raise NotImplementedError(
-            "expert-parallel MoE serving is not ported yet (ROADMAP.md, Queue 1 item 2: "
-            "parallelism)")
+        """Serve this block expert-parallel over ``mesh``'s ``axis``
+        (:func:`..parallel.moe.moe_apply_ep`, top-1 only, as in JAX): the
+        rank keeps its E/ep experts (codes and scales, or float weights)
+        and drops the rest. The mesh is module configuration, so a
+        ``state_dict`` round trip keeps the EP dispatch: the state holds
+        the rank's experts, and loading a whole-E state (a dense model's)
+        takes the rank's slice. Same router, same drop-free capacity, so
+        the logits equal the dense path's up to the order of the
+        combine's sums."""
+        from ..parallel.sharding import axis_rank, axis_size
+
+        if self.top_k != 1:
+            raise ValueError(f"use_ep is top-1 (moe_apply_ep); this block routes top-"
+                             f"{self.top_k}: use parallel.moe.moe_apply_ep_a2a")
+        size, rank = axis_size(mesh, axis), axis_rank(mesh, axis)
+        if self.n_experts % size:
+            raise ValueError(f"{self.n_experts} experts do not divide over {size} ranks")
+        if self.ep_mesh is None:
+            e = self.n_experts // size
+            with torch.no_grad():
+                for name in self._EXPERT_TENSORS:
+                    t = getattr(self, name)
+                    if t is not None:
+                        local = t.detach()[rank * e:(rank + 1) * e].clone()
+                        if isinstance(t, nn.Parameter):
+                            t.data = local
+                        else:
+                            setattr(self, name, local)
+        self.ep_mesh, self.ep_axis = mesh, axis
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.ep_mesh is not None:
+            return moe_apply_ep(self.params(), x, self.ep_mesh, self.ep_axis,
+                                self.capacity_factor)
         return moe_apply(self.params(), x, self.capacity_factor, self.top_k)
 
 
@@ -123,10 +174,39 @@ class DecoderBlock(nn.Module):
         cache = append_kv(cache, k, v)
         att = attend(cache, q, causal_offset=offset)  # (H, T, D)
         x = x + self.wo(att.transpose(0, 1).reshape(x.shape[0], -1))
+        return self._mlp(x), cache
+
+    def _mlp(self, x: torch.Tensor) -> torch.Tensor:
         h2 = self.norm2(x)
         if self.moe is not None:
-            return x + self.moe(h2), cache
-        return x + self.down(F.gelu(self.up(h2), approximate="tanh")), cache
+            return x + self.moe(h2)
+        return x + self.down(F.gelu(self.up(h2), approximate="tanh"))
+
+    def prefill_sp(
+        self,
+        x: torch.Tensor,  # (T, dim), the whole prompt
+        cache: QuantKVCache,  # empty (fill pointer 0)
+        mesh,
+        axis: str = "seq",
+    ) -> Tuple[torch.Tensor, QuantKVCache]:
+        """Sequence-parallel prefill: the prompt's attention is exact ring
+        attention over ``mesh``'s ``axis``, and the K/V land in the int8
+        cache as :meth:`forward` writes them, so later decode steps are the
+        same bits as after a dense prefill. The ring reads the dequantized
+        cache rows, the values ``attend`` reads in a dense prefill, so the
+        logits agree with :meth:`forward` up to the order of the sums."""
+        from ..parallel.sequence import ring_attention
+
+        t = x.shape[0]
+        h = self.norm1(x)
+        q, k, v = self._split(self.wq(h)), self._split(self.wk(h)), self._split(self.wv(h))
+        cache = append_kv(cache, k, v)
+        kdq = cache.dequant_k()[:, :t]  # (H, T, D)
+        vdq = cache.dequant_v()[:, :t]
+        att = ring_attention(q.transpose(0, 1).to(torch.float32), kdq.transpose(0, 1),
+                             vdq.transpose(0, 1), mesh, axis=axis, causal=True).to(x.dtype)
+        x = x + self.wo(att.reshape(t, -1))
+        return self._mlp(x), cache
 
 
 class TinyDecoder(nn.Module):
@@ -184,6 +264,25 @@ class TinyDecoder(nn.Module):
         new_caches = []
         for blk, cache in zip(self.blocks, caches):
             x, cache = blk(x, cache, offset)
+            new_caches.append(cache)
+        return self.lm_head(self.norm(x)), new_caches
+
+    @torch.no_grad()
+    def prefill_sp(
+        self,
+        tokens: torch.Tensor,  # (T,), T divisible by the axis
+        caches: List[QuantKVCache],  # fresh (init_cache())
+        mesh,
+        axis: str = "seq",
+    ) -> Tuple[torch.Tensor, List[QuantKVCache]]:
+        """Sequence-parallel prefill over ``mesh``'s ``axis``: logits and
+        caches of :meth:`forward` (tokens, caches, 0), the caches' codes
+        bit for bit, the logits up to the order of the sums."""
+        t = tokens.shape[0]
+        x = self.embed[tokens] + self.pos[torch.arange(t, device=tokens.device)]
+        new_caches = []
+        for blk, cache in zip(self.blocks, caches):
+            x, cache = blk.prefill_sp(x, cache, mesh, axis)
             new_caches.append(cache)
         return self.lm_head(self.norm(x)), new_caches
 

@@ -212,7 +212,7 @@ def _k3_regime(m: int, group: int) -> str:
 
 
 def int4_matmul_grouped_hl8(
-    x: torch.Tensor, packed: torch.Tensor, gscale: torch.Tensor
+    x: torch.Tensor, packed: torch.Tensor, gscale: torch.Tensor, *, split_cols: int = 0
 ) -> torch.Tensor:
     """x (M, K) f32 @ hl8-packed int4 w (K/2, N) with (K/g, N) group
     scales -> (M, N) f32.
@@ -220,7 +220,13 @@ def int4_matmul_grouped_hl8(
     On a CUDA tensor this launches the hand-written kernel of the regime
     :func:`_k3_regime` picks (``csrc/int4_matmul.cu``) or raises; on a CPU
     tensor it runs the plain twin :func:`int4_matmul_grouped_hl8_ref`. The
-    group must divide K/2, so that each nibble half covers whole groups."""
+    group must divide K/2, so that each nibble half covers whole groups.
+
+    ``split_cols`` (0: N) is the column count regime A's K-split is chosen
+    for (:func:`_w4_splits`). A column slice of a wider weight (tensor
+    parallelism) given the whole weight's N sums each column's splits as
+    the whole call does, so its columns equal the whole call's bit for
+    bit; regime B and the twin do not split K."""
     m, k = x.shape
     k2, n = packed.shape
     groups = gscale.shape[0]
@@ -230,10 +236,13 @@ def int4_matmul_grouped_hl8(
     group = k // groups
     if k2 % group:
         raise ValueError(f"group {group} must divide K/2={k2}")
+    if split_cols and split_cols < n:
+        raise ValueError(f"split_cols {split_cols} is narrower than N={n}")
     if not on_cuda(x):
         return int4_matmul_grouped_hl8_ref(x, packed, gscale)
     if _k3_regime(m, group) == "A":
-        out = _plain_call("mn_int4_matmul_grouped_hl8", x, packed, gscale, group)
+        out = _plain_call("mn_int4_matmul_grouped_hl8", x, packed, gscale, group,
+                          split_cols=split_cols)
     else:
         out = _gemm_call(x, packed, gscale, group)
     int4_matmul_grouped_hl8.launches += 1
@@ -244,13 +253,14 @@ int4_matmul_grouped_hl8.launches = 0
 
 
 def wo_linear_grouped_hl8(
-    x: torch.Tensor, packed_hl8: torch.Tensor, gscale: torch.Tensor
+    x: torch.Tensor, packed_hl8: torch.Tensor, gscale: torch.Tensor, split_cols: int = 0
 ) -> torch.Tensor:
-    """hl8 group-scaled weight-only int4 linear over any leading dims."""
+    """hl8 group-scaled weight-only int4 linear over any leading dims
+    (``split_cols``: :func:`int4_matmul_grouped_hl8`'s)."""
     lead = x.shape[:-1]
     out = int4_matmul_grouped_hl8(
         x.reshape(-1, x.shape[-1]).to(torch.float32).contiguous(),
-        packed_hl8, gscale,
+        packed_hl8, gscale, split_cols=split_cols,
     )
     return out.reshape(*lead, packed_hl8.shape[1])
 
@@ -339,10 +349,11 @@ def _check_operands(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor) 
 
 
 def _plain_call(fn: str, x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
-                group: int, lib=None) -> torch.Tensor:
+                group: int, lib=None, split_cols: int = 0) -> torch.Tensor:
     """Launch the w4 kernel on the card: K8 (``group`` 0), K9 or K3's
     regime A, from ``lib`` (default: this checkout's build of
-    ``csrc/int4_matmul.cu``); raises on what the kernel does not take."""
+    ``csrc/int4_matmul.cu``), its K-split chosen for ``split_cols`` (0: N)
+    columns; raises on what the kernel does not take."""
     m, k = x.shape
     n = packed.shape[1]
     dev = x.device
@@ -350,7 +361,9 @@ def _plain_call(fn: str, x: torch.Tensor, packed: torch.Tensor, scale: torch.Ten
     # built on first use, before anything asks the card
     launch = getattr(lib or _build.load("int4_matmul", _LIB_SIGNATURES), fn)
     sms = _build.sm_count(dev)
-    splits = _w4_splits(k // 2, n, sms)
+    # a slice's tiles times the whole's splits stay within the kept workspace's
+    # 2 x SMs tiles of splits, as the whole call's do
+    splits = _w4_splits(k // 2, split_cols or n, sms)
     mb = 1 if m <= 8 else 2  # batch rows of a block / 8
     out = x.new_empty((m, n))
     # torch.cuda.current_stream(dev).cuda_stream without building a Stream object (cheaper on

@@ -1,23 +1,28 @@
-"""Parallelism: the counterpart of ``micronet_tpu/parallel/``.
-
-Ported: data and tensor (channel) parallelism over ``torch.distributed``,
-one process per card (``initialize``, ``make_mesh``, ``shard_batch``,
-``channel_sharding_for``, ``shard_state``, ``shard_model_and_optimizer``,
-the explicit-collective ``dp_shard_map_step``; the reductions XLA inserts
-under GSPMD are written in ``distributed``), and the single-device half of
-``parallel/moe.py`` (top-1 and top-k Mixture-of-Experts with static
-capacity, int8 experts, the load-balancing loss). Left out, not ported
-yet: ``moe_apply_ep``, ``moe_apply_ep_a2a``, ``pipeline_apply``,
-``pipeline_apply_stateful``, ``stack_stage_params``, ``ring_attention``
-and ``attention_reference`` (expert, pipeline and sequence parallelism;
-ROADMAP.md, Queue 1 item 2).
+"""Parallelism: the counterpart of ``micronet_tpu/parallel/``, over
+``torch.distributed`` with one process a card (NCCL on the card, gloo on
+the CPU): data and tensor (channel) parallelism (``initialize``,
+``make_mesh``, ``shard_batch``, ``channel_sharding_for``, ``shard_state``,
+``shard_model_and_optimizer``, the explicit-collective
+``dp_shard_map_step``), Mixture-of-Experts on one device and
+expert-parallel (``moe_apply_ep``, ``moe_apply_ep_a2a``), GPipe pipeline
+parallelism (``pipeline_apply``, ``pipeline_apply_stateful``,
+``stack_stage_params``) and ring-attention sequence parallelism
+(``ring_attention``, ``attention_reference``). The collectives that XLA
+inserts or ``shard_map`` names in the JAX package are written in
+``distributed``; the expert, stage and seq axes are 1-D meshes of
+``sharding.axis_mesh``.
 """
 
 from .distributed import dp_shard_map_step, initialize
-from .moe import MoEParams, init_moe, load_balance_loss, moe_apply, quantize_moe
+from .moe import (MoEParams, init_moe, load_balance_loss, moe_apply, moe_apply_ep,
+                  moe_apply_ep_a2a, quantize_moe)
+from .pipeline import pipeline_apply, pipeline_apply_stateful, stack_stage_params
+from .sequence import attention_reference, ring_attention
 from .sharding import (channel_sharding_for, make_mesh, shard_batch, shard_model_and_optimizer,
                        shard_state)
 
-__all__ = ["MoEParams", "init_moe", "quantize_moe", "moe_apply", "load_balance_loss",
-           "initialize", "dp_shard_map_step", "make_mesh", "channel_sharding_for",
-           "shard_state", "shard_model_and_optimizer", "shard_batch"]
+__all__ = ["MoEParams", "init_moe", "quantize_moe", "moe_apply", "moe_apply_ep",
+           "moe_apply_ep_a2a", "load_balance_loss", "pipeline_apply",
+           "pipeline_apply_stateful", "stack_stage_params", "ring_attention",
+           "attention_reference", "initialize", "dp_shard_map_step", "make_mesh",
+           "channel_sharding_for", "shard_state", "shard_model_and_optimizer", "shard_batch"]

@@ -29,8 +29,25 @@ called where the port computes it:
   :func:`sum_grad` (the whole input of a layer whose ranks compute
   different out channels from it: its backward sums their gradients) and
   :func:`batch_moments` (BN's mean and variance over the global batch);
+- the exchanges of expert, sequence and pipeline parallelism, where
+  ``shard_map`` names them in the JAX package: :func:`psum` (the sum of
+  the ranks' parts of a replicated result), :func:`ppermute` (``lax.
+  ppermute``: batched ``isend``/``irecv`` pairs), :func:`all_to_all`
+  (``lax.all_to_all`` on dim 0) and :func:`hand_out` (one rank's tensor
+  to every rank). Each is a ``torch.autograd.Function`` whose backward
+  is the reverse exchange. Autograd runs a backward only where a result
+  reaches the loss, so the callers keep every rank's use of every
+  exchange in the graph (a ``torch.where`` in place of a Python branch
+  where JAX selects with ``jnp.where``): a rank that skipped the reverse
+  exchange would leave its peers waiting;
 - :func:`dp_shard_map_step`, the explicit-collective step: local
   statistics, gradients averaged, then the state reduced by name.
+
+Over a gloo group (ranks that share a card: NCCL refuses two ranks on
+one) every exchange but the all-reduce and the broadcast stages a CUDA
+tensor through the host: torch.distributed's backend table lists gloo's
+point-to-point, all-gather and all-to-all for CPU tensors only. NCCL
+exchanges card memory directly.
 
 Gloo has no ``ReduceOp.AVG``: every mean is a SUM and a division. No
 collective falls back to a local result: a reduction asked for over a
@@ -48,7 +65,8 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["initialize", "dp_shard_map_step", "batch_reduction", "batch_group",
-           "all_reduce_sum", "all_reduce_", "gather", "split", "sum_grad", "batch_moments"]
+           "all_reduce_sum", "all_reduce_", "gather", "split", "sum_grad", "batch_moments",
+           "psum", "ppermute", "all_to_all", "hand_out"]
 
 Groups = Union[None, dist.ProcessGroup, Sequence[dist.ProcessGroup]]
 
@@ -152,8 +170,17 @@ def all_reduce_(x: torch.Tensor, op: str, group: Groups) -> torch.Tensor:
     return out
 
 
+def _staged(group: dist.ProcessGroup, t: torch.Tensor) -> bool:
+    """Whether ``t`` crosses ``group`` through the host: a CUDA tensor over
+    gloo (NCCL refuses two ranks on one card, so ranks that share a card
+    talk gloo)."""
+    return t.is_cuda and dist.get_backend(group) == "gloo"
+
+
 def _gather_parts(x: torch.Tensor, group: dist.ProcessGroup):
     x = x.contiguous()
+    if _staged(group, x):
+        return [p.to(x.device) for p in _gather_parts(x.cpu(), group)]
     parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, x, group=group)
     return parts
@@ -219,6 +246,148 @@ def split(x: torch.Tensor, dim: int, group: dist.ProcessGroup) -> torch.Tensor:
     so its backward gathers the ranks' slice gradients into the whole
     gradient, which every rank then holds."""
     return _Split.apply(x, dim, group)
+
+
+# ------------------------------------------------- exchanges of EP, SP and PP
+
+class _PSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        out = x.contiguous().clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def psum(x: torch.Tensor, group: dist.ProcessGroup) -> torch.Tensor:
+    """The sum over ``group`` of the ranks' parts of a result that every
+    rank then holds whole (``lax.psum`` with a replicated output: the
+    expert-parallel combine). Every rank computes the same loss from the
+    sum, so each part's gradient is the sum's own, on its rank; the
+    replicated inputs the parts were computed from sum their gradients
+    through :func:`sum_grad`. Contrast :func:`all_reduce_sum`, whose ranks
+    each compute their own loss (data parallelism)."""
+    return _PSum.apply(x, group)
+
+
+def _peer(group: dist.ProcessGroup, r: int) -> int:
+    return dist.get_global_rank(group, r) if group is not dist.group.WORLD else r
+
+
+def _exchange(group: dist.ProcessGroup, sends, dests, srcs):
+    """Send ``sends[j]`` to group rank ``dests[j]`` and receive a tensor
+    of its shape from ``srcs[j]``, for every j, in one batch of
+    ``isend``/``irecv`` (a rank's own share is copied); returns the
+    received tensors."""
+    me = dist.get_rank(group)
+    outs, ops = [], []
+    for j, (x, dst, src) in enumerate(zip(sends, dests, srcs)):
+        x = x.contiguous()
+        if dst == me:
+            if src != me:
+                raise ValueError(f"rank {me} sends to itself but receives from {src}")
+            outs.append(x.clone())
+            continue
+        host = _staged(group, x)
+        buf = torch.empty_like(x, device="cpu" if host else x.device)
+        ops.append(dist.P2POp(dist.isend, x.cpu() if host else x, _peer(group, dst), group,
+                              tag=j))
+        ops.append(dist.P2POp(dist.irecv, buf, _peer(group, src), group, tag=j))
+        outs.append((buf, x.device) if host else buf)
+    if ops:
+        for w in dist.batch_isend_irecv(ops):
+            w.wait()
+    return tuple(o[0].to(o[1]) if isinstance(o, tuple) else o for o in outs)
+
+
+class _PPermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, group, dests, srcs, *xs):
+        ctx.group, ctx.dests, ctx.srcs = group, dests, srcs
+        return _exchange(group, xs, dests, srcs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None, None, None) + _exchange(ctx.group, grads, ctx.srcs, ctx.dests)
+
+
+def ppermute(xs, perm, group: dist.ProcessGroup):
+    """``lax.ppermute`` over ``group``: group rank i's tensor goes to rank
+    ``perm[i]`` (``perm`` a permutation of the group's ranks, where JAX
+    lists the pairs ``(i, perm[i])``). ``xs`` is one tensor or a sequence;
+    ``perm`` one permutation for all of them or a sequence of them, one a
+    tensor. Every tensor moves in one batch of ``isend``/``irecv``
+    (tagged by its place), so the ranks meet once; the backward sends each
+    gradient back along the inverse permutation, also in one batch."""
+    single = isinstance(xs, torch.Tensor)
+    xs = (xs,) if single else tuple(xs)
+    perms = [perm] * len(xs) if isinstance(perm[0], int) else list(perm)
+    me = dist.get_rank(group)
+    dests = tuple(p[me] for p in perms)
+    srcs = tuple(p.index(me) for p in perms)
+    out = _PPermute.apply(group, dests, srcs, *xs)
+    return out[0] if single else out
+
+
+def _a2a(x: torch.Tensor, group: dist.ProcessGroup) -> torch.Tensor:
+    x = x.contiguous()
+    if _staged(group, x):
+        host = x.cpu()
+        out = torch.empty_like(host)
+        dist.all_to_all_single(out, host, group=group)
+        return out.to(x.device)
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x, group=group)
+    return out
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _a2a(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _a2a(grad, ctx.group), None
+
+
+def all_to_all(x: torch.Tensor, group: dist.ProcessGroup) -> torch.Tensor:
+    """``lax.all_to_all(x, split_axis=0, concat_axis=0)`` over ``group``:
+    dim 0 (a multiple of the group's size) is cut into one chunk a rank,
+    chunk j goes to rank j, and the chunks received are stacked in the
+    order of their source ranks. The exchange is its own inverse, so the
+    backward is the same exchange of the gradient."""
+    if x.shape[0] % dist.get_world_size(group):
+        raise ValueError(f"dim 0 ({x.shape[0]}) must divide by the group's "
+                         f"{dist.get_world_size(group)} ranks")
+    return _AllToAll.apply(x, group)
+
+
+class _HandOut(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, src, group):
+        ctx.own = dist.get_rank(group) == src
+        out = x.contiguous().clone()
+        dist.broadcast(out, _peer(group, src), group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (grad if ctx.own else torch.zeros_like(grad)), None, None
+
+
+def hand_out(x: torch.Tensor, src: int, group: dist.ProcessGroup) -> torch.Tensor:
+    """Group rank ``src``'s ``x`` on every rank of ``group`` (the pipeline's
+    last-stage outputs). Its backward takes one copy of the gradient, on
+    ``src``, and gives the others' ``x`` zeros: every rank computes the
+    same loss from it (:func:`gather`'s convention), and every rank's
+    ``x`` stays in the graph, so the backward reaches every exchange that
+    made it."""
+    return _HandOut.apply(x, src, group)
 
 
 @torch.no_grad()

@@ -1,5 +1,5 @@
-"""Mixture-of-Experts on one device: the counterpart of the single-device
-half of ``micronet_tpu/parallel/moe.py``.
+"""Mixture-of-Experts, on one device or expert-parallel: the counterpart of
+``micronet_tpu/parallel/moe.py``.
 
 GShard-style routing with static capacity: the router's choices become a
 one-hot dispatch tensor ``D (T, E, C)`` built with a cumsum slot
@@ -22,8 +22,26 @@ Where torch differs from JAX and this module keeps JAX's result:
 - ``jax.nn.gelu`` is the tanh form by default; torch's ``F.gelu`` the
   erf form unless asked.
 
-Not ported yet (ROADMAP.md, Queue 1 item 2: parallelism): the
-expert-parallel forms ``moe_apply_ep`` and ``moe_apply_ep_a2a``.
+Expert parallelism over an ``expert`` axis (a 1-D mesh of
+``parallel.sharding.axis_mesh``), one process a rank:
+
+- :func:`moe_apply_ep`: each rank holds E/ep experts, every rank routes
+  the whole replicated x identically (capacity from the global T), runs
+  its experts' slots and the ranks' parts are summed (``distributed.
+  psum``);
+- :func:`moe_apply_ep_a2a`: the tokens are cut over the axis, each rank
+  routes its own with a capacity per shard, and two ``all_to_all``
+  exchanges carry the expert slots to their owners and back, so its
+  oracle is :func:`moe_apply` on each token shard.
+
+Both take the global x and give the global result on every rank, as the
+JAX package's caller sees them. The expert tensors are the whole E
+(every rank then takes its slice, and the backward gathers the slices'
+gradients, so every rank holds JAX's whole gradient) or already this
+rank's E/ep (``MoEMLP.use_ep`` keeps them so; their gradients stay local).
+Every rank computes the same loss from the result, so the replicated
+router and x sum their gradients over the axis (``distributed.sum_grad``):
+the gradients equal the dense ones.
 """
 
 from __future__ import annotations
@@ -38,7 +56,8 @@ import torch.nn.functional as F
 from .._device import resolve_device
 from ..ops.int4_matmul import symmetric_rtn
 
-__all__ = ["MoEParams", "init_moe", "quantize_moe", "moe_apply", "load_balance_loss"]
+__all__ = ["MoEParams", "init_moe", "quantize_moe", "moe_apply", "moe_apply_ep",
+           "moe_apply_ep_a2a", "load_balance_loss"]
 
 
 @dataclasses.dataclass
@@ -165,6 +184,96 @@ def moe_apply(params: MoEParams, x: torch.Tensor, capacity_factor: float = 1.25,
     xe = torch.einsum("td,tec->ecd", x, dmat)
     y = _expert_mlp(xe, params.up(), params.down())
     return torch.einsum("ecd,tec->td", y, comb)
+
+
+def _local_experts(params: MoEParams, group, ep: int):
+    """This rank's (up, down) expert weights, dequantized: its slice of the
+    whole E (through ``distributed.split``, whose backward gathers the
+    slices' gradients) or the E/ep it already holds."""
+    from .distributed import split
+
+    n_experts = params.router.shape[-1]
+    if n_experts % ep:
+        raise ValueError(f"{n_experts} experts do not divide over {ep} ranks")
+    e_local = n_experts // ep
+    whole = params.w_up.shape[0] == n_experts
+    if not whole and params.w_up.shape[0] != e_local:
+        raise ValueError(f"expert weights of {params.w_up.shape[0]} experts: neither the "
+                         f"{n_experts} nor this rank's {e_local}")
+
+    def local(w, s):
+        if whole:
+            w = split(w, 0, group)
+            s = None if s is None else split(s, 0, group)
+        return w if s is None else w.to(s.dtype) * s
+
+    return local(params.w_up, params.up_scale), local(params.w_down, params.down_scale)
+
+
+def _axis(mesh, axis: str):
+    from .sharding import axis_rank, axis_size
+
+    return mesh.get_group(axis), axis_size(mesh, axis), axis_rank(mesh, axis)
+
+
+def moe_apply_ep(params: MoEParams, x: torch.Tensor, mesh, axis: str = "expert",
+                 capacity_factor: float = 1.25) -> torch.Tensor:
+    """Expert-parallel top-1 forward over ``mesh``'s ``axis``: each rank
+    runs its E/ep experts' slots of the replicated x (T, dim), the parts
+    are summed. Semantics, routing and capacity are :func:`moe_apply`'s;
+    the sum runs in another order, so values agree to f32 rounding.
+    Differentiable (module docstring)."""
+    from .distributed import psum, sum_grad
+
+    group, ep, k = _axis(mesh, axis)
+    n_experts = params.router.shape[-1]
+    up, down = _local_experts(params, group, ep)
+    e_local = n_experts // ep
+    cap = _capacity(x.shape[0], n_experts, capacity_factor)
+    x, router = sum_grad(x, group), sum_grad(params.router, group)
+    logits = x @ router  # replicated: every rank routes identically
+    gate, dmat = _dispatch(logits, cap)
+    d_local = dmat[:, k * e_local:(k + 1) * e_local]
+    xe = torch.einsum("td,tec->ecd", x, d_local)
+    y = _expert_mlp(xe, up, down)
+    out = torch.einsum("ecd,tec->td", y, d_local) * gate[:, None]
+    return psum(out, group)
+
+
+def moe_apply_ep_a2a(params: MoEParams, x: torch.Tensor, mesh, axis: str = "expert",
+                     capacity_factor: float = 1.25, top_k: int = 2) -> torch.Tensor:
+    """Expert parallelism with GShard's all-to-all token exchange: rank r
+    routes rows [r T/ep, (r + 1) T/ep) of x (T, dim) with a capacity of
+    its own, sends each expert's slots to the expert's owner
+    (``distributed.all_to_all``), runs its experts on every shard's slots
+    and sends the results back; the ranks' rows are gathered. Equals
+    :func:`moe_apply` on each token shard. Differentiable (module
+    docstring)."""
+    from .distributed import all_to_all, gather, split, sum_grad
+
+    group, ep, _ = _axis(mesh, axis)
+    n_experts = params.router.shape[-1]
+    if x.shape[0] % ep:
+        raise ValueError(f"{x.shape[0]} tokens do not divide over {ep} ranks")
+    up, down = _local_experts(params, group, ep)
+    e_local = n_experts // ep
+    t_local = x.shape[0] // ep
+    cap = _capacity(t_local, n_experts, capacity_factor, top_k)
+    dim = x.shape[-1]
+    x_l, router = split(x, 0, group), sum_grad(params.router, group)
+    logits = x_l @ router  # (T_l, E): each shard routes its own tokens
+    if top_k == 1:
+        gate, dmat = _dispatch(logits, cap)
+        comb = dmat * gate[:, None, None]
+    else:
+        dmat, comb = _dispatch_topk(logits, cap, top_k)
+    xe = torch.einsum("td,tec->ecd", x_l, dmat).reshape(ep, e_local, cap, dim)
+    # dim 0: the owner's rank on the way out, the source shard on the way in
+    xr = all_to_all(xe, group).transpose(0, 1).reshape(e_local, ep * cap, dim)
+    y = _expert_mlp(xr, up, down)
+    y = y.reshape(e_local, ep, cap, dim).transpose(0, 1)
+    yr = all_to_all(y, group).reshape(n_experts, cap, dim)
+    return gather(torch.einsum("ecd,tec->td", yr, comb), 0, group)
 
 
 def load_balance_loss(logits: torch.Tensor) -> torch.Tensor:

@@ -21,7 +21,15 @@ keeps only what is its own:
   layer whose groups divide by the axis takes the input channels of its
   own groups; its activation quantizer then sees a slice, and reduces
   its range over the model group too, as does a per-tensor weight
-  quantizer over a sliced kernel. Everything else is replicated: a
+  quantizer over a sliced kernel. A weight-only W4/W8 linear
+  (``quant/weight_only.WOLinear``, the serving format) keeps its slice of
+  the (K/2, N) codes and the scales by column, and its output gathers on
+  the last dim after K3 (each rank runs the kernel at N / size, its
+  K-split chosen for the whole N, so the gathered output is the unsharded
+  layer's bit for bit). Everything
+  else is replicated: the embedding and position tables, the norms, int8
+  experts and the KV caches or pools, so each rank runs the whole
+  attention (ROADMAP.md, "Deliberate differences"). Also replicated: a
   DoReFa layer (its weight is normalised by the whole kernel's max, with
   a gradient through it), a grouped transposed conv, the integer engine's
   transposed conv, scalars.
@@ -45,7 +53,7 @@ from torch import nn
 
 from .distributed import _gather_parts, gather, split, sum_grad
 
-__all__ = ["make_mesh", "channel_sharding_for", "shard_state", "shard_model_and_optimizer",
+__all__ = ["make_mesh", "axis_mesh", "channel_sharding_for", "shard_state", "shard_model_and_optimizer",
            "shard_batch", "batch_group_for", "check_mesh", "axis_size", "axis_rank",
            "unsharded"]
 
@@ -72,6 +80,27 @@ def make_mesh(data: int = 1, model: int = 1, *, device=None):
         raise ValueError(f"a ({data}, {model}) mesh takes {need} ranks; the world has {world}")
     return DeviceMesh(kind, torch.arange(need).reshape(data, model),
                       mesh_dim_names=("data", "model"))
+
+
+def axis_mesh(axis: str, size: Optional[int] = None, *, device=None):
+    """A 1-D ``DeviceMesh`` of ``size`` ranks (None: the world) named
+    ``axis`` (``"stage"``, ``"expert"``, ``"seq"``), under
+    :func:`make_mesh`'s rule: the world must be exactly ``size``. The
+    counterpart of the JAX package's ``Mesh(devices[:size], (axis,))``.
+    ``device`` None means CUDA."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from .._device import resolve_device
+
+    kind = resolve_device(device).type
+    if not dist.is_initialized():
+        raise RuntimeError("no process group: call parallel.initialize(...) first")
+    world = dist.get_world_size()
+    size = world if size is None else size
+    if size != world:
+        raise ValueError(f"an {axis!r} axis of {size} ranks needs a world of {size}; "
+                         f"the world has {world}")
+    return DeviceMesh(kind, torch.arange(size), mesh_dim_names=(axis,))
 
 
 def check_mesh(mesh) -> None:
@@ -142,6 +171,7 @@ def _plan(m: nn.Module, size: int) -> Optional[_Plan]:
     from ..infer import engine as E
     from ..nn import modules as M
     from ..nn import qat_dorefa
+    from ..quant.weight_only import WOLinear
 
     if size == 1 or isinstance(m, (qat_dorefa.QuantConv2d, qat_dorefa.QuantConvTranspose2d,
                                    qat_dorefa.QuantLinear)):
@@ -199,6 +229,13 @@ def _plan(m: nn.Module, size: int) -> Optional[_Plan]:
             return None
         dims = {n: 0 for n in ("w_scale", "w_zp", "bias") if getattr(m, n, None) is not None}
         return _Plan({"w_q": 1, **dims}, False, -1, dict(w_shape=(k, o // size)))
+    if isinstance(m, WOLinear):
+        if m.packed.shape[1] % size:
+            return None
+        dims = {"packed": 1, "scale": 1, **({"bias": 0} if m.bias is not None else {})}
+        # K3's K-split chosen for the whole N: the shard's columns are the
+        # unsharded matmul's bit for bit
+        return _Plan(dims, False, -1, dict(split_cols=m.split_cols or m.packed.shape[1]))
     return None
 
 
@@ -207,7 +244,8 @@ def channel_sharding_for(module: nn.Module, name: str, mesh, axis: str = "model"
     ``"weight_quantizer.min_val"``) that shards over ``mesh``'s ``axis``,
     or None where it is replicated. The out-channel axis comes from the
     module: OIHW kernels on 0 (a nibble-packed W4 engine kernel, (kh kw
-    cg / 2, O), on 1), the (in, out) Linear kernel on 1, a transposed
+    cg / 2, O), on 1), the (in, out) Linear kernel on 1, a weight-only
+    linear's (K/2, N) codes and its (1 or K/group, N) scales on 1, a transposed
     conv's (in, out, kh, kw) kernel on 1, vectors and per-channel conv
     statistics on 0, per-column linear statistics on 1. Nothing shards
     when the axis has one rank (pure data parallelism)."""

@@ -43,13 +43,16 @@ class WOTensor:
 
     ``group == 0``: per-column scale (1, N); ``group > 0``: scales
     (K/group, N). ``bits == 4``: (K/2, N) hl8-packed nibbles (K padded to
-    even); ``bits == 8``: plain (K, N) int8 codes."""
+    even); ``bits == 8``: plain (K, N) int8 codes. ``split_cols`` (0: N)
+    is the column count K3 chooses its K-split for: a column shard's
+    whole N, so its columns equal the unsharded matmul's bit for bit."""
 
     packed: torch.Tensor
     scale: torch.Tensor
     k: int
     group: int = 0
     bits: int = 4
+    split_cols: int = 0
 
     def _codes(self) -> torch.Tensor:
         if self.bits == 8:
@@ -68,11 +71,11 @@ class WOTensor:
             return round_bf16(x.to(torch.float32)) @ round_bf16(self.dequantize())
         full = self.packed.shape[0] * 2 == self.k
         if self.group and full and self.packed.shape[0] % self.group == 0:
-            return wo_linear_grouped_hl8(x, self.packed, self.scale)
+            return wo_linear_grouped_hl8(x, self.packed, self.scale, self.split_cols)
         if not self.group and full and self.packed.shape[0] % 128 == 0:
             # per-column scales ride the grouped kernel as 128-row groups
             gs = self.scale.reshape(1, -1).expand(self.k // 128, -1).contiguous()
-            return wo_linear_grouped_hl8(x, self.packed, gs)
+            return wo_linear_grouped_hl8(x, self.packed, gs, self.split_cols)
         return x @ self.dequantize()  # odd K or a group not dividing K/2
 
 
@@ -109,17 +112,21 @@ def _quantize_2d(w: torch.Tensor, group: int = 0, bits: int = 4) -> WOTensor:
 
 class WOLinear(nn.Module):
     """Weight-only int4/int8 linear; bias in f32. ``packed`` and
-    ``scale`` are buffers, so they ride ``state_dict``."""
+    ``scale`` are buffers, so they ride ``state_dict``. ``split_cols`` is
+    :class:`WOTensor`'s (``parallel.shard_state`` sets it to the whole N
+    when it keeps a column shard)."""
 
     def __init__(self, wo: WOTensor, bias: Optional[torch.Tensor]):
         super().__init__()
         self.register_buffer("packed", wo.packed)
         self.register_buffer("scale", wo.scale)
         self.k, self.group, self.bits = wo.k, wo.group, wo.bits
+        self.split_cols = wo.split_cols
         self.register_buffer("bias", bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        wo = WOTensor(self.packed, self.scale, self.k, self.group, self.bits)
+        wo = WOTensor(self.packed, self.scale, self.k, self.group, self.bits,
+                      self.split_cols)
         out = wo.matmul(x)
         if self.bias is not None:
             out = out + self.bias

@@ -1010,6 +1010,46 @@ def test_int4_hl8_kernel_at_decoder_shapes_matches_twin(cuda, m, k, n, g):
                            out[r])
 
 
+# K3 at the column slices of tensor-parallel serving (shard_state over tp = 2 and 4): the
+# W4 Llama-3-8B's fused QKV (N = 6,144 / tp), output (4,096 / tp), gate+up (28,672 / tp) and
+# down (K = 14,336) projections at group 128, and its W4 lm_head (128,256 / tp: 32,064 is not
+# a multiple of the 128-column tile); the W4 TinyDecoder's at group 32 (N = 64 and 32)
+_TP_K3 = ([(4096, n, 128) for n in (3072, 1536, 2048, 1024, 14336, 7168, 64128, 32064)]
+          + [(14336, n, 128) for n in (2048, 1024)]
+          + [(k, n, 32) for k in (128, 256) for n in (64, 32)])
+
+
+@pytest.mark.parametrize("m", [1, 8, 200])
+@pytest.mark.parametrize("k,n,g", _TP_K3)
+def test_int4_hl8_kernel_at_tensor_parallel_slices_matches_twin(cuda, m, k, n, g):
+    """Decode (M = 1 and 8, regime A) and a prompt past 128 rows (regime B)
+    at each slice, against the twin within 2e-5 x max|twin|; a column
+    slice's own call against the same columns of the whole call within the
+    same bound (regime A may take another K-split: the split count depends
+    on N), and with ``split_cols`` the whole N (what ``shard_state`` sets)
+    bit for bit."""
+    gen = _gen(3000 + m + k + n + g)
+    w = torch.randn((k, n * 2), device=cuda, generator=gen) * 0.05
+    w_q, gs = tim.quantize_int4_weight_grouped(w, g)
+    packed = tim.pack_int4_hl8(w_q)
+    x = torch.randn((m, k), device=cuda, generator=gen)
+    half, gs_half = packed[:, :n].contiguous(), gs[:, :n].contiguous()
+    before = tim.int4_matmul_grouped_hl8.launches
+    out = tim.int4_matmul_grouped_hl8(x, half, gs_half)
+    whole = tim.int4_matmul_grouped_hl8(x, packed, gs)
+    torch.cuda.synchronize()
+    assert tim.int4_matmul_grouped_hl8.launches == before + 2
+    ref = tim.int4_matmul_grouped_hl8_ref(x, half, gs_half)
+    tol = 2e-5 * ref.abs().max().item()
+    torch.testing.assert_close(out, ref, rtol=0, atol=tol)
+    torch.testing.assert_close(out, whole[:, :n], rtol=0, atol=tol)
+    assert torch.equal(tim.int4_matmul_grouped_hl8(x, half, gs_half), out)
+    for cols in (slice(0, n), slice(n, 2 * n)):
+        shard = tim.int4_matmul_grouped_hl8(x, packed[:, cols].contiguous(),
+                                            gs[:, cols].contiguous(), split_cols=2 * n)
+        assert torch.equal(shard, whole[:, cols])
+
+
 def test_decode_attention_at_decoder_shape_matches_twin(cuda):
     """K5a at the TinyDecoder's decode attend: G = 8 heads, R = 1 (q as
     (G, D), what ``attend`` passes for MHA, and as (G, 1, D)), D = 16,

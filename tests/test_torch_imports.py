@@ -45,7 +45,8 @@ def test_port_and_chip_smoke_import_no_jax():
               "train.native_loader", "train.checkpoint", "train.loop", "train.optim",
               "infer.evaluate", "infer.dump", "models.tiny_decoder", "parallel",
               "parallel.moe", "infer.deploy", "infer.bf16", "utils.profiling", "graft_entry",
-              "parallel.distributed", "parallel.sharding"):
+              "parallel.distributed", "parallel.sharding", "parallel.pipeline",
+              "parallel.sequence"):
         assert f"micronet_tpu_torch.{m}" in mods
     code = "\n".join(
         ["import sys", "preloaded = set(sys.modules)"]

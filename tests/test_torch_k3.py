@@ -163,6 +163,30 @@ def test_wrapper_calls_the_regime_entry_with_its_workspaces(monkeypatch, m, k, n
                    for a, kw in scratch)
 
 
+def test_split_cols_sets_regime_a_split_only(monkeypatch):
+    """A column shard given the whole weight's N (``split_cols``, what
+    ``parallel.shard_state`` sets on a ``WOLinear``) gets the whole call's
+    K-split in regime A; a narrower ``split_cols`` than N raises."""
+    lib = _Lib()
+    monkeypatch.setattr(tim, "on_cuda", lambda t: True)
+    monkeypatch.setattr(_build, "load", lambda name, sig, defines=(): lib)
+    monkeypatch.setattr(_build, "sm_count", lambda dev: 132)
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream", lambda index: 7, raising=False)
+    monkeypatch.setattr(tim, "_W4_WORKSPACE", {})
+    monkeypatch.setattr(tim, "_W4_COUNTERS", {})
+    k, n, group = 4096, 3072, 128
+    x = torch.zeros((8, k))
+    packed = torch.zeros((k // 2, n), dtype=torch.int8)
+    gs = torch.ones((k // group, n))
+    tim.int4_matmul_grouped_hl8(x, packed, gs)
+    tim.int4_matmul_grouped_hl8(x, packed, gs, split_cols=2 * n)
+    own, whole = (args[10] for _, args in lib.calls)
+    assert (own, whole) == (tim._w4_splits(k // 2, n, 132), tim._w4_splits(k // 2, 2 * n, 132))
+    assert own != whole
+    with pytest.raises(ValueError, match="narrower"):
+        tim.int4_matmul_grouped_hl8(x, packed, gs, split_cols=n - 4)
+
+
 @pytest.mark.parametrize("m", [4, 300])
 def test_wrapper_on_a_card_tensor_launches_or_raises(monkeypatch, m):
     """Either regime on a card tensor takes the kernel path, never the twin:

@@ -259,10 +259,10 @@ def test_serve_loop_has_dense_slots_only():
 
 def test_use_ep_and_top_k_routing_differ_from_top_1():
     m = _pair("moe_w4").t
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        m.blocks[0].moe.use_ep(None)
     assert m.blocks[0].moe.capacity_factor == 4.0  # drop-free serving: cf = E
     two = _pair("moe2_w4").t
+    with pytest.raises(ValueError, match="top-1"):  # moe_apply_ep routes top-1 only
+        two.blocks[0].moe.use_ep(None)
     toks = torch.tensor(PROMPT)
     l1, _ = m.forward(toks, m.init_cache(), 0)
     l2, _ = two.forward(toks, two.init_cache(), 0)

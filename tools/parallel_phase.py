@@ -1,8 +1,11 @@
 #!/usr/bin/env python3
-"""``chip_smoke.py``'s phase 21 (data and tensor parallelism) alone, on
-every card of the machine: builds the kernels, makes phase 9's ResNet-18
-W8A8 engine, saves it for the ranks (as phase 19 does) and runs the
-phase, printing its lines and writing ``<out>/parallel.json``.
+"""``chip_smoke.py``'s phases 21 (data and tensor parallelism) and 22
+(tensor-parallel W4 serving, expert, sequence and pipeline parallelism)
+alone, on every card of the machine: builds the kernels, makes phase 9's
+ResNet-18 W8A8 engine, saves it for the ranks (as phase 19 does) and runs
+both phases, printing their lines and writing ``<out>/parallel.json``.
+On four cards phase 22 runs the W4 Llama at the full 32 blocks at tp = 4
+and tp = 2, and EP, SP and the pipeline over 4 ranks.
 
     python3 tools/parallel_phase.py [--seed N] [--profile] [--out DIR]
 """
@@ -45,9 +48,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     k1 = cs.parallel(dev, args.seed, shared, card, report, args.profile)
     report["k1_launches_phase21"] = k1
+    t1 = time.perf_counter()
+    torch.cuda.empty_cache()
+    report["launches_phase22"] = cs.serving_parallel(dev, args.seed, shared, card, report)
     report["seconds"] = time.perf_counter() - t0
     (args.out / "parallel.json").write_text(json.dumps(report, indent=1))
-    cs.log(f"parallel_phase: K1 launches {k1}; {report['seconds']:.1f} s")
+    cs.log(f"parallel_phase: K1 launches {k1}; phase 22 {time.perf_counter() - t1:.1f} s; "
+           f"{report['seconds']:.1f} s")
     return 0
 
 
