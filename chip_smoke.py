@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``micronet_tpu_torch``) on one card.
 
-    python3 chip_smoke.py [--seed N] [--profile] [--out DIR]
+    python3 chip_smoke.py [--seed N] [--profile] [--out DIR] [--slice12]
 
 Phases, each fatal on failure (non-zero exit, no final line):
 
@@ -20,7 +20,9 @@ Phases, each fatal on failure (non-zero exit, no final line):
    calls at M = 6,000 as ``prefill_*``. K4a and K5a run at G = 64, R = 4,
    D = 128, S = 2,048 with bounds 1..2,048, and K4a again at the serving
    loop's fills (bounds 16..288, its row's ``fills_*``); how many clusters
-   of the decode-attention kernel the card holds at once;
+   of the decode-attention kernel the card holds at once. K3 also at
+   M = 136 (regime B at decode: phase 24's loop past 128 slots; the
+   kernels line's ``m136_*``);
 4. reference: a small Llama with head_dim 128 served on the card and on
    the CPU (where the wrappers run their twins), logits compared;
 5. serve (slice 1's main path): ``Llama(llama3_8b(2048), w4_group=128)`` with
@@ -28,7 +30,8 @@ Phases, each fatal on failure (non-zero exit, no final line):
    ``ServeLoop(max_slots=8)``, then one request again through
    ``Llama.generate`` alone, which must give the same tokens; the
    kernels' launch counts, reset just before and read just after, must
-   show every kernel ran as often as the path calls it;
+   show every kernel ran as often as the path calls it; phase 24 follows
+   on the same model;
 6. with ``--profile``, a traced run of 5 decode steps at 8 busy slots
    (``torch.profiler``): device busy share and kernel time by name (and
    the same for 3 forwards of each engine in phases 9, 13, 16 and 17, and
@@ -37,7 +40,9 @@ Phases, each fatal on failure (non-zero exit, no final line):
    taken after phase 12's device readings (after a traced serving run,
    those readings' traces lost kernels);
 7. K1 (``int8_matmul_dequant``) against its twin, bit for bit, at the
-   engine's call, a large call and a ragged A4 call with zp != 0: the
+   engine's call, ResNet-50's fc (512 x 2,048 x 10) and LeNet's first
+   Linear at batch 1,024 (1,024 x 400 x 120) (phase 23's calls), a large
+   call and a ragged A4 call with zp != 0: the
    public wrapper in the regime ``_k1_regime`` picks (logged) and each of
    its two regimes forced (the small mma.sync kernel, the wgmma GEMM with
    its pre-passes), timed beside ``torch._int_mm`` on codes and its int8
@@ -98,13 +103,15 @@ Phases, each fatal on failure (non-zero exit, no final line):
 14. training (slice 5's main path) through ``micronet_tpu_torch.cli``:
    ``train`` on ``nin_gc.Net()`` at full width, batch 256, 2 epochs of 8
    steps on the synthetic set, for ``float``, ``iao --bn_fuse``,
-   ``dorefa`` and ``wbwtab --W 3 --A 2``, IAO and DoReFa through the
+   ``dorefa``, ``wbwtab --W 3 --A 2`` and ``wbwtab --W 2 --A 2`` (the
+   CLI's wbwtab default, binary weights), IAO and DoReFa through the
    default ``"auto"`` training lowerings (bf16 code operands; IAO's batch
    statistics from the quantized conv's accumulator) (no hand-written
    kernel: every count 0; each method's last loss below its first; img/s
    with the run's first step left out, step times, peak memory, losses and
    test accuracy on a line of their own), ``model-test`` on the IAO
-   checkpoint (EQUIVALENCE OK, both models lowered), each method's
+   checkpoint (EQUIVALENCE OK, both models lowered) and on the binary
+   wbwtab one, each method's
    ``train`` again with the same seed (the same checkpoint, array for
    array: the trainer's steps run cuDNN's deterministic algorithms), then
    each method's step at batch 8 on the card against the CPU, block by
@@ -224,7 +231,36 @@ Phases, each fatal on failure (non-zero exit, no final line):
    Then, in this process, K3 at one rank's column slices of an 8B decode
    step at tp = 2 and 4 (M = 8, ``split_cols`` the whole N) against its
    twin, timed beside the twin, ``torch.matmul`` and the bound;
-23. the kernels line (JSON), then the final line
+23. BottleNeck and LeNet engines (slice 12): full-width ``resnet50()``
+   (CIFAR stem, 10 classes) at batch 512 and ``LeNet()`` at batch 1,024
+   through phase 9's engine path, W8A8 with fused BN (``EXACT``), phase
+   9's cuts; K1 launches once per forward for each symmetric ``IntLinear``
+   the engine holds (ResNet-50's fc at K = 2,048; LeNet's three Linears),
+   read from the engine, and nothing else launches; the card equal to the
+   CPU on 8 images (``CARD_CPU_TOL``) and to the fake-quant model
+   (``FQ_TOL``); img/s beside the port's fp32 eval, chained layers, peak
+   memory; with ``--profile``, 3 traced forwards each. It runs after phase
+   9;
+24. the serving loop's options (slice 12), on phase 5's model right after
+   phase 5 (before phase 11 builds its own): phase 5's 12 requests
+   through ``ServeLoop(8, prefill_chunk=64)``, dense and paged (page 16),
+   against the unchunked loop run again with its logits kept (prompts up
+   to 128 tokens: equal tokens; longer ones, whose whole prefill runs K3
+   in regime B and whose chunks in A: logits within ``REGIME_REL_TOL``, a
+   token differing only at a near tie; K3 129 a chunk forward); the same
+   prompts with mixed sampling settings (``SAMPLING``, a seed each)
+   through the dense loop twice and the paged loop, each stream equal to
+   ``generate_sampled`` (greedy ones ``generate``) with the same settings
+   on the card bit for bit, every token inside the set ``kept_tokens``
+   gives on the logits it was drawn from (no card-vs-CPU token comparison:
+   the card's generators draw other numbers than the CPU's from one
+   seed); then ``ServeLoop(136)`` with 136 greedy requests (prompts of 16
+   to 64 tokens, 8 new tokens), all admitted before the first decode step,
+   every decode step in K3's regime B (its GEMM calls counted at
+   M = 136), eight requests spread over the slots teacher-forced with
+   ``generate``'s tokens and their logits held to ``generate``'s position by
+   position; exact launch counts; decode step ms, tok/s and peak memory;
+25. the kernels line (JSON), then the final line
    ``{"ok": true, "device": {...}}``.
 
 Details of every measurement go to ``<out>/chip_smoke.json`` (``--out``,
@@ -276,6 +312,7 @@ K3_SHAPES = [((4096, 6144), 32), ((4096, 4096), 32), ((4096, 28672), 32),
              ((14336, 4096), 32), ((4096, 128256), 1)]
 K3_MS = (1, 8, 128)  # regime A (decode)
 K3_PREFILL_M = 6000  # regime B: the long prompt of phase 11 (LONG_PROMPTS[0])
+K3_SLOTS_B = 136  # regime B at decode: phase 24's decode step over 136 slots
 K3_TWIN_COLS = 16384  # the twin on sampled rows, this many columns at a time
 ATT_G, ATT_R, ATT_D, ATT_S = 64, 4, 128, 2048  # 8 slots x 8 KV heads
 # the bounds of phase 5's decode steps: prompts of 16 to 256 tokens plus up to 32 new ones
@@ -302,12 +339,23 @@ LONG_KERNELS = ("decode_attend_q8kv_blocked_cur", "decode_attend_q8kv_blocked",
 # slice 4: on no path of the JAX package; counted over the wbwtab engine's run
 WBWTAB_KERNELS = ("binary_act_matmul", "int4_matmul", "int4_matmul_grouped")
 # K1 calls: (label, M, K, N, s_x, zp, qmin, qmax, timed launches). "path" is
-# ResNet-18's fc at the engine batch of 512
+# ResNet-18's fc at the engine batch of 512; phase 23 adds ResNet-50's fc at 512
+# and LeNet's first Linear at 1,024
 K1_CASES = [
     ("path", 512, 512, 10, 0.05, 0.0, -128.0, 127.0, 200),
+    ("resnet50_fc", 512, 2048, 10, 0.05, 0.0, -128.0, 127.0, 200),  # phase 23's ResNet-50 fc
+    ("lenet_fc1", 1024, 400, 120, 0.05, 0.0, -128.0, 127.0, 200),  # LeNet's widest, at 1,024
     ("large", 8192, 4096, 4096, 0.05, 0.0, -128.0, 127.0, 10),
     ("ragged A4 zp", 333, 200, 19, 0.5, 3.0, -8.0, 7.0, 100),
 ]
+# calls added after the phases' inputs were fixed (K1's two above, K3 at
+# K3_SLOTS_B) draw from a generator of their own: the shared one then
+# gives every later phase the inputs it had before they were added
+OWN_DRAWS = ("resnet50_fc", "lenet_fc1", K3_SLOTS_B)
+
+
+def own_generator(dev, what) -> torch.Generator:
+    return torch.Generator(device=dev).manual_seed(1 + OWN_DRAWS.index(what))
 # IntConv2d layer shapes (cin, size, cout, kernel, stride, padding, groups):
 # every distinct conv of ResNet-18 and of NIN-GC's default widths
 RESNET_CONVS = [(3, 32, 64, 3, 1, 1, 1), (64, 32, 64, 3, 1, 1, 1), (64, 32, 128, 3, 2, 1, 1),
@@ -470,8 +518,9 @@ def _k3_weights(k, n, dev, gen):
 
 def _k3_calls(m, x, weights, w_bf16):
     """K3's and ``torch.matmul``'s argument lists at M = m, and the calls a
-    reading takes: at M <= 128 30 calls over every copy, so each finds its
-    weights cold in L2; at the prefill's M a few calls on one copy."""
+    reading takes: at a decode step's M (up to ``K3_SLOTS_B``) 30 calls over
+    every copy, so each finds its weights cold in L2; at the prefill's M a
+    few calls on one copy."""
     xb = x.to(torch.bfloat16)
     if m == K3_PREFILL_M:
         return [(x, *weights[0])], [(xb, w_bf16[0])], 3
@@ -480,7 +529,8 @@ def _k3_calls(m, x, weights, w_bf16):
 
 def check_k3(dev, gen, report):
     """K3 at the five W4 shapes of one Llama-3-8B forward: M = 1, 8 and 128
-    (regime A, decode) against the whole twin, weights cold in L2; M = 6,000
+    (regime A, decode) and 136 (regime B, phase 24's decode step past 128
+    slots) against the whole twin, weights cold in L2; M = 6,000
     (regime B, the long prompt's prefill) against the twin on a sample of
     rows (the first, the last and 62 drawn from ``gen``) in column chunks,
     since the whole twin would hold (K/g, M, N) f32. Each beside
@@ -491,8 +541,9 @@ def check_k3(dev, gen, report):
     cases = {}
     for (k, n), per_step in K3_SHAPES:
         weights, w_bf16 = _k3_weights(k, n, dev, gen)
-        for m in K3_MS + (K3_PREFILL_M,):
-            x = torch.randn((m, k), device=dev, generator=gen)
+        for m in K3_MS + (K3_SLOTS_B, K3_PREFILL_M):
+            x = torch.randn((m, k), device=dev, generator=own_generator(dev, m)
+                            if m in OWN_DRAWS else gen)
             out = im.int4_matmul_grouped_hl8(x, *weights[0])
             if m == K3_PREFILL_M:
                 rows = torch.cat([torch.tensor([0, m - 1], device=dev),
@@ -542,10 +593,10 @@ def check_k3(dev, gen, report):
 
 
 def k3_device_times(dev, gen, report, row):
-    """K3's device time (``torch.profiler``) at phase 3's shapes, M = 8 and
-    6,000, beside ``torch.matmul``'s on the dequantized bf16 weight, on
-    fresh weights from ``gen``; adds a decode step's and a prefill's 129
-    calls to the kernels-line ``row``. Taken after the serving phases, so
+    """K3's device time (``torch.profiler``) at phase 3's shapes, M = 8, 136
+    and 6,000, beside ``torch.matmul``'s on the dequantized bf16 weight, on
+    fresh weights from ``gen``; adds a decode step's 129 calls at M = 8 and
+    at 136 and a prefill's to the kernels-line ``row``. Taken after the serving phases, so
     that no profiler session runs before them (as in the smoke runs before
     this reading was added)."""
     from micronet_tpu_torch.ops import int4_matmul as im
@@ -553,8 +604,9 @@ def k3_device_times(dev, gen, report, row):
     cases = {(c["m"], c["k"], c["n"]): c for c in report["k3_cases"]}
     for (k, n), _ in K3_SHAPES:
         weights, w_bf16 = _k3_weights(k, n, dev, gen)
-        for m in (8, K3_PREFILL_M):
-            x = torch.randn((m, k), device=dev, generator=gen)
+        for m in (8, K3_SLOTS_B, K3_PREFILL_M):
+            x = torch.randn((m, k), device=dev, generator=own_generator(dev, m)
+                            if m in OWN_DRAWS else gen)
             args, lib_args, iters = _k3_calls(m, x, weights, w_bf16)
             per_call = 2 if im._k3_regime(m, GROUP) == "B" else 1  # B: the x pre-pass, the GEMM
             case = cases[m, k, n]
@@ -575,12 +627,17 @@ def k3_device_times(dev, gen, report, row):
     pre = forward(K3_PREFILL_M, ("ms", "bound_ms", "device_ms", "library_device_ms"))
     row.update({f"prefill_{key}": v for key, v in pre.items()},
                prefill_m=K3_PREFILL_M, prefill_bound_share=pre["bound_ms"] / pre["device_ms"])
+    wide = forward(K3_SLOTS_B, ("ms", "plain_ms", "library_ms", "bound_ms", "device_ms",
+                                "library_device_ms"))
+    row.update({f"m{K3_SLOTS_B}_{key}": v for key, v in wide.items()})
     report["k3_cases"] = list(cases.values())
     log(f"K3 forward at M=8: device {row['device_ms']:.3f} ms, torch.matmul "
         f"{row['library_device_ms']:.3f} ms, bound {row['bound_ms']:.3f} ms; at M="
         f"{K3_PREFILL_M}: device {pre['device_ms']:.2f} ms, torch.matmul "
         f"{pre['library_device_ms']:.2f} ms, bound {pre['bound_ms']:.2f} ms "
-        f"({row['prefill_bound_share']:.1%} of it)")
+        f"({row['prefill_bound_share']:.1%} of it); at M={K3_SLOTS_B} (regime B): device "
+        f"{wide['device_ms']:.3f} ms, torch.matmul {wide['library_device_ms']:.3f} ms, bound "
+        f"{wide['bound_ms']:.3f} ms")
 
 
 def check_attention(dev, gen, report):
@@ -884,7 +941,9 @@ def _when(later, fn):
         later.append(fn)
 
 
-def serve(dev, seed, report, profile_dir=None, later=None):
+def serve(dev, seed, report, profile_dir=None, later=None, keep=None):
+    """Slice 1's main path (phase 5). ``keep``, a dict, receives the model,
+    the requests and each request's tokens (phase 24)."""
     from micronet_tpu_torch.models.llama import Llama, llama3_8b
     from micronet_tpu_torch.ops import decode_attention as da
     from micronet_tpu_torch.ops import int4_matmul as im
@@ -967,6 +1026,8 @@ def serve(dev, seed, report, profile_dir=None, later=None):
         f"request 0 matches its isolated generate run")
     if profile_dir is not None:
         _when(later, lambda: profile_decode(model, dev, reqs, report, profile_dir))
+    if keep is not None:
+        keep.update(model=model, reqs=reqs, outputs={rid: r.output for rid, r in done.items()})
     return launches
 
 
@@ -1056,7 +1117,8 @@ def check_k1(dev, gen, report):
 
     out_cases = {}
     for label, m, k, n, s_x, zp, qmin, qmax, iters in K1_CASES:
-        args = k1_args(m, k, n, s_x, zp, qmin, qmax, dev, gen)
+        args = k1_args(m, k, n, s_x, zp, qmin, qmax, dev,
+                       own_generator(dev, label) if label in OWN_DRAWS else gen)
         regime = i8._k1_regime(m, k, n, _build.sm_count(dev))
         err = check_int8_call(f"K1 {label} M={m} K={k} N={n}", i8.int8_matmul_dequant,
                               i8.int8_matmul_dequant_ref, False, args, regime)
@@ -1103,7 +1165,8 @@ def int8_device_times(dev, gen, report, k1_row, k2_row):
             f"({case['bound_ms'] / case['device_ms']:.1%} of it)")
 
     for label, m, k, n, s_x, zp, qmin, qmax, iters in K1_CASES:
-        args = k1_args(m, k, n, s_x, zp, qmin, qmax, dev, gen)
+        args = k1_args(m, k, n, s_x, zp, qmin, qmax, dev,
+                       own_generator(dev, label) if label in OWN_DRAWS else gen)
         codes = i8.quantize_int8(args[0], s_x, zp, qmin, qmax)
         read(f"K1 {label:12s} M={m:5d} K={k:5d} N={n:5d}", report["k1_cases"][label],
              i8.int8_matmul_dequant, False, args, int_mm_args(codes, args[1]), iters)
@@ -1199,7 +1262,7 @@ def _forward_ms(model, x, iters):
 
 @torch.no_grad()
 def engine_path(name, build, cfg, batch, dev, seed, report, profile_dir=None, later=None,
-                exact=False, keep=None):
+                exact=False, keep=None, fq_tol=FQ_TOL):
     """One IAO engine flow at full width on the card: random weights from a
     seeded generator, ``prepare``, calibration forwards in train mode,
     ``fuse_bn_iao``, ``freeze_int`` with an example input, then the engine
@@ -1210,8 +1273,9 @@ def engine_path(name, build, cfg, batch, dev, seed, report, profile_dir=None, la
     layer by layer (:func:`_layers_card_vs_cpu`) and each layer's
     accumulator the exact integer value within the rounding of the f32
     correction order (:func:`_layers_vs_exact`); the whole model's gap to
-    its fake-quant model is reported, not held (see ``asym_resnet18``).
-    ``keep``, a dict, receives the engine and the fp32 model (phase 19)."""
+    its fake-quant model is reported, not held (see ``asym_resnet18``);
+    otherwise it is held to ``fq_tol``. ``keep``, a dict, receives the
+    engine and the fp32 model (phase 19)."""
     import copy
 
     from micronet_tpu_torch.infer import freeze_int, fuse_bn_iao
@@ -1257,7 +1321,7 @@ def engine_path(name, build, cfg, batch, dev, seed, report, profile_dir=None, la
         diff = checks["logits_max_abs"]
     else:
         fq_diff = _agree(f"{name}: engine vs its fake-quant model", out[:CPU_BATCH],
-                         fq[:CPU_BATCH], FQ_TOL)
+                         fq[:CPU_BATCH], fq_tol)
         cpu_engine = copy.deepcopy(engine).to("cpu")
         t1 = time.perf_counter()
         ref = cpu_engine(x[:CPU_BATCH].cpu())
@@ -1459,12 +1523,13 @@ def check_long_attention(dev, gen, report):
 
 
 def _serve_all(loop, reqs):
-    """Run ``reqs`` (fresh copies) through ``loop``; returns the outputs by
-    request id, the admissions deferred and the wall seconds."""
-    from micronet_tpu_torch.serve import Request
+    """Run ``reqs`` (fresh copies, sampling settings kept) through
+    ``loop``; returns the outputs by request id, the admissions deferred and
+    the wall seconds."""
+    import dataclasses
 
     for r in reqs:
-        loop.submit(Request(r.rid, list(r.prompt), r.max_new_tokens))
+        loop.submit(dataclasses.replace(r, prompt=list(r.prompt), output=[], done=False))
     t0 = time.perf_counter()
     done = loop.run()
     torch.cuda.synchronize()
@@ -1476,6 +1541,15 @@ def _serve_all(loop, reqs):
             fail(f"request {r.rid}: {len(r.output)} of {r.max_new_tokens} tokens "
                  f"(truncated: the pool ran out)")
     return {rid: r.output for rid, r in done.items()}, loop.deferred, wall
+
+
+def _check_pages_back(loop, free):
+    """Fail unless every page of the paged ``loop``'s pools is free again
+    (``free`` usable pages) and no slot keeps a length or a table entry."""
+    for c in loop.caches:
+        if (int(c.free_top) != free or int(c.lengths.abs().sum())
+                or int(c.page_table.abs().sum())):
+            fail(f"paged loop: pages did not all return ({int(c.free_top)} of {free} free)")
 
 
 def _loop_stats(timed, wall, peak, kv_bytes, deferred):
@@ -1530,11 +1604,7 @@ def serve_long(dev, seed, card, report, profile_dir=None, later=None):
         outputs, deferred, wall = _serve_all(loop, reqs)
         stats = _loop_stats(timed, wall, torch.cuda.max_memory_allocated(), kv, deferred)
         if mode == "paged":
-            for c in loop.caches:
-                if (int(c.free_top) != usable or int(c.lengths.abs().sum())
-                        or int(c.page_table.abs().sum())):
-                    fail(f"paged loop: pages did not all return ({int(c.free_top)} of {usable} "
-                         f"free)")
+            _check_pages_back(loop, usable)
             if not deferred:
                 fail("paged loop: no admission was deferred")
         results[mode] = (outputs, stats)
@@ -1831,7 +1901,8 @@ def wbwtab_engine(dev, seed, report, profile_dir=None):
 # (8 steps an epoch); (label, method flags)
 TRAIN_METHODS = [("float", ["--method", "float"]), ("iao", ["--method", "iao", "--bn_fuse"]),
                  ("dorefa", ["--method", "dorefa"]),
-                 ("wbwtab", ["--method", "wbwtab", "--W", "3", "--A", "2"])]
+                 ("wbwtab", ["--method", "wbwtab", "--W", "3", "--A", "2"]),
+                 ("wbwtab_w2", ["--method", "wbwtab", "--W", "2", "--A", "2"])]
 TRAIN_EPOCHS, TRAIN_BATCH, STEP_BATCH = 2, 256, 8
 # the card's step against the CPU's, block by block from the CPU's inputs
 # to each block (f32 convs summed in another order; TF32 off): the last
@@ -2095,10 +2166,11 @@ def _train_numbers(metrics: Path, batch: int):
 def train_nin_gc(dev, seed, out_dir: Path, card: str, report):
     """Slice 5's main path on NIN-GC: ``cli train`` at full width for each
     method (every kernel count zeroed before and still 0 after: training
-    runs no hand-written kernel), then ``cli model-test`` on the IAO
-    checkpoint (EQUIVALENCE OK), then each method's ``cli train`` again with
-    the same seed, whose checkpoint must equal the first array for array,
-    then each method's step on the card against the CPU's at batch 8."""
+    runs no hand-written kernel), then ``cli model-test`` on the IAO and the
+    binary wbwtab checkpoints (EQUIVALENCE OK), then each method's ``cli
+    train`` again with the same seed, whose checkpoint must equal the first
+    array for array, then each method's step on the card against the CPU's
+    at batch 8."""
     res = {}
     kernels = _all_kernels()
 
@@ -2136,6 +2208,12 @@ def train_nin_gc(dev, seed, out_dir: Path, card: str, report):
     if "EQUIVALENCE OK" not in text:
         fail("model-test on the IAO NIN-GC checkpoint did not print EQUIVALENCE OK")
     res["model_test"] = [line for line in text.splitlines() if "acc" in line or "FPS" in line]
+    text, _ = _cli(["model-test", "--device", str(dev), "--method", "wbwtab", "--W", 2, "--A", 2,
+                    "--model", out_dir / "nin_gc_wbwtab_w2.npz"], "model-test wbwtab_w2")
+    if "EQUIVALENCE OK" not in text:
+        fail("model-test on the binary wbwtab NIN-GC checkpoint did not print EQUIVALENCE OK")
+    res["model_test_wbwtab_w2"] = [line for line in text.splitlines()
+                                   if "acc" in line or "FPS" in line]
     for label, flags in TRAIN_METHODS:
         again = out_dir / f"nin_gc_{label}_again.npz"
         train(f"{label} again", flags, again)
@@ -5039,12 +5117,469 @@ def serving_parallel(dev, seed, shared: Path, card: str, report) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------- phase 23
+
+
+LENET_BATCH = NIN_BATCH  # LeNet's engine at NIN-GC's engine batch
+# ResNet-50's engine against its fake-quant model: FQ_TOL's cause over 53
+# quantized convs instead of 20. The JAX package's own W8A8 ResNet-50 engine
+# sits 0.31 from its fake-quant model (max|logit| 1.2, one argmax of 8
+# off; the port's CPU engine 0.24 from the same weights and calibration:
+# tests/_torch_resnet50_gap.py), and its ResNet-50 test
+# (tests/test_resnet_quant.py:57-90) holds only the argmax
+RESNET50_FQ_TOL = 0.4
+
+
+def bottleneck_lenet_engines(dev, seed, report, profile_dir=None, later=None) -> dict:
+    """Phase 23: full-width ``resnet50()`` (BottleNeck blocks) at batch 512
+    and ``LeNet()`` at batch 1,024 through phase 9's engine path, W8A8 with
+    fused BN, phase 9's cuts. K1 must launch once per forward for each
+    symmetric ``IntLinear`` the engine holds (ResNet-50's fc at K = 2,048,
+    LeNet's three Linears) and nothing else may launch. ResNet-50's engine
+    is held to its fake-quant model within ``RESNET50_FQ_TOL``, LeNet's
+    within ``FQ_TOL``. Returns K1's launches by engine."""
+    from micronet_tpu_torch.infer.engine import IntLinear
+    from micronet_tpu_torch.models.lenet import LeNet
+    from micronet_tpu_torch.models.resnet import resnet50
+    from micronet_tpu_torch.quant.config import QuantConfig
+
+    out = {}
+    cfg = QuantConfig(a_bits=8, w_bits=8, bn_fuse=True, **EXACT)
+    for name, build, batch, fq_tol in (("resnet50_w8a8", resnet50, RESNET_BATCH, RESNET50_FQ_TOL),
+                                       ("lenet_w8a8", LeNet, LENET_BATCH, FQ_TOL)):
+        keep = {}
+        torch.cuda.reset_peak_memory_stats()
+        launches, forwards = engine_path(name, build, cfg, batch, dev, seed, report,
+                                         profile_dir, later, keep=keep, fq_tol=fq_tol)
+        k1_layers = [(n, tuple(m.w_q.shape)) for n, m in keep["engine"].named_modules()
+                     if isinstance(m, IntLinear) and m.symmetric and m.w_symmetric]
+        want = {k.__name__: 0 for k in _all_kernels()}
+        want["int8_matmul_dequant"] = len(k1_layers) * forwards
+        if launches != want:
+            fail(f"{name}: launch counts {launches}, expected {want} (K1 layers {k1_layers})")
+        report[name]["k1_layers"] = k1_layers
+        log(f"{name}: K1 layers (K, N) {k1_layers}, {launches['int8_matmul_dequant']} "
+            f"launches over {forwards} forwards; peak {report[name]['peak_gb']:.2f} GB")
+        out[name] = launches["int8_matmul_dequant"]
+        del keep
+        torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------- phase 24
+
+
+PREFILL_CHUNK = 64
+# (temperature, top_k, top_p) of phase 24's sampled requests, request i taking
+# i % 4: greedy, top-k, top-p, both
+SAMPLING = [(0.0, 0, 1.0), (0.8, 50, 1.0), (1.0, 0, 0.9), (0.7, 40, 0.95)]
+# the loop past 128 slots: every decode step runs K3 in regime B
+SLOTS_B, SLOTS_B_PROMPTS, SLOTS_B_NEW, SLOTS_B_FORCED = K3_SLOTS_B, (16, 64), 8, 8
+# K3's two regimes through the whole model: the 136-slot loop's decode
+# steps and the whole prefill of a prompt over 128 tokens (regime B)
+# against generate's steps and 64-row chunks (regime A). K3's own gap
+# (K3_REL_TOL: f32 sums in another order) reaches activations that are
+# rounded to bf16 before the next W4 matmul, and this random-weight model
+# amplifies a 1-ulp change of one block's input about 1e4-fold by the
+# logits (an RMSNorm output an ulp off at block 17 gave 5e-3 at the
+# lm_head on an H100). Measured 6.6e-3 (chunked prefill) and 3.9e-3 (136
+# slots) of the largest logit: the whole-model bound, not K3's.
+REGIME_REL_TOL = MODEL_REL_TOL
+# chunked prefill of prompts up to 128 tokens runs regime A either way,
+# and the prefill attention gives a row the same bits at M = 64 as at the
+# whole prompt (measured on an H100): bit for bit
+CHUNK_SAME_REL_TOL = 0.0
+
+
+class _StepLog(_Timed):
+    """Model proxy for one ``ServeLoop`` (:meth:`attach`): times every
+    prefill and decode step, as :class:`_Timed`, keeps by request id the
+    logits each token of the requests in ``rids`` (None: every request)
+    was drawn from (the prefill's last row, then the request's row of each
+    decode step), and feeds ``force[rid][i]`` in place of the request's
+    i-th token (teacher forcing; the loop's own tokens are still its
+    argmax or draw)."""
+
+    def __init__(self, model, rids=None, force=None):
+        super().__init__(model)
+        self.rids, self.force, self.logits = rids, force or {}, {}
+        self.loop, self.prefills_before_decode = None, None
+
+    def _keeps(self, rid):
+        return self.rids is None or rid in self.rids
+
+    def attach(self, loop):
+        self.loop = loop
+        admit, prefill = loop._admit, loop._prefill
+        last = []
+
+        def prefill_logged(prompt):
+            out = prefill(prompt)
+            last.append(out[0])
+            return out
+
+        def admit_logged(slot, req):
+            last.clear()
+            ok = admit(slot, req)
+            if ok and self._keeps(req.rid):
+                self.logits[req.rid] = [last[0].float().clone()]
+            return ok
+
+        loop._prefill, loop._admit = prefill_logged, admit_logged
+        return loop
+
+    def _step(self, fn, tokens, *rest):
+        reqs = list(self.loop.slot_req)
+        if self.prefills_before_decode is None:
+            self.prefills_before_decode = len(self.prefill_s)
+        if self.force:
+            tokens = tokens.clone()
+            for s, r in enumerate(reqs):
+                if r is not None and r.rid in self.force:
+                    tokens[s, 0] = self.force[r.rid][len(r.output) - 1]
+        logits, caches = self._time(fn, self.decode_s, tokens, *rest)
+        for s, r in enumerate(reqs):
+            if r is not None and self._keeps(r.rid):
+                self.logits[r.rid].append(logits[s, 0].float().clone())
+        return logits, caches
+
+    def decode_batch(self, tokens, caches, offsets):
+        return self._step(self._m.decode_batch, tokens, caches, offsets)
+
+    def decode_batch_paged(self, tokens, caches, offsets, active):
+        return self._step(self._m.decode_batch_paged, tokens, caches, offsets, active)
+
+
+def outside_kept_set(reqs, outputs, step_log):
+    """The tokens in ``outputs`` (request id -> tokens) of ``reqs`` that lie
+    outside the set ``serve.sampling.kept_tokens`` gives, with the
+    request's settings, on the logits ``step_log`` kept for them:
+    ([(request id, index, token)], how many tokens were checked)."""
+    from micronet_tpu_torch.serve.sampling import kept_tokens
+
+    bad, checked = [], 0
+    for r in reqs:
+        rows, out = step_log.logits[r.rid], outputs[r.rid]
+        if len(rows) != len(out):
+            fail(f"request {r.rid}: {len(out)} tokens but {len(rows)} logged rows")
+        for i, (row, tok) in enumerate(zip(rows, out)):
+            checked += 1
+            if not bool(kept_tokens(row, r.temperature, r.top_k, r.top_p)[tok]):
+                bad.append((r.rid, i, tok))
+    return bad, checked
+
+
+def held_to(what, rows, ref_rows, rel_tol, forced):
+    """Greedy logits ``rows`` against the reference's ``ref_rows``, position
+    by position, each within ``rel_tol`` x max|reference row| (fatal
+    otherwise). Within it, a token (argmax) can differ from the
+    reference's only where the reference's top-two margin is at most twice
+    that bound: a near tie. Without ``forced`` (teacher forcing) the inputs
+    differ after the first such token, and the comparison stops there.
+    Returns (the positions whose tokens differ, the largest |difference| /
+    max|reference row|)."""
+    differ, worst = [], 0.0
+    for i, (a, b) in enumerate(zip(rows, ref_rows)):
+        scale = b.abs().max().item()
+        diff, outside, tie = _compare_row(a, b, rel_tol * scale, 0.0)
+        worst = max(worst, diff / scale)
+        if outside or not torch.isfinite(a).all():
+            fail(f"{what}: logits at position {i} differ by {diff:.3e} "
+                 f"(tol {rel_tol} x {scale:.3e})")
+        if tie is not None:
+            differ.append(i)
+            if not forced:
+                break
+    return differ, worst
+
+
+def _loop_with_log(model, slots, dev, reqs, rids=None, force=None, **loop_kw):
+    """``reqs`` through ``ServeLoop(slots, **loop_kw)`` over a
+    :class:`_StepLog` (:func:`_serve_all`; a paged loop must give every
+    page back): (outputs by request id, the log, wall s)."""
+    from micronet_tpu_torch.serve import ServeLoop
+
+    step_log = _StepLog(model, rids, force)
+    loop = step_log.attach(ServeLoop(step_log, slots, device=dev, **loop_kw))
+    outputs, _, wall = _serve_all(loop, reqs)
+    if loop_kw.get("paged"):
+        _check_pages_back(loop, loop.num_pages - 1)
+    return outputs, step_log, wall
+
+
+def _want(kernels, **nonzero):
+    want = {k.__name__: 0 for k in kernels}
+    want.update(nonzero)
+    return want
+
+
+def chunked_prefill(model, reqs, served, dev) -> dict:
+    """Phase 5's requests through ``ServeLoop(8, prefill_chunk=64)``, dense
+    then paged (page 16), against the unchunked dense loop (run again here
+    with its logits kept; its tokens must equal phase 5's), position by
+    position up to the first token that differs (:func:`held_to`). Prompts
+    of at most 128 tokens prefill in K3's regime A either way: their logits
+    are held to ``CHUNK_SAME_REL_TOL`` (bit for bit, so equal tokens).
+    Longer prompts prefill whole in regime B and in 64-row chunks in A:
+    ``REGIME_REL_TOL``, a token differing only at a near tie. The paged
+    loop's tokens equal the dense loop's. Exact launch counts: K3 129 a
+    chunk forward and a decode step."""
+    from micronet_tpu_torch.ops import int4_matmul as im
+
+    per_fwd = 4 * model.cfg.n_layers + 1
+    layers = model.cfg.n_layers
+    long = {r.rid for r in reqs if len(r.prompt) > im._K3_DECODE_ROWS}
+    ref, ref_log, _ = _loop_with_log(model, SLOTS, dev, reqs)
+    if ref != served:
+        fail(f"unchunked loop again: {ref}, phase 5 {served}")
+    kernels = _all_kernels()
+    res = dict(chunk=PREFILL_CHUNK, long_prompts=sorted(long))
+    chunked = {}
+    for mode, kw in (("dense", {}), ("paged", dict(paged=True, page_size=PAGE))):
+        for k in kernels:
+            k.launches = 0
+        # -- the main path: the chunked loop ------------------------------
+        done, step_log, wall = _loop_with_log(model, SLOTS, dev, reqs,
+                                              prefill_chunk=PREFILL_CHUNK, **kw)
+        launches = _srv_counts(kernels)
+        # ------------------------------------------------------------------
+        chunks = sum(-(-len(r.prompt) // PREFILL_CHUNK) for r in reqs)
+        steps = len(step_log.decode_s)
+        attn = "paged_decode_attend_cur" if mode == "paged" else "decode_attend_q8kv_cur"
+        want = _want(kernels, int4_matmul_grouped_hl8=per_fwd * (chunks + steps),
+                     **{attn: layers * steps})
+        if len(step_log.prefill_s) != chunks or launches != want:
+            fail(f"chunked {mode} loop: {len(step_log.prefill_s)} prefill forwards (expected "
+                 f"{chunks}), launch counts {launches}, expected {want}")
+        differ, worst = {}, {"short": 0.0, "long": 0.0}
+        for r in reqs:
+            kind = "long" if r.rid in long else "short"
+            d, w = held_to(f"chunked {mode} loop, request {r.rid} ({len(r.prompt)} prompt "
+                           f"tokens)", step_log.logits[r.rid], ref_log.logits[r.rid],
+                           REGIME_REL_TOL if kind == "long" else CHUNK_SAME_REL_TOL,
+                           forced=False)
+            worst[kind] = max(worst[kind], w)
+            if d:
+                differ[r.rid] = d[0]
+        chunked[mode] = done
+        prefill_ms = sorted(1e3 * t for t in step_log.prefill_s)
+        res[mode] = dict(launches=launches, chunk_forwards=chunks, decode_steps=steps,
+                         wall_s=wall, chunk_ms_median=prefill_ms[len(prefill_ms) // 2],
+                         prefill_s=sum(step_log.prefill_s), short_rel_max=worst["short"],
+                         long_rel_max=worst["long"], long_token_differs_at=differ)
+        log(f"chunked prefill ({mode}, chunk {PREFILL_CHUNK}): {chunks} chunk forwards "
+            f"(median {res[mode]['chunk_ms_median']:.2f} ms), {steps} decode steps, wall "
+            f"{wall:.2f} s; against the unchunked loop, logits within {worst['short']:.2e} x "
+            f"max|logit| for prompts <= {im._K3_DECODE_ROWS} tokens (tol {CHUNK_SAME_REL_TOL}; "
+            f"tokens equal), {worst['long']:.2e} for the {len(long)} longer ones (tol "
+            f"{REGIME_REL_TOL}), tokens differing at a near tie: {differ or 'none'}; "
+            f"launches {launches}")
+        del step_log
+    if chunked["paged"] != chunked["dense"]:
+        fail("chunked prefill: the paged loop's tokens differ from the dense loop's")
+    del ref_log
+    torch.cuda.empty_cache()
+    return res
+
+
+def sampled_loops(model, reqs, dev, seed) -> dict:
+    """Phase 5's prompts with mixed sampling settings (``SAMPLING``, each
+    request its own seed) through ``ServeLoop(8)``: dense, dense again and
+    paged (page 16). Each stream must equal ``generate_sampled`` with the
+    same settings and seed on the card bit for bit (greedy ones
+    ``generate``), the second run the first, and every token lie in the
+    kept set ``kept_tokens`` gives on the logits it was drawn from. The
+    card's generators draw other numbers than the CPU's from the same
+    seed, so no token is compared across devices here (the CPU tests hold
+    the same contracts on the CPU)."""
+    from micronet_tpu_torch.serve import Request
+    from micronet_tpu_torch.serve.sampling import generate_sampled
+
+    per_fwd = 4 * model.cfg.n_layers + 1
+    layers = model.cfg.n_layers
+    sreqs = [Request(r.rid, list(r.prompt), NEW_TOKENS, temperature=t, top_k=k, top_p=p,
+                     seed=1000 * seed + r.rid)
+             for r, (t, k, p) in zip(reqs, SAMPLING * len(reqs))]
+    kernels = _all_kernels()
+    for k in kernels:
+        k.launches = 0
+    # -- the main path: three loops, then each request alone ---------------
+    runs = {}
+    for mode, kw in (("dense", {}), ("dense_again", {}), ("paged", dict(paged=True,
+                                                                         page_size=PAGE))):
+        done, step_log, wall = _loop_with_log(model, SLOTS, dev, sreqs, **kw)
+        bad, checked = outside_kept_set(sreqs, done, step_log)
+        if bad:
+            fail(f"sampled {mode} loop: tokens outside their kept sets {bad[:8]}")
+        runs[mode] = dict(out=done,
+                          steps=len(step_log.decode_s), prefills=len(step_log.prefill_s),
+                          checked=checked, wall_s=wall,
+                          tok_per_s=len(sreqs) * (NEW_TOKENS - 1) / sum(step_log.decode_s))
+        del step_log
+    iso = {}
+    for r in sreqs:
+        prompt = torch.tensor(r.prompt, device=dev)
+        toks = (model.generate(prompt, NEW_TOKENS) if r.temperature <= 0 else
+                generate_sampled(model, prompt, NEW_TOKENS, temperature=r.temperature,
+                                 top_k=r.top_k, top_p=r.top_p, seed=r.seed))
+        iso[r.rid] = toks.tolist()
+    torch.cuda.synchronize()
+    launches = _srv_counts(kernels)
+    # ----------------------------------------------------------------------
+    steps = {m: v["steps"] for m, v in runs.items()}
+    loops = sum(v["steps"] + v["prefills"] for v in runs.values())
+    want = _want(kernels, int4_matmul_grouped_hl8=per_fwd * (loops + len(sreqs) * NEW_TOKENS),
+                 decode_attend_q8kv_cur=layers * (steps["dense"] + steps["dense_again"]),
+                 paged_decode_attend_cur=layers * steps["paged"],
+                 decode_attend_q8kv=layers * len(sreqs) * (NEW_TOKENS - 1))
+    if launches != want:
+        fail(f"sampled loops: launch counts {launches}, expected {want}")
+    for mode, v in runs.items():
+        for r in sreqs:
+            if v["out"][r.rid] != iso[r.rid]:
+                fail(f"sampled {mode} loop: request {r.rid} (temperature {r.temperature}, "
+                     f"top_k {r.top_k}, top_p {r.top_p}, seed {r.seed}) gave "
+                     f"{v['out'][r.rid]}, alone {iso[r.rid]}")
+    distinct = sum(len(set(t)) for t in iso.values()) / len(iso)
+    res = dict(settings=SAMPLING, launches=launches,
+               **{m: {k: v[k] for k in ("steps", "prefills", "checked", "wall_s", "tok_per_s")}
+                  for m, v in runs.items()}, distinct_tokens_per_request=distinct)
+    log(f"sampled loops: {len(sreqs)} requests ({SAMPLING}) each equal to its isolated "
+        f"generate_sampled / generate run in the dense loop, again, and the paged loop; "
+        f"{sum(v['checked'] for v in runs.values())} tokens inside their kept sets; "
+        f"{distinct:.1f} distinct tokens a request; decode "
+        f"{', '.join(f'{m} {v['tok_per_s']:.1f}' for m, v in runs.items())} tok/s; "
+        f"launches {launches}")
+    return res
+
+
+def decode_past_128(model, dev, seed, card) -> dict:
+    """``ServeLoop(136)``, dense, with 136 greedy requests (prompts of 16 to
+    64 tokens, 8 new tokens), all admitted before the first decode step:
+    every decode step runs K3 in regime B at M = 136 (counted at its GEMM
+    call), K4a over 136 x 8 KV groups. Eight requests spread over the slots
+    are fed ``generate``'s tokens (teacher forcing), and their logits are
+    held to ``generate``'s position by position (``REGIME_REL_TOL``; a token
+    may differ only at a near tie)."""
+    from micronet_tpu_torch.ops import int4_matmul as im
+    from micronet_tpu_torch.quant.kv_cache import kv_cache_bytes
+    from micronet_tpu_torch.serve import Request
+
+    cfg = model.cfg
+    per_fwd = 4 * cfg.n_layers + 1
+    if im._k3_regime(SLOTS_B, GROUP) != "B":
+        fail(f"K3 at M={SLOTS_B}, group {GROUP} is in regime {im._k3_regime(SLOTS_B, GROUP)}")
+    rng = np.random.default_rng(seed + 24)
+    lens = rng.integers(SLOTS_B_PROMPTS[0], SLOTS_B_PROMPTS[1] + 1, SLOTS_B)
+    reqs = [Request(i, [int(t) for t in rng.integers(0, cfg.vocab, n)], SLOTS_B_NEW)
+            for i, n in enumerate(lens)]
+    forced = list(range(0, SLOTS_B, SLOTS_B // SLOTS_B_FORCED))[:SLOTS_B_FORCED]
+    ref, force = {}, {}
+    for rid in forced:
+        rows, force[rid], _ = _greedy_logits(model, torch.tensor(reqs[rid].prompt, device=dev),
+                                             SLOTS_B_NEW - 1)
+        ref[rid] = rows.float()
+    kernels = _all_kernels()
+    gemm_call, gemm_calls = im._gemm_call, []
+
+    def gemm_counted(x, *a, **kw):
+        gemm_calls.append(int(x.shape[0]))
+        return gemm_call(x, *a, **kw)
+
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    im._gemm_call = gemm_counted
+    try:
+        # -- the main path: 136 slots ------------------------------------
+        done, step_log, wall = _loop_with_log(model, SLOTS_B, dev, reqs, rids=set(forced),
+                                              force=force)
+        launches = _srv_counts(kernels)
+        # ------------------------------------------------------------------
+    finally:
+        im._gemm_call = gemm_call
+    peak = torch.cuda.max_memory_allocated()
+    steps = len(step_log.decode_s)
+    want = _want(kernels, int4_matmul_grouped_hl8=per_fwd * (SLOTS_B + steps),
+                 decode_attend_q8kv_cur=cfg.n_layers * steps)
+    if (step_log.prefills_before_decode != SLOTS_B or steps != SLOTS_B_NEW - 1
+            or launches != want or gemm_calls != [SLOTS_B] * (per_fwd * steps)):
+        fail(f"{SLOTS_B} slots: {step_log.prefills_before_decode} admissions before the first "
+             f"decode step, {steps} decode steps, launch counts {launches} (expected {want}), "
+             f"regime-B calls at M {sorted(set(gemm_calls))} x {len(gemm_calls)} (expected "
+             f"{per_fwd * steps} at {SLOTS_B})")
+    for rid, out in done.items():
+        if not all(0 <= t < cfg.vocab for t in out):
+            fail(f"{SLOTS_B} slots: request {rid} gave {out}")
+    differ, worst = {}, 0.0
+    for rid in forced:
+        d, w = held_to(f"{SLOTS_B} slots, request {rid} (slot {rid}), teacher-forced",
+                       step_log.logits[rid], ref[rid], REGIME_REL_TOL, forced=True)
+        worst = max(worst, w)
+        if d:
+            differ[rid] = d
+    decode_s = sum(step_log.decode_s)
+    step_ms = sorted(1e3 * t for t in step_log.decode_s)
+    kv = sum(kv_cache_bytes(c) for c in step_log.loop.caches)
+    tokens = SLOTS_B * steps
+    res = dict(card=card, slots=SLOTS_B, prompt_lens=[int(n) for n in lens], forced=forced,
+               decode_steps=steps, launches=launches, regime_b_calls=len(gemm_calls),
+               step_ms_median=step_ms[len(step_ms) // 2], step_ms_max=step_ms[-1],
+               decode_tok_per_s=tokens / decode_s, prefill_s=sum(step_log.prefill_s),
+               wall_s=wall, kv_bytes=kv, peak_gb=peak / 1e9, rel_max=worst,
+               tokens_differ_at=differ)
+    log(f"{SLOTS_B} slots: {SLOTS_B} admissions, then {steps} decode steps in regime B "
+        f"({len(gemm_calls)} K3 GEMM calls at M={SLOTS_B}); step median "
+        f"{res['step_ms_median']:.2f} ms, max {res['step_ms_max']:.2f} ms, "
+        f"{res['decode_tok_per_s']:.1f} tok/s; {SLOTS_B} prefills {res['prefill_s']:.2f} s; KV "
+        f"{kv / 1e9:.2f} GB, peak {peak / 1e9:.2f} GB ({card})")
+    log(f"{SLOTS_B} slots: {len(forced)} teacher-forced requests within {worst:.2e} x "
+        f"max|logit| of generate's (tol {REGIME_REL_TOL}), tokens differing at a near tie: "
+        f"{differ or 'none'}; launches {launches}")
+    del step_log, done
+    torch.cuda.empty_cache()
+    return res
+
+
+def serve_options(model, reqs, served, dev, seed, card, report) -> dict:
+    """Phase 24: the serving loop's options on phase 5's model (built once):
+    chunked prefill, sampling, and decode past 128 slots. Returns each
+    part's launch counts."""
+    res = dict(chunked=chunked_prefill(model, reqs, served, dev),
+               sampled=sampled_loops(model, reqs, dev, seed),
+               slots_b=decode_past_128(model, dev, seed, card))
+    report["serve_options"] = res
+    return {"chunked_dense": res["chunked"]["dense"]["launches"],
+            "chunked_paged": res["chunked"]["paged"]["launches"],
+            "sampled": res["sampled"]["launches"], f"slots_{SLOTS_B}": res["slots_b"]["launches"]}
+
+
 def card_name() -> str:
     """Card 0's name and power limit, as ``nvidia-smi`` gives them."""
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader", "-i", "0"],
                          capture_output=True, text=True, timeout=60, check=True)
     return smi.stdout.strip()
+
+
+def slice12_alone(dev, seed, card, report, out_dir: Path, profile: bool, t_start) -> int:
+    """``--slice12``: phase 5 (whose model and requests phase 24 takes),
+    phase 24, then phase 23, with ``--profile``'s traces of phase 23's
+    engines; the report goes to ``<out>/chip_smoke.json``."""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    phase5 = {}
+    serve(dev, seed, report, keep=phase5)
+    t1 = time.perf_counter()
+    serve_options(phase5["model"], phase5["reqs"], phase5["outputs"], dev, seed, card, report)
+    t2 = time.perf_counter()
+    del phase5
+    torch.cuda.empty_cache()
+    bottleneck_lenet_engines(dev, seed, report, out_dir if profile else None)
+    report["seconds"] = time.perf_counter() - t_start
+    (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1, default=str))
+    log(f"phase 24 {t2 - t1:.1f} s, phase 23 {time.perf_counter() - t2:.1f} s; total "
+        f"{report['seconds']:.1f} s")
+    return 0
 
 
 def main() -> int:
@@ -5055,6 +5590,9 @@ def main() -> int:
                          "of each engine with torch.profiler")
     ap.add_argument("--out", type=Path, default=Path("build/chip_smoke"),
                     help="directory for the JSON report and the profile table")
+    ap.add_argument("--slice12", action="store_true",
+                    help="run only phase 5 and slice 12's phases 24 and 23 (after the build), "
+                         "and print no final line")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -5080,6 +5618,8 @@ def main() -> int:
             f"{spills} bytes of spill stores and loads")
 
     report = {"card": card, "torch": torch.__version__, "seed": args.seed}
+    if args.slice12:
+        return slice12_alone(dev, args.seed, card, report, args.out, args.profile, t_start)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     k3 = check_k3(dev, gen, report)
     att = check_attention(dev, gen, report)
@@ -5091,7 +5631,13 @@ def main() -> int:
     # device readings: after a traced serving run, those readings lost
     # kernels from their traces
     later = []
-    launches = serve(dev, args.seed, report, profile_dir, later)
+    phase5 = {}
+    launches = serve(dev, args.seed, report, profile_dir, later, keep=phase5)
+    # phase 24 on phase 5's model, before phase 11 builds its own
+    opt_launches = serve_options(phase5["model"], phase5["reqs"], phase5["outputs"], dev,
+                                 args.seed, card, report)
+    del phase5
+    torch.cuda.empty_cache()
     k1 = check_k1(dev, gen, report)
     check_conv_routes(dev, gen, report)
     # each kernel's count from its own slice's main path
@@ -5099,6 +5645,7 @@ def main() -> int:
     launches["int8_matmul_dequant"] = resnet_engine(dev, args.seed, report, profile_dir, later,
                                                     engines["resnet18_w8a8"])["int8_matmul_dequant"]
     nin_engine(dev, args.seed, report, profile_dir, later, engines["nin_gc_w4a4"])
+    k1_phase23 = bottleneck_lenet_engines(dev, args.seed, report, profile_dir, later)
     long_att = check_long_attention(dev, gen, report)
     launches.update({k: v for k, v in serve_long(dev, args.seed, card, report, profile_dir,
                                                  later).items()
@@ -5154,20 +5701,28 @@ def main() -> int:
                  "its times at M=1 for one slot's decode forward there; launches_phase22 its "
                  "counts on rank 0 over phase 22's tensor-parallel loops (the Llama's dense "
                  "and paged loops and generate, the TinyDecoder's loop), phase22 one rank's "
-                 "decode step at M=8 at each tp (129 calls at N / tp, split_cols N)",
+                 "decode step at M=8 at each tp (129 calls at N / tp, split_cols N); "
+                 f"m{K3_SLOTS_B}_* one decode step's 129 calls at M={K3_SLOTS_B} (regime B, "
+                 "phase 24's loop past 128 slots); launches_phase24 its counts over phase "
+                 "24's loops (chunked prefill dense and paged; the sampled loops with each "
+                 f"request's generate or generate_sampled; the {K3_SLOTS_B}-slot loop)",
              phase22=k3_tp,
              launches_phase18={f: v["int4_matmul_grouped_hl8"] for f, v in dec_launches.items()},
              launches_phase22={k: {p: c["int4_matmul_grouped_hl8"] for p, c in v.items()}
                                if k.startswith("llama") else v["int4_matmul_grouped_hl8"]
                                for k, v in srv.items()},
+             launches_phase24={k: v["int4_matmul_grouped_hl8"] for k, v in opt_launches.items()},
              phase18=dict(dec_kernels["k3_per_slot_step"],
                           max_abs_err=dec_kernels["k3_max_abs_err"]), **k3),
         dict(name="decode_attend_q8kv_cur", route="cuda", source=src + "decode_attention.cu",
              replaces="micronet_tpu/ops/decode_attention.py:519",
              launches=launches["decode_attend_q8kv_cur"],
              per=f"one call, G={ATT_G} R={ATT_R} D={ATT_D} S={ATT_S}; launches_phase22 its "
-                 "count on rank 0 over phase 22's tensor-parallel dense loop",
+                 "count on rank 0 over phase 22's tensor-parallel dense loop; "
+                 "launches_phase24 its counts over phase 24's dense loops (chunked, sampled, "
+                 f"{K3_SLOTS_B} slots: G={K3_SLOTS_B * 8})",
              launches_phase22=srv[tp_key]["dense"]["decode_attend_q8kv_cur"],
+             launches_phase24={k: v["decode_attend_q8kv_cur"] for k, v in opt_launches.items()},
              **att["decode_attend_q8kv_cur"]),
         dict(name="decode_attend_q8kv", route="cuda", source=src + "decode_attention.cu",
              replaces="micronet_tpu/ops/decode_attention.py:107",
@@ -5175,10 +5730,12 @@ def main() -> int:
              per=f"one call, G={ATT_G} R={ATT_R} D={ATT_D} S={ATT_S}; launches_phase18 is its "
                  "count over each TinyDecoder form's serving loop (phase 18), phase18 one call "
                  "there (G=8 R=1 D=16 S=64, bounds 0..64); launches_phase22 its counts on rank 0 "
-                 "over phase 22's tensor-parallel generate and TinyDecoder loop",
+                 "over phase 22's tensor-parallel generate and TinyDecoder loop; "
+                 "launches_phase24 its count over phase 24's generate and generate_sampled runs",
              launches_phase18={f: v["decode_attend_q8kv"] for f, v in dec_launches.items()},
              launches_phase22=dict(generate=srv[tp_key]["generate"]["decode_attend_q8kv"],
                                    decoder_tp=srv["decoder_tp"]["decode_attend_q8kv"]),
+             launches_phase24=opt_launches["sampled"]["decode_attend_q8kv"],
              phase18=dec_kernels["k5a"], **att["decode_attend_q8kv"]),
         dict(name="int8_matmul_dequant", route="cuda", source=src + "int_matmul.cu",
              replaces="micronet_tpu/ops/int_matmul.py:114",
@@ -5192,7 +5749,14 @@ def main() -> int:
                  "nothing); operator the wrapper through the registered operator, the same "
                  "launch without it and one call in a replayed graph, by events; "
                  "launches_phase21 its count on NCCL rank 0 over the sharded engine's build "
-                 "(two warm-ups and a capture of one bucket) and a call (phase 21)",
+                 "(two warm-ups and a capture of one bucket) and a call (phase 21); "
+                 "launches_phase23 its counts over phase 23's engines' forwards (ResNet-50's "
+                 "fc, LeNet's three Linears), cases_phase23 its calls at ResNet-50's fc "
+                 "(M=512 K=2048 N=10) and LeNet's first Linear (M=1024 K=400 N=120)",
+             launches_phase23=k1_phase23,
+             cases_phase23={label: {k: v for k, v in report["k1_cases"][label].items()
+                                    if k not in ("zp", "qmin", "qmax")}
+                            for label in ("resnet50_fc", "lenet_fc1")},
              launches_phase15=k1_phase15, launches_phase19=k1_phase19,
              launches_phase21=k1_phase21, operator=k1_op,
              **k1_row),
@@ -5209,8 +5773,12 @@ def main() -> int:
              replaces="micronet_tpu/ops/paged_attention.py:306",
              launches=launches["paged_decode_attend_cur"],
              per=paged_per + "; launches_phase22 its count on rank 0 over phase 22's "
-                             "tensor-parallel paged loop",
+                             "tensor-parallel paged loop; launches_phase24 its counts over "
+                             "phase 24's paged loops (chunked, sampled)",
              launches_phase22=srv[tp_key]["paged"]["paged_decode_attend_cur"],
+             launches_phase24={k: v["paged_decode_attend_cur"]
+                               for k, v in opt_launches.items() if "paged" in k
+                               or k == "sampled"},
              **long_att[f"paged_decode_attend_cur_page{PAGE}"]),
         dict(name="paged_decode_attend", route="cuda", source=src + "paged_attention.cu",
              replaces="micronet_tpu/ops/paged_attention.py:131",

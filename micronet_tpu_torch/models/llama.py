@@ -127,6 +127,29 @@ def apply_rope_batch(x: torch.Tensor, positions: torch.Tensor, theta: float) -> 
     return _rope(x, ang[:, None, :])
 
 
+# the longest axis a reduction may have and still sum each row in the same
+# order whatever the number of rows (see mean_square)
+_ROW_INVARIANT = 32
+
+
+def mean_square(x: torch.Tensor) -> torch.Tensor:
+    """Mean of ``x ** 2`` over the last axis (keepdim, f32), summed in
+    stages of at most 32 elements. CUDA's reduction kernel lays its threads
+    out by the number of rows unless the reduced axis has at most 32
+    elements, so a plain mean over a row of 4,096 can sum a row of a batch
+    of eight in another order than the row alone, and a decode step's norm
+    would leave ``generate``'s in the last bit. In stages, a row's sum is
+    the same whatever shares its batch."""
+    n = x.shape[-1]
+    s = torch.square(x.to(torch.float32))
+    while s.shape[-1] > _ROW_INVARIANT:
+        pad = (-s.shape[-1]) % _ROW_INVARIANT
+        if pad:
+            s = F.pad(s, (0, pad))
+        s = torch.sum(s.reshape(*s.shape[:-1], -1, _ROW_INVARIANT), dim=-1)
+    return torch.sum(s, dim=-1, keepdim=True) / n
+
+
 class RMSNorm(nn.Module):
     def __init__(self, dim: int, eps: float = 1e-5, *, device=None):
         super().__init__()
@@ -134,8 +157,7 @@ class RMSNorm(nn.Module):
         self.eps = eps
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        ms = torch.mean(torch.square(x.to(torch.float32)), dim=-1, keepdim=True)
-        return (x * torch.rsqrt(ms + self.eps) * self.weight).to(x.dtype)
+        return (x * torch.rsqrt(mean_square(x) + self.eps) * self.weight).to(x.dtype)
 
 
 class LlamaBlock(nn.Module):

@@ -18,6 +18,7 @@ import torch
 
 __all__ = [
     "position_generator",
+    "kept_tokens",
     "sample_token",
     "sample_token_batch",
     "generate_sampled",
@@ -42,16 +43,9 @@ def position_generator(seed: int, position: int, device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(s)
 
 
-def sample_token(
-    logits: torch.Tensor,  # (V,)
-    generator: torch.Generator,
-    temperature: float,
-    top_k: int,
-    top_p: float,
-) -> torch.Tensor:
-    """One token id (0-dim int64 tensor on the logits' device)."""
-    if temperature <= 0:
-        return torch.argmax(logits)
+def _scaled_and_kept(logits: torch.Tensor, temperature: float, top_k: int, top_p: float):
+    """The logits over ``temperature`` (f32) and the mask of the tokens
+    that survive top-k and top-p, for a ``temperature > 0`` draw."""
     v = logits.shape[-1]
     scaled = logits.to(torch.float32) / max(temperature, 1e-6)
     desc = torch.sort(scaled, descending=True).values
@@ -65,7 +59,32 @@ def sample_token(
     probs_desc = torch.softmax(desc, dim=-1)
     included = (torch.cumsum(probs_desc, dim=-1) - probs_desc) < top_p
     thr = torch.min(torch.where(included, desc, torch.inf))
-    keep = keep & (scaled >= thr)
+    return scaled, keep & (scaled >= thr)
+
+
+def kept_tokens(logits: torch.Tensor, temperature: float, top_k: int,
+                top_p: float) -> torch.Tensor:
+    """(V,) bool: the tokens :func:`sample_token` may draw from ``logits``
+    with these settings (at ``temperature <= 0``, the argmax alone)."""
+    if temperature <= 0:
+        keep = torch.zeros(logits.shape[-1], dtype=torch.bool, device=logits.device)
+        keep[torch.argmax(logits)] = True
+        return keep
+    return _scaled_and_kept(logits, temperature, top_k, top_p)[1]
+
+
+def sample_token(
+    logits: torch.Tensor,  # (V,)
+    generator: torch.Generator,
+    temperature: float,
+    top_k: int,
+    top_p: float,
+) -> torch.Tensor:
+    """One token id (0-dim int64 tensor on the logits' device)."""
+    if temperature <= 0:
+        return torch.argmax(logits)
+    v = logits.shape[-1]
+    scaled, keep = _scaled_and_kept(logits, temperature, top_k, top_p)
     masked = torch.where(keep, scaled, -torch.inf)
     # Gumbel-max draw of categorical(softmax(masked))
     u = torch.rand(v, generator=generator, device=logits.device)

@@ -1316,6 +1316,25 @@ def test_graft_entry_on_the_card(cuda):
                                atol=0.05 * max(1.0, ref.abs().max().item()))
 
 
+@pytest.mark.parametrize("rows", [8, 136, 6000])
+def test_rms_norm_row_does_not_depend_on_its_batch(cuda, rows):
+    """Each row of a batched RMSNorm at the Llama's width equals the same
+    row alone, bit for bit: a decode step's norm is then ``generate``'s. A
+    plain mean over the 4,096 squares summed a row of a batch of 8 in
+    another order than the row alone (on an H100, an ulp off in 1 to 3 of
+    a decode step's 65 norms), and the serving loop's tokens left
+    ``generate``'s at near ties."""
+    from micronet_tpu_torch.models.llama import RMSNorm
+
+    gen = _gen(rows)
+    x = torch.randn((rows, 4096), device=cuda, generator=gen)
+    x = x * torch.rand((rows, 1), device=cuda, generator=gen) * 10
+    norm = RMSNorm(4096, device=cuda)
+    batched = norm(x)
+    for i in range(0, rows, max(1, rows // 64)):
+        assert torch.equal(batched[i : i + 1], norm(x[i : i + 1].clone())), i
+
+
 def test_every_kernel_launches_on_its_tensors_card(cuda):
     """With card 0 current and every operand on card 1, each wrapper (K1 to
     K9) launches on card 1: its output lies there, equals the twin's, and
