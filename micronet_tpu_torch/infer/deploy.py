@@ -13,7 +13,10 @@ utilities, ``deploy/tensorrt/util_trt.py``).
   launches every kernel the eager forward launched, so the engine's host
   time per forward is one copy in, one replay and one copy out. On the
   CPU (no graphs) each bucket runs the module eagerly with the same
-  padding and chunking.
+  padding and chunking. A call records the spans (``utils/profiling.py``)
+  ``engine.call`` and, per bucket run, ``engine.copy_in``,
+  ``engine.replay`` (the eager forward without a graph) and
+  ``engine.copy_out``.
 - engine serialization -> :func:`serialize_engine` /
   :func:`deserialize_engine` on ``torch.export`` programs (``.pt2``) with
   the weights embedded. The hand-written kernels are registered operators
@@ -52,6 +55,7 @@ from ..nn.modules import eval_mode
 from ..ops import int_matmul  # noqa: F401  (registers the K1/K2 operators)
 from ..parallel.distributed import _gather_parts
 from ..parallel.sharding import axis_size, check_mesh, shard_batch, shard_state
+from ..utils.profiling import span
 from .engine import _no_tf32
 
 __all__ = [
@@ -191,25 +195,32 @@ class CompiledEngine:
         n, rows = x.shape[0], b // self._data
         if b in self._graphs:
             graph, sx, sy = self._graphs[b]
-            sx[:n].copy_(x)
+            with span("engine.copy_in"):
+                sx[:n].copy_(x)
+                if n < rows:
+                    sx[n:].zero_()
+            with span("engine.replay"):
+                graph.replay()
+            with span("engine.copy_out"):
+                return sy[:n].clone()
+        with span("engine.copy_in"):
             if n < rows:
-                sx[n:].zero_()
-            graph.replay()
-            return sy[:n].clone()
-        if n < rows:
-            x = torch.cat([x, x.new_zeros((rows - n, *self.example_shape))])
-        with torch.no_grad():
-            return self.model(x)[:n]
+                x = torch.cat([x, x.new_zeros((rows - n, *self.example_shape))])
+        with span("engine.replay"), torch.no_grad():
+            y = self.model(x)
+        with span("engine.copy_out"):
+            return y[:n]
 
     def __call__(self, x) -> torch.Tensor:
-        x = torch.as_tensor(x, dtype=self.dtype, device=self.device)
-        n = x.shape[0]
-        covering = [b for b in self.buckets if b >= n]
-        if covering:
-            return self._run_bucket(covering[0], x)
-        # beyond the profile max: chunk through the largest bucket
-        big = self.buckets[-1]
-        return torch.cat([self._run_bucket(big, x[i:i + big]) for i in range(0, n, big)])
+        with span("engine.call"):
+            x = torch.as_tensor(x, dtype=self.dtype, device=self.device)
+            n = x.shape[0]
+            covering = [b for b in self.buckets if b >= n]
+            if covering:
+                return self._run_bucket(covering[0], x)
+            # beyond the profile max: chunk through the largest bucket
+            big = self.buckets[-1]
+            return torch.cat([self._run_bucket(big, x[i:i + big]) for i in range(0, n, big)])
 
     @property
     def flops(self) -> dict:

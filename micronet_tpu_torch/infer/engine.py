@@ -54,6 +54,15 @@ through the same two integer routes as ``IntConv2d`` (a cuDNN conv over
 +-1 values would not be exact: its algorithm choice, Winograd or FFT,
 rounds), then ``f32(acc) * alpha + bias``.
 
+Every module records its work by role as spans (``utils/profiling.py``,
+off by default): ``int.quantize`` (activation codes), ``int.im2col`` (the
+patch matrix and its padding), ``int.gemm`` (the integer products, the
+first layer's f32 matmul, K1), ``int.epilogue`` (the accumulator's cast,
+scale, bias, correction terms and requant; the adds' and concats' codes)
+and ``int.pool``. The models' channel shuffle, which no module holds,
+records ``fn.shuffle`` (``nn/functional.py``). They run in an eager
+forward and in a CUDA graph's capture, not in its replay.
+
 Not ported: the JAX package's ``pallas_pointwise`` and ``pointwise_dot``
 options (TPU lowerings, off by default there).
 """
@@ -76,6 +85,7 @@ from ..nn.transform import _children, _copy_model
 from ..ops.int4_matmul import pack_int4, unpack_int4
 from ..ops.int_matmul import int8_linear
 from ..quant.rounding import round_half_away
+from ..utils.profiling import span
 
 __all__ = ["IntConv2d", "IntConvTranspose2d", "IntLinear", "IntMaxPool2d", "IntAvgPool2d",
            "IntAdd", "IntConcat", "freeze_int", "TernaryConv2d", "freeze_wbwtab"]
@@ -107,10 +117,11 @@ def _act_codes(x: torch.Tensor, scale: torch.Tensor, zero_point: torch.Tensor, q
     """int8 activation codes: ``clamp(round(x / s), qmin, qmax)``, or for
     an asymmetric quantizer ``q0 - 128`` with ``q0 = clamp(round(x / s) -
     zp, qmin, qmax)`` (the value is ``x_int = q0 + zp``)."""
-    q = round_half_away(x.to(torch.float32) / scale)
-    if symmetric:
-        return torch.clamp(q, qmin, qmax).to(torch.int8)
-    return (torch.clamp(q - zero_point, qmin, qmax) - 128.0).to(torch.int8)
+    with span("int.quantize"):
+        q = round_half_away(x.to(torch.float32) / scale)
+        if symmetric:
+            return torch.clamp(q, qmin, qmax).to(torch.int8)
+        return (torch.clamp(q - zero_point, qmin, qmax) - 128.0).to(torch.int8)
 
 
 @contextlib.contextmanager
@@ -235,29 +246,32 @@ class _IntConvRoutes(nn.Module):
         n, c, h, w = x.shape
         _, _, kh, kw = self.w_shape
         (sh, sw), (ph, pw), (dh, dw) = self._gemm_geometry()
-        xh = x.permute(0, 2, 3, 1)  # NHWC
-        if ph or pw:
-            xh = TF.pad(xh, (0, 0, pw, pw, ph, ph))
         ho = (h + 2 * ph - dh * (kh - 1) - 1) // sh + 1
         wo = (w + 2 * pw - dw * (kw - 1) - 1) // sw + 1
-        if (kh, kw) == (1, 1):
-            return xh[:, ::sh, ::sw][:, :ho, :wo].reshape(n * ho * wo, c), (n, ho, wo)
-        p = xh.unfold(1, dh * (kh - 1) + 1, sh).unfold(2, dw * (kw - 1) + 1, sw)
-        p = p[..., ::dh, ::dw]  # (N, Ho, Wo, C, kh, kw)
-        return p.permute(0, 1, 2, 4, 5, 3).reshape(n * ho * wo, kh * kw * c), (n, ho, wo)
+        with span("int.im2col"):
+            xh = x.permute(0, 2, 3, 1)  # NHWC
+            if ph or pw:
+                xh = TF.pad(xh, (0, 0, pw, pw, ph, ph))
+            if (kh, kw) == (1, 1):
+                return xh[:, ::sh, ::sw][:, :ho, :wo].reshape(n * ho * wo, c), (n, ho, wo)
+            p = xh.unfold(1, dh * (kh - 1) + 1, sh).unfold(2, dw * (kw - 1) + 1, sw)
+            p = p[..., ::dh, ::dw]  # (N, Ho, Wo, C, kh, kw)
+            return p.permute(0, 1, 2, 4, 5, 3).reshape(n * ho * wo, kh * kw * c), (n, ho, wo)
 
     def _int_acc_im2col(self, x_q: torch.Tensor, group_sums: bool = False):
         """The card's route (it runs on CPU tensors too): the accumulator
         as int32, and with ``group_sums`` each output position's window
         sum per group, (N, G, Ho, Wo) int32, from the same patch matrix."""
         cols, (n, ho, wo) = self._im2col(self._gemm_input(x_q))
-        acc = _int_mm_exact(cols, self._gemm_weight())
-        acc = acc.reshape(n, ho, wo, self.w_shape[0]).permute(0, 3, 1, 2)
+        with span("int.gemm"):
+            acc = _int_mm_exact(cols, self._gemm_weight())
+            acc = acc.reshape(n, ho, wo, self.w_shape[0]).permute(0, 3, 1, 2)
         if not group_sums:
             return acc
         _, _, kh, kw = self.w_shape
-        sums = cols.reshape(cols.shape[0], kh * kw, self.groups, -1).sum(dim=(1, 3),
-                                                                         dtype=torch.int32)
+        with span("int.epilogue"):
+            sums = cols.reshape(cols.shape[0], kh * kw, self.groups, -1).sum(dim=(1, 3),
+                                                                             dtype=torch.int32)
         return acc, sums.reshape(n, ho, wo, self.groups).permute(0, 3, 1, 2)
 
     def int_acc(self, x_q: torch.Tensor, group_sums: bool = False):
@@ -267,10 +281,12 @@ class _IntConvRoutes(nn.Module):
         both exact."""
         if x_q.device.type == "cuda":
             return self._int_acc_im2col(x_q, group_sums)
-        acc = self._f64(x_q, self._weights())
+        with span("int.gemm"):
+            acc = self._f64(x_q, self._weights())
         if not group_sums:
             return acc
-        return acc, self._f64(x_q, self._ones_kernel(x_q.device))
+        with span("int.epilogue"):
+            return acc, self._f64(x_q, self._ones_kernel(x_q.device))
 
     def _zero_point_acc(self, x_q: torch.Tensor) -> torch.Tensor:
         """The f32 accumulator of ``x_int . w_int``: the codes' product,
@@ -280,24 +296,26 @@ class _IntConvRoutes(nn.Module):
         route's own layout (a view of its GEMM's rows), and the result is
         an NCHW view of it."""
         if self.w_symmetric:
-            acc = self.int_acc(x_q).to(torch.float32)
+            acc = self.int_acc(x_q)
         else:
             acc, sum_x = self.int_acc(x_q, group_sums=True)
+        with span("int.epilogue"):
             acc = acc.to(torch.float32)
         if self.symmetric and self.w_symmetric:
             return acc
         ones = torch.ones((1,) + tuple(x_q.shape[1:]), dtype=torch.int8, device=x_q.device)
         corr_w, count = self.int_acc(ones, group_sums=True)
-        sh_x = 128.0 + self.act_zero_point
-        acc = _nhwc(acc)
-        if not self.symmetric:
-            acc = acc + sh_x * _nhwc(corr_w).to(torch.float32)
-        if not self.w_symmetric:
-            sh_w = (128.0 + self.w_zp).expand(self.w_shape[0])
-            acc = _add_per_group(acc, sh_w, _nhwc(sum_x))
+        with span("int.epilogue"):
+            sh_x = 128.0 + self.act_zero_point
+            acc = _nhwc(acc)
             if not self.symmetric:
-                acc = _add_per_group(acc, sh_x * sh_w, _nhwc(count))
-        return acc.permute(0, 3, 1, 2)
+                acc = acc + sh_x * _nhwc(corr_w).to(torch.float32)
+            if not self.w_symmetric:
+                sh_w = (128.0 + self.w_zp).expand(self.w_shape[0])
+                acc = _add_per_group(acc, sh_w, _nhwc(sum_x))
+                if not self.symmetric:
+                    acc = _add_per_group(acc, sh_x * sh_w, _nhwc(count))
+            return acc.permute(0, 3, 1, 2)
 
 
 @torch.no_grad()
@@ -388,16 +406,17 @@ class IntConv2d(_IntConvRoutes):
         """The first layer's route: f32 conv over the dequantized codes. On
         the card it is im2col and one f32 matmul with TF32 off for the call
         (FMA sums in a fixed order; no cuDNN algorithm choice)."""
-        x_dq = x_q.to(torch.float32) * self.act_scale
-        w_dq = self._weights().to(torch.float32) * self.w_scale[:, None, None, None]
-        if x_dq.device.type != "cuda":
-            return TF.conv2d(x_dq, w_dq, None, self.stride, self.padding, self.dilation,
-                             self.groups)
-        cols, (n, ho, wo) = self._im2col(x_dq)
-        w_mat = w_dq.permute(0, 2, 3, 1).reshape(self.w_shape[0], -1)  # (O, kh*kw*C)
-        with _no_tf32():
-            out = cols @ w_mat.t()
-        return out.reshape(n, ho, wo, -1).permute(0, 3, 1, 2)
+        with span("int.gemm"):
+            x_dq = x_q.to(torch.float32) * self.act_scale
+            w_dq = self._weights().to(torch.float32) * self.w_scale[:, None, None, None]
+            if x_dq.device.type != "cuda":
+                return TF.conv2d(x_dq, w_dq, None, self.stride, self.padding, self.dilation,
+                                 self.groups)
+            cols, (n, ho, wo) = self._im2col(x_dq)
+            w_mat = w_dq.permute(0, 2, 3, 1).reshape(self.w_shape[0], -1)  # (O, kh*kw*C)
+            with _no_tf32():
+                out = cols @ w_mat.t()
+            return out.reshape(n, ho, wo, -1).permute(0, 3, 1, 2)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         s_x = self.act_scale
@@ -408,9 +427,12 @@ class IntConv2d(_IntConvRoutes):
             x_q = _act_codes(x, s_x, self.act_zero_point, self.a_qmin, self.a_qmax,
                              self.symmetric)
         if self.f32_dequant and self.symmetric and self.w_symmetric:
-            return self._finish(self.dequant_conv(x_q))
+            out = self.dequant_conv(x_q)
+            with span("int.epilogue"):
+                return self._finish(out)
         acc = self._zero_point_acc(x_q)
-        return self._finish(acc * (s_x * self.w_scale)[:, None, None])
+        with span("int.epilogue"):
+            return self._finish(acc * (s_x * self.w_scale)[:, None, None])
 
 
 class IntConvTranspose2d(_IntConvRoutes):
@@ -480,21 +502,24 @@ class IntConvTranspose2d(_IntConvRoutes):
         (sh, sw), (ph, pw) = self.stride, self.padding
         (oph, opw), (dh, dw) = self.output_padding, self.dilation
         _, _, kh, kw = self.w_shape
-        if (sh, sw) != (1, 1):
-            xd = torch.zeros((n, c, (h - 1) * sh + 1, (w - 1) * sw + 1), dtype=x.dtype,
-                             device=x.device)
-            xd[:, :, ::sh, ::sw] = x
-            x = xd
-        lo_h, lo_w = dh * (kh - 1) - ph, dw * (kw - 1) - pw
-        return TF.pad(x, (lo_w, lo_w + opw, lo_h, lo_h + oph))
+        with span("int.im2col"):
+            if (sh, sw) != (1, 1):
+                xd = torch.zeros((n, c, (h - 1) * sh + 1, (w - 1) * sw + 1), dtype=x.dtype,
+                                 device=x.device)
+                xd[:, :, ::sh, ::sw] = x
+                x = xd
+            lo_h, lo_w = dh * (kh - 1) - ph, dw * (kw - 1) - pw
+            return TF.pad(x, (lo_w, lo_w + opw, lo_h, lo_h + oph))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x_q = x if x.dtype == torch.int8 else _act_codes(
             x, self.act_scale, self.act_zero_point, self.a_qmin, self.a_qmax, self.symmetric)
-        out = self._zero_point_acc(x_q) * (self.act_scale * self.w_scale)
-        if self.bias is not None:
-            out = out + self.bias[:, None, None]
-        return out
+        acc = self._zero_point_acc(x_q)
+        with span("int.epilogue"):
+            out = acc * (self.act_scale * self.w_scale)
+            if self.bias is not None:
+                out = out + self.bias[:, None, None]
+            return out
 
 
 class IntLinear(nn.Module):
@@ -525,30 +550,34 @@ class IntLinear(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.symmetric and self.w_symmetric:
-            return int8_linear(x, self._weights(), self.w_scale, self.act_scale,
-                               self.act_zero_point, self.bias, qmin=self.a_qmin,
-                               qmax=self.a_qmax)
+            with span("int.gemm"):
+                return int8_linear(x, self._weights(), self.w_scale, self.act_scale,
+                                   self.act_zero_point, self.bias, qmin=self.a_qmin,
+                                   qmax=self.a_qmax)
         lead, k = x.shape[:-1], x.shape[-1]
         x_q = _act_codes(x.reshape(-1, k), self.act_scale, self.act_zero_point, self.a_qmin,
                          self.a_qmax, self.symmetric)
         sh_x = 0.0 if self.symmetric else 128.0 + self.act_zero_point
         w_q = self._weights()
-        if x_q.device.type == "cuda":
-            acc = _int_mm_exact(x_q, w_q.t()).to(torch.float32)
-        else:
-            acc = (x_q.to(torch.float64) @ w_q.to(torch.float64)).to(torch.float32)
-        colsum_w = torch.sum(w_q, dim=0, dtype=torch.int32).to(torch.float32)
-        if self.w_symmetric:
-            acc = acc + sh_x * colsum_w[None, :]
-        else:
-            sh_w = 128.0 + self.w_zp
-            rowsum_x = torch.sum(x_q, dim=1, dtype=torch.int32).to(torch.float32)
-            acc = (acc + sh_w[None, :] * rowsum_x[:, None] + sh_x * colsum_w[None, :]
-                   + float(k) * sh_x * sh_w[None, :])
-        out = acc * (self.act_scale * self.w_scale)[None, :]
-        if self.bias is not None:
-            out = out + self.bias
-        return out.reshape(*lead, w_q.shape[1])
+        with span("int.gemm"):
+            if x_q.device.type == "cuda":
+                acc = _int_mm_exact(x_q, w_q.t())
+            else:
+                acc = x_q.to(torch.float64) @ w_q.to(torch.float64)
+        with span("int.epilogue"):
+            acc = acc.to(torch.float32)
+            colsum_w = torch.sum(w_q, dim=0, dtype=torch.int32).to(torch.float32)
+            if self.w_symmetric:
+                acc = acc + sh_x * colsum_w[None, :]
+            else:
+                sh_w = 128.0 + self.w_zp
+                rowsum_x = torch.sum(x_q, dim=1, dtype=torch.int32).to(torch.float32)
+                acc = (acc + sh_w[None, :] * rowsum_x[:, None] + sh_x * colsum_w[None, :]
+                       + float(k) * sh_x * sh_w[None, :])
+            out = acc * (self.act_scale * self.w_scale)[None, :]
+            if self.bias is not None:
+                out = out + self.bias
+            return out.reshape(*lead, w_q.shape[1])
 
 
 class IntMaxPool2d(nn.Module):
@@ -569,13 +598,16 @@ class IntMaxPool2d(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         s = self.act_scale
         if x.dtype != torch.int8:
-            x = torch.clamp(round_half_away(x.to(torch.float32) / s), self.a_qmin,
-                            self.a_qmax).to(torch.int8)
-        y = F.max_pool2d(x, self.kernel_size, self.stride, self.padding)
-        if self.chained:
-            q = round_half_away(y.to(torch.float32) * (s / self.out_scale))
-            return torch.clamp(q, self.out_qmin, self.out_qmax).to(torch.int8)
-        return y.to(torch.float32) * s
+            with span("int.quantize"):
+                x = torch.clamp(round_half_away(x.to(torch.float32) / s), self.a_qmin,
+                                self.a_qmax).to(torch.int8)
+        with span("int.pool"):
+            y = F.max_pool2d(x, self.kernel_size, self.stride, self.padding)
+        with span("int.epilogue"):
+            if self.chained:
+                q = round_half_away(y.to(torch.float32) * (s / self.out_scale))
+                return torch.clamp(q, self.out_qmin, self.out_qmax).to(torch.int8)
+            return y.to(torch.float32) * s
 
 
 class IntAvgPool2d(nn.Module):
@@ -593,12 +625,14 @@ class IntAvgPool2d(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         s = self.act_scale
         if x.dtype != torch.int8:
-            x = torch.clamp(round_half_away(x.to(torch.float32) / s), self.a_qmin,
-                            self.a_qmax).to(torch.int8)
-        xf = x.to(torch.float32) * s
-        if self.adaptive_size is not None:
-            return F.adaptive_avg_pool2d(xf, self.adaptive_size)
-        return F.avg_pool2d(xf, self.kernel_size, self.stride, self.padding)
+            with span("int.quantize"):
+                x = torch.clamp(round_half_away(x.to(torch.float32) / s), self.a_qmin,
+                                self.a_qmax).to(torch.int8)
+        with span("int.pool"):
+            xf = x.to(torch.float32) * s
+            if self.adaptive_size is not None:
+                return F.adaptive_avg_pool2d(xf, self.adaptive_size)
+            return F.avg_pool2d(xf, self.kernel_size, self.stride, self.padding)
 
 
 class _IntUnion(nn.Module):
@@ -619,10 +653,13 @@ class _IntUnion(nn.Module):
     def _inq(self, x: torch.Tensor) -> torch.Tensor:
         if x.dtype == torch.int8:
             return x
-        return torch.clamp(round_half_away(x.to(torch.float32) / self.act_scale), self.a_qmin,
-                           self.a_qmax).to(torch.int8)
+        with span("int.quantize"):
+            return torch.clamp(round_half_away(x.to(torch.float32) / self.act_scale),
+                               self.a_qmin, self.a_qmax).to(torch.int8)
 
     def _out(self, codes: torch.Tensor) -> torch.Tensor:
+        """The union's codes (an epilogue span of the caller's) out at the
+        consumer's scale, or dequantized."""
         if self.chained:
             q = round_half_away(codes.to(torch.float32) * (self.act_scale / self.out_scale))
             return torch.clamp(q, self.out_qmin, self.out_qmax).to(torch.int8)
@@ -633,7 +670,9 @@ class IntAdd(_IntUnion):
     """Frozen ``QuantAdd``: the codes add in int32 with no rescale."""
 
     def forward(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-        return self._out(self._inq(a).to(torch.int32) + self._inq(b).to(torch.int32))
+        a, b = self._inq(a), self._inq(b)
+        with span("int.epilogue"):
+            return self._out(a.to(torch.int32) + b.to(torch.int32))
 
 
 class IntConcat(_IntUnion):
@@ -645,8 +684,10 @@ class IntConcat(_IntUnion):
         self.axis = axis
 
     def forward(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-        return self._out(torch.cat([self._inq(a), self._inq(b)],
-                                   dim=M.nchw_axis(self.axis, a.dim())))
+        dim = M.nchw_axis(self.axis, a.dim())
+        a, b = self._inq(a), self._inq(b)
+        with span("int.epilogue"):
+            return self._out(torch.cat([a, b], dim=dim))
 
 
 def _check_bits(wq: qat_iao.FakeQuantizer, aq: qat_iao.FakeQuantizer) -> None:
@@ -959,11 +1000,15 @@ class TernaryConv2d(_IntConvRoutes):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # the inputs are exact +-1.0 (a sign, or a max-pool of signs)
-        x_q = x if x.dtype == torch.int8 else x.to(torch.int8)
-        out = self.int_acc(x_q).to(torch.float32) * self.alpha[:, None, None]
-        if self.bias is not None:
-            out = out + self.bias[:, None, None]
-        return out
+        if x.dtype != torch.int8:
+            with span("int.quantize"):
+                x = x.to(torch.int8)
+        acc = self.int_acc(x)
+        with span("int.epilogue"):
+            out = acc.to(torch.float32) * self.alpha[:, None, None]
+            if self.bias is not None:
+                out = out + self.bias[:, None, None]
+            return out
 
 
 @torch.no_grad()

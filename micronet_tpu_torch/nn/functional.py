@@ -5,7 +5,9 @@ NCHW activations and OIHW kernels inside its models (their public
 ``forward`` takes NHWC, as the JAX models do). Semantics are torch's:
 symmetric integer padding, ``count_include_pad=True`` average pooling.
 Transposed convolutions take torch's weight layout (in, out // groups,
-kh, kw); the JAX package's is (kh, kw, in, out // groups).
+kh, kw); the JAX package's is (kh, kw, in, out // groups). The channel
+shuffle records the span ``fn.shuffle`` (``utils/profiling.py``; off by
+default): the models call it directly, outside any module's span.
 """
 
 from __future__ import annotations
@@ -14,6 +16,8 @@ from typing import Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as TF
+
+from ..utils.profiling import span
 
 __all__ = [
     "sqrt",
@@ -123,4 +127,5 @@ def channel_shuffle(x: torch.Tensor, groups: int) -> torch.Tensor:
     n, c = x.shape[:2]
     if c % groups:
         raise ValueError(f"channels {c} not divisible by groups {groups}")
-    return x.reshape(n, groups, c // groups, *x.shape[2:]).transpose(1, 2).reshape(x.shape)
+    with span("fn.shuffle"):
+        return x.reshape(n, groups, c // groups, *x.shape[2:]).transpose(1, 2).reshape(x.shape)

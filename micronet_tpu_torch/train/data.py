@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from ..quant.rounding import true_div
+from ..utils.profiling import span
 
 __all__ = ["Cifar10", "load_cifar10", "normalize_batch", "draw_augment", "apply_augment",
            "augment_batch", "epoch_batches", "perm_seed"]
@@ -141,16 +142,17 @@ def apply_augment(images_u8: torch.Tensor, offsets: torch.Tensor,
     """RandomCrop(32, padding=4) at ``offsets`` and a horizontal flip where
     ``flips``, normalized, for the whole batch: the raw uint8 image is
     padded with 0 before normalizing (padding reads -1, as torchvision's),
-    then one gather takes every crop."""
+    then one gather takes every crop. Records the span ``train.augment``."""
     n = images_u8.shape[0]
     dev = images_u8.device
-    x = normalize_batch(torch.nn.functional.pad(images_u8, (0, 0, 4, 4, 4, 4)))
-    offsets = offsets.to(dev)
-    ar = torch.arange(32, device=dev)
-    rows = (offsets[:, 0:1] + ar)[:, :, None]  # (n, 32, 1)
-    cols = (offsets[:, 1:2] + ar)[:, None, :]  # (n, 1, 32)
-    x = x[torch.arange(n, device=dev)[:, None, None], rows, cols]
-    return torch.where(flips.to(dev)[:, None, None, None], x.flip(2), x)
+    with span("train.augment"):
+        x = normalize_batch(torch.nn.functional.pad(images_u8, (0, 0, 4, 4, 4, 4)))
+        offsets = offsets.to(dev)
+        ar = torch.arange(32, device=dev)
+        rows = (offsets[:, 0:1] + ar)[:, :, None]  # (n, 32, 1)
+        cols = (offsets[:, 1:2] + ar)[:, None, :]  # (n, 1, 32)
+        x = x[torch.arange(n, device=dev)[:, None, None], rows, cols]
+        return torch.where(flips.to(dev)[:, None, None, None], x.flip(2), x)
 
 
 def augment_batch(gen: torch.Generator, images_u8: torch.Tensor) -> torch.Tensor:

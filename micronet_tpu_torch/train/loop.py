@@ -45,6 +45,14 @@ all-reduce averages the gradients (with the loss and accuracy) over the
 ``data`` axis, so every rank takes the same update. Eval sums its counts
 over the axis. Only rank 0 logs and writes metrics and checkpoints (the
 whole state, gathered from every rank: ``parallel.unsharded``).
+
+A step records the spans (``utils/profiling.py``; off by default)
+``train.step`` around ``train_step``'s body and, inside it,
+``train.forward`` (the forward and the loss), ``train.backward``
+(``loss.backward()``; autograd launches its kernels from its own thread)
+and ``train.optimizer`` (the zero fill of missing gradients, the
+gradient hook and ``optimizer.step()``); the augmentation records
+``train.augment`` (``data.apply_augment``).
 """
 
 from __future__ import annotations
@@ -68,6 +76,7 @@ from ..parallel.distributed import all_reduce_, batch_group, batch_reduction
 from ..parallel.sharding import (batch_group_for, check_mesh, shard_batch,
                                  shard_model_and_optimizer, unsharded)
 from ..utils.metrics import MetricsLogger
+from ..utils.profiling import span
 from . import data as data_lib
 from .checkpoint import save_state, save_state_async, wait_for_saves
 from .optim import Adam
@@ -222,8 +231,9 @@ class Trainer:
     # -- steps --------------------------------------------------------------
 
     def _loss(self, x: torch.Tensor, labels: torch.Tensor):
-        logits = _remat_forward(self.model, x) if self.cfg.remat else self.model(x)
-        return TF.cross_entropy(logits, labels), logits
+        with span("train.forward"):
+            logits = _remat_forward(self.model, x) if self.cfg.remat else self.model(x)
+            return TF.cross_entropy(logits, labels), logits
 
     def _local(self, x: torch.Tensor, labels: torch.Tensor):
         """This rank's rows of a global batch and the group its statistics
@@ -248,19 +258,22 @@ class Trainer:
     def train_step(self, x: torch.Tensor, labels: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """One optimizer step on the augmented (global) batch ``x``; returns
         the (mean loss, accuracy) as device tensors."""
-        x, labels, group = self._local(x, labels)
-        with batch_reduction(group):
-            loss, acc = self._backward(x, labels)
-        for p in self.params:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        if group is not None:
-            loss, acc = loss.clone(), acc.clone()
-            self._mean_over(group, [p.grad for p in self.params] + [loss, acc])
-        if self.grad_hook is not None:
-            self.grad_hook(self.model)
-        self.optimizer.step()
-        return loss, acc
+        with span("train.step"):
+            x, labels, group = self._local(x, labels)
+            with batch_reduction(group):
+                loss, acc = self._backward(x, labels)
+            with span("train.optimizer"):
+                for p in self.params:
+                    if p.grad is None:
+                        p.grad = torch.zeros_like(p)
+            if group is not None:
+                loss, acc = loss.clone(), acc.clone()
+                self._mean_over(group, [p.grad for p in self.params] + [loss, acc])
+            with span("train.optimizer"):
+                if self.grad_hook is not None:
+                    self.grad_hook(self.model)
+                self.optimizer.step()
+            return loss, acc
 
     def _backward(self, x: torch.Tensor, labels: torch.Tensor):
         """Forward and backward (``grad_accum`` microbatches whose gradients
@@ -270,7 +283,8 @@ class Trainer:
             p.grad = None
         if accum == 1:
             loss, logits = self._loss(x, labels)
-            loss.backward()
+            with span("train.backward"):
+                loss.backward()
             acc = (logits.argmax(-1) == labels).to(torch.float32).mean()
         else:
             # microbatches in order: observers and BN statistics update per
@@ -280,7 +294,8 @@ class Trainer:
             loss, correct = 0.0, 0
             for i in range(accum):
                 li, logits = self._loss(x[i * m:(i + 1) * m], labels[i * m:(i + 1) * m])
-                li.backward()
+                with span("train.backward"):
+                    li.backward()
                 loss = loss + li.detach()
                 correct = correct + (logits.argmax(-1) == labels[i * m:(i + 1) * m]).sum()
             for p in self.params:
