@@ -54,10 +54,16 @@ Phases, each fatal on failure (non-zero exit, no final line):
    17 and 19: the fake-quant models these hold the engines against run
    the exact path), 4 calibration forwards at
    batch 64, ``fuse_bn_iao``, ``freeze_int``, engine forwards at batch
-   512; K1 must launch once per forward (counts zeroed just before, read
-   just after); the same engine on the CPU must agree on 8 images;
-   img/s of the engine and of the port's fp32 eval. Then the same for
-   NIN-GC W4A4 at batch 1024 (no kernel on that path);
+   512; K1 must launch once per forward and the conv epilogue
+   (``ops/requant_epilogue.py``) once per symmetric conv, 20 (counts
+   zeroed just before, read just after); the same engine on the CPU must
+   agree on 8 images; img/s of the engine and of the port's fp32 eval.
+   Then the same for NIN-GC W4A4 at batch 1024 (K1 not on that path; the
+   epilogue 9 times a forward). In both, every symmetric conv's
+   accumulator rows from one forward (its input kept by a hook) through
+   the conv epilogue's wrapper and its twin on the card: equal bit for
+   bit (f32 outputs as int32), the strided 10-of-16 slice of NIN-GC's
+   last conv too;
 10. long-context kernels: K4b and K5b (the blocked wrappers; the cluster
    regime at S = 8192) against their twins at G = 64, R = 4, D = 128,
    S = 8192 with bounds 0..8192; K4b at bound b equal to K5b at b + 1 bit
@@ -87,7 +93,10 @@ Phases, each fatal on failure (non-zero exit, no final line):
    device times of K4a (phase 3's bounds and the serving fills), K4b and
    K6 (pages of 16) at phase 3's and 10's shapes, then K1's at phase 7's
    three calls and K2's at its path call (the wrapper and each regime
-   forced) beside ``torch._int_mm``'s on codes (after the serving
+   forced) beside ``torch._int_mm``'s on codes, and the conv epilogue's
+   at every symmetric conv of phase 9's engines beside its twin's and
+   the bytes bound, M x O x (4 + 1) for int8 out and x (4 + 4) for f32
+   (the kernels line's ``requant_epilogue`` row; after the serving
    phases, so that no profiler session runs before those; a trace that
    lost kernels is taken again with longer quiet pads around the calls,
    and is fatal after five);
@@ -161,12 +170,15 @@ Phases, each fatal on failure (non-zero exit, no final line):
    engine bit for bit, and on 8 images to the engine on the CPU; the
    counts zeroed just before the buckets are built and read after the
    requests (K1 one launch per capture, none per replay), and by
-   ``torch.profiler`` one K1 kernel in each ResNet-18 replay and no
-   hand-written kernel in NIN-GC's; per bucket the eager forward's ms,
-   the replay's, a call's img/s and the capture's seconds. The ResNet-18
+   ``torch.profiler`` one K1 kernel in each ResNet-18 replay, none in
+   NIN-GC's, and in each replay one conv epilogue kernel a symmetric conv
+   (20 and 9) and no other hand-written kernel; per bucket the eager
+   forward's ms, the replay's, a call's img/s and the capture's seconds.
+   The ResNet-18
    engine through ``serialize_engine`` at batch 512 and
    ``deserialize_engine`` (export, save and load seconds, bytes; its
-   graph calls the K1 operator; bit-equal to the engine; a record naming
+   graph calls the K1 operator once and the conv epilogue's 20 times;
+   bit-equal to the engine; a record naming
    another compute capability refused); ``to_bf16``/``bf16_runner`` on
    the float ResNet-18 (within 0.05 relative L2 of fp32, img/s beside
    fp32); ``cli train`` (2 steps) then ``cli deploy`` on ResNet-18, the
@@ -1182,6 +1194,52 @@ def int8_device_times(dev, gen, report, k1_row, k2_row):
         row.update({key: case[key] for key in ("device_ms", "library_device_ms", "regime")})
 
 
+# calls a reading of the conv epilogue, by events and by torch.profiler
+EPILOGUE_ITERS = 20
+
+
+@torch.no_grad()
+def epilogue_device_times(engines, report):
+    """The conv epilogue (``ops/requant_epilogue.py``) at every symmetric
+    conv of phase 9's engines, on its own accumulator rows from one
+    forward: ms by events and device ms (``torch.profiler``) of the
+    wrapper and of its twin on the card (the plain chain of PyTorch
+    operations), beside the bytes bound M x O x (4 + 1) (int8 codes out)
+    or x (4 + 4) (f32 out) at 3.35 TB/s. Returns the kernels line's
+    ``requant_epilogue`` row's fields: each net's sums and its layers."""
+    from micronet_tpu_torch.ops.requant_epilogue import requant_epilogue, requant_epilogue_ref
+
+    nets = {}
+    for name, keep in engines.items():
+        layers = []
+        for lname, args in _epilogue_cases(keep["engine"], keep["x"]):
+            rows = args[0]
+            m, o = rows.shape
+            bound = m * o * (rows.element_size() + (1 if args[-1] else 4)) / HBM_BYTES_PER_S
+            layers.append(dict(
+                layer=lname, m=m, o=o, ld=rows.stride(0), out="int8" if args[-1] else "f32",
+                ms=time_ms(requant_epilogue, [args], EPILOGUE_ITERS),
+                device_ms=device_ms(requant_epilogue, [args], EPILOGUE_ITERS),
+                plain_ms=time_ms(requant_epilogue_ref, [args], EPILOGUE_ITERS),
+                plain_device_ms=device_ms(requant_epilogue_ref, [args], EPILOGUE_ITERS),
+                bound_ms=bound * 1e3))
+            del rows, args
+        net = {key: sum(r[key] for r in layers)
+               for key in ("ms", "device_ms", "plain_ms", "plain_device_ms", "bound_ms")}
+        net.update(launches_phase9=report[name]["epilogue_launches"], layers=layers)
+        nets[name] = net
+        log(f"conv epilogue, {name}: {len(layers)} convs a forward, device "
+            f"{net['device_ms']:.4f} ms (events {net['ms']:.4f}), twin device "
+            f"{net['plain_device_ms']:.4f} ms, bound {net['bound_ms']:.4f} ms "
+            f"({net['bound_ms'] / net['device_ms']:.1%} of it)")
+        for r in layers:
+            log(f"  {r['layer']:<24} M {r['m']:>8} O {r['o']:>5} ld {r['ld']:>5} -> "
+                f"{r['out']:<4} device {r['device_ms']:.4f} ms, twin {r['plain_device_ms']:.4f}"
+                f" ms, bound {r['bound_ms']:.4f} ms ({r['bound_ms'] / r['device_ms']:.1%})")
+        torch.cuda.empty_cache()
+    return nets
+
+
 # ---------------------------------------------------------------- phase 3c
 
 
@@ -1280,6 +1338,7 @@ def engine_path(name, build, cfg, batch, dev, seed, report, profile_dir=None, la
 
     from micronet_tpu_torch.infer import freeze_int, fuse_bn_iao
     from micronet_tpu_torch.nn import eval_mode, prepare, train_mode
+    from micronet_tpu_torch.ops.requant_epilogue import requant_epilogue
 
     gen = torch.Generator(device=dev).manual_seed(seed)
     t0 = time.perf_counter()
@@ -1296,12 +1355,13 @@ def engine_path(name, build, cfg, batch, dev, seed, report, profile_dir=None, la
     chained = [n for n, m in engine.named_modules() if getattr(m, "chained", False)]
 
     kernels = _all_kernels()
-    for kern in kernels:
+    for kern in kernels + (requant_epilogue,):
         kern.launches = 0
     # -- the main path: engine forwards --------------------------------
     out = engine(x)
     engine_ms = _forward_ms(engine, x, ENGINE_ITERS)
     launches = {kern.__name__: kern.launches for kern in kernels}
+    epilogues = requant_epilogue.launches
     # ------------------------------------------------------------------
     forwards = 1 + ENGINE_ITERS
     if tuple(out.shape) != (batch, 10) or not torch.isfinite(out).all():
@@ -1329,7 +1389,7 @@ def engine_path(name, build, cfg, batch, dev, seed, report, profile_dir=None, la
         diff = _agree(f"{name}: engine on the card vs on the CPU", out[:CPU_BATCH].cpu(), ref,
                       CARD_CPU_TOL)
     res = dict(batch=batch, setup_s=setup_s, chained_layers=len(chained), launches=launches,
-               forwards=forwards, engine_ms=engine_ms, engine_img_s=batch / engine_ms * 1e3,
+               epilogue_launches=epilogues, forwards=forwards, engine_ms=engine_ms, engine_img_s=batch / engine_ms * 1e3,
                fp32_ms=fp32_ms, fp32_img_s=batch / fp32_ms * 1e3,
                engine_vs_fake_quant_max_abs=fq_diff, engine_vs_fake_quant_argmax_agree=fq_agree,
                card_vs_cpu_max_abs=diff, cpu_rows=CPU_BATCH, cpu_engine_s=cpu_s,
@@ -1337,13 +1397,13 @@ def engine_path(name, build, cfg, batch, dev, seed, report, profile_dir=None, la
     report[name] = res
     log(f"{name}: setup {setup_s:.1f} s, {len(chained)} chained layers; engine at batch "
         f"{batch}: {engine_ms:.2f} ms = {res['engine_img_s']:.0f} img/s, port fp32 eval "
-        f"(TF32 off) {fp32_ms:.2f} ms = {res['fp32_img_s']:.0f} img/s; launches {launches} "
-        f"over {forwards} forwards")
+        f"(TF32 off) {fp32_ms:.2f} ms = {res['fp32_img_s']:.0f} img/s; launches {launches}, "
+        f"conv epilogue {epilogues}, over {forwards} forwards")
     log(f"{name}: on {CPU_BATCH} images, engine vs its fake-quant model max|diff| "
         f"{fq_diff:.3e}, engine on the card vs on the CPU max|diff| {diff:.3e}; argmax "
         f"agreement with the fake-quant model over the batch {fq_agree:.4f}")
     if keep is not None:
-        keep.update(engine=engine, fp32=fp32)
+        keep.update(engine=engine, fp32=fp32, x=x)
     return launches, forwards
 
 
@@ -1387,16 +1447,75 @@ def resnet_engine(dev, seed, report, profile_dir=None, later=None, keep=None):
     want["int8_matmul_dequant"] = forwards  # the fc, once per forward
     if launches != want:
         fail(f"resnet18_w8a8: launch counts {launches}, expected {want}")
+    _check_epilogues("resnet18_w8a8", report, 20, keep)
     return launches
+
+
+def _epilogue_cases(engine, x):
+    """For each symmetric ``IntConv2d`` of ``engine`` in order, on its own
+    input in one forward of ``x`` (kept by a hook): its name and the conv
+    epilogue's arguments over its accumulator rows (the route's (M, O)
+    view, as ``IntConv2d._epilogue`` passes them); one accumulator alive
+    at a time."""
+    from micronet_tpu_torch.infer import engine as E
+
+    convs = [(n, m) for n, m in engine.named_modules()
+             if isinstance(m, E.IntConv2d) and m.symmetric and m.w_symmetric]
+    inputs = {}
+    hooks = [m.register_forward_pre_hook(lambda mod, args: inputs.__setitem__(mod, args[0]))
+             for _, m in convs]
+    try:
+        engine(x)
+    finally:
+        for h in hooks:
+            h.remove()
+    for lname, m in convs:
+        x_in = inputs.pop(m)
+        x_q = x_in if x_in.dtype == torch.int8 else E._act_codes(
+            x_in, m.act_scale, m.act_zero_point, m.a_qmin, m.a_qmax, True)
+        acc, w_scale = (m.dequant_conv(x_q), None) if m.f32_dequant else (m.int_acc(x_q),
+                                                                            m.w_scale)
+        rows = E._nhwc(acc).reshape(-1, acc.shape[1])
+        yield lname, (rows, m.act_scale, w_scale, m.bias, m.out_scale, m.out_qmin, m.out_qmax,
+                      m.chained)
+
+
+@torch.no_grad()
+def _check_epilogues(name, report, convs, keep):
+    """Fail unless the conv epilogue launched once per symmetric conv per
+    forward on phase 9's main path, and unless at every symmetric conv
+    the wrapper equals its twin on the card bit for bit (f32 as int32)."""
+    from micronet_tpu_torch.ops.requant_epilogue import requant_epilogue, requant_epilogue_ref
+
+    res = report[name]
+    if res["epilogue_launches"] != convs * res["forwards"]:
+        fail(f"{name}: conv epilogue launches {res['epilogue_launches']}, expected {convs} x "
+             f"{res['forwards']} forwards")
+    layers = []
+    for lname, args in _epilogue_cases(keep["engine"], keep["x"]):
+        got, want = requant_epilogue(*args), requant_epilogue_ref(*args)
+        if got.dtype == torch.float32:
+            got, want = got.view(torch.int32), want.view(torch.int32)
+        rows = args[0]
+        layers.append(dict(layer=lname, m=rows.shape[0], o=rows.shape[1], ld=rows.stride(0),
+                           acc=str(rows.dtype)[6:], out="int8" if args[-1] else "f32",
+                           bias=args[3] is not None, equal=bool(torch.equal(got, want))))
+        del got, want, rows, args
+    if len(layers) != convs or not all(r["equal"] for r in layers):
+        fail(f"{name}: conv epilogue against its twin at each symmetric conv: "
+             f"{[(r['layer'], r['equal']) for r in layers]}, expected {convs} layers, all equal")
+    res["epilogue_layers"] = layers
+    log(f"{name}: conv epilogue equal to its twin bit for bit at all {convs} symmetric convs")
 
 
 def nin_engine(dev, seed, report, profile_dir=None, later=None, keep=None):
     from micronet_tpu_torch.models.nin_gc import Net
     from micronet_tpu_torch.quant.config import QuantConfig
 
-    # NIN-GC's classifier is a 1x1 conv: this path runs no hand-written kernel
+    # NIN-GC's classifier is a 1x1 conv: K1 is not on this path, the conv epilogue is
     engine_path("nin_gc_w4a4", Net, QuantConfig(a_bits=4, w_bits=4, bn_fuse=True, **EXACT),
                 NIN_BATCH, dev, seed, report, profile_dir, later, keep=keep)
+    _check_epilogues("nin_gc_w4a4", report, 9, keep)
 
 
 # ---------------------------------------------------------------- phase 10
@@ -2690,8 +2809,9 @@ def upcat_engines(dev, seed, report, profile_dir=None):
     """Phase 17: UpNet and the concat net at 32 x 32, q_type 0 and 1:
     ``prepare``, 4 calibration forwards at batch 64, ``fuse_bn_iao`` (the
     weights pre-quantized), ``freeze_int`` with an example input, the
-    engine at batch 256 (no hand-written kernel: every count zeroed just
-    before and still 0 just after); the card equal to the CPU layer by
+    engine at batch 256 (no hand-written kernel but the symmetric convs'
+    epilogue: every other count zeroed just before and still 0 just
+    after); the card equal to the CPU layer by
     layer, each asymmetric accumulator within its f32 rounding of the
     exact value, the output on 8 images within QUANT_ATOL of the
     fake-quant model (over the batch: reported); the
@@ -3120,6 +3240,7 @@ DEPLOY_PROFILES = {"resnet18_w8a8": (1, 64, RESNET_BATCH), "nin_gc_w4a4": (1, 25
 # requests: then the largest bucket and 2.5x it (chunked through the largest)
 DEPLOY_REQUESTS = (1, 5, 64, 300)
 K1_KERNEL = "int8_small_kernel"  # K1's regime at the fc (N = 10)
+EPILOGUE_KERNEL = "requant_epilogue"  # ops/csrc/requant_epilogue.cu, one a symmetric conv
 # the JAX package's bf16 bound (tests/test_infer.py::test_bf16_eval_mode): relative L2
 BF16_REL_TOL = 0.05
 # cli deploy: cli train's two steps (the synthetic set's 2,048 images at batch 1,024)
@@ -3223,6 +3344,7 @@ def deploy_buckets(name, engine, dev, seed, card, report):
     import copy
 
     from micronet_tpu_torch.infer.deploy import profile_buckets
+    from micronet_tpu_torch.infer.engine import IntConv2d
 
     lo, opt, hi = DEPLOY_PROFILES[name]
     gen = torch.Generator(device=dev).manual_seed(seed + 19)
@@ -3271,25 +3393,35 @@ def deploy_buckets(name, engine, dev, seed, card, report):
             f"(copy in, replay, copy out) {call_ms:8.3f} ms = {b / call_ms * 1e3:9.0f} img/s; "
             f"capture {compiled.capture_s[b]:.3f} s; {sum(counts.values()) // 3} kernels a "
             f"replay, hand-written {ours}")
+    # one conv epilogue kernel a symmetric conv in every replay, and besides it only K1
+    convs = sum(isinstance(m, IntConv2d) and m.symmetric and m.w_symmetric
+                for m in engine.modules())
+    epilogues = {b: sum(c for k, c in v["hand_kernels_per_replay"].items()
+                        if EPILOGUE_KERNEL in k) for b, v in per_bucket.items()}
+    other = {b: [k for k in v["hand_kernels_per_replay"]
+                 if EPILOGUE_KERNEL not in k and K1_KERNEL not in k]
+             for b, v in per_bucket.items()}
+    if any(n != convs for n in epilogues.values()) or any(other.values()):
+        fail(f"{name} deploy: conv epilogue kernels per replay {epilogues}, expected {convs} "
+             f"(one a symmetric conv); other hand-written kernels {other}")
     if name == "resnet18_w8a8":
         want = {"int8_matmul_dequant": 1}
         if any(v["capture_launches"] != want for v in per_bucket.values()):
             fail(f"{name} deploy: launch counts per capture "
                  f"{ {b: v['capture_launches'] for b, v in per_bucket.items()} }, expected {want}")
-        if any(v != 1 or len(per_bucket[b]["hand_kernels_per_replay"]) != 1
-               for b, v in k1_per_replay.items()):
+        if any(v != 1 for v in k1_per_replay.values()):
             fail(f"{name} deploy: K1 kernels per replay {k1_per_replay}, expected exactly one "
-                 f"({K1_KERNEL}) and no other hand-written kernel")
+                 f"({K1_KERNEL})")
         if launches["int8_matmul_dequant"] != 3 * len(compiled.buckets) or any(
                 v for k, v in launches.items() if k != "int8_matmul_dequant"):
             fail(f"{name} deploy: launch counts {launches}: expected K1 three times a bucket "
                  "(two warm-up forwards and the capture) and none in the requests' replays")
-    elif any(launches.values()) or any(v["hand_kernels_per_replay"]
-                                       for v in per_bucket.values()):
-        fail(f"{name} deploy: a hand-written kernel ran ({launches}, per replay "
-             f"{ {b: v['hand_kernels_per_replay'] for b, v in per_bucket.items()} })")
+    elif any(launches.values()) or any(k1_per_replay.values()):
+        fail(f"{name} deploy: a hand-written kernel other than the conv epilogue ran "
+             f"({launches}, K1 per replay {k1_per_replay})")
     res = dict(card=card, buckets=list(compiled.buckets), requests=list(requests),
                build_s=build_s, launches=launches, k1_kernels_per_replay=k1_per_replay,
+               epilogue_kernels_per_replay=epilogues,
                card_vs_cpu_max_abs=card_cpu, per_bucket=per_bucket,
                flops=compiled.flops)
     report[f"{name}_deploy"] = res
@@ -3348,6 +3480,11 @@ def deploy_artifact(engine, dev, seed, out_dir: Path, card, report):
                 if n.target is torch.ops.micronet_tpu_torch.int8_matmul_dequant.default]
     if len(k1_nodes) != 1:
         fail(f"deploy artifact: {len(k1_nodes)} calls of the K1 operator in its graph, expected 1")
+    epilogue_nodes = sum(n.target is torch.ops.micronet_tpu_torch.requant_epilogue.default
+                         for n in runner.program.graph.nodes)
+    if epilogue_nodes != 20:
+        fail(f"deploy artifact: {epilogue_nodes} calls of the conv epilogue operator in its "
+             "graph, expected 20 (one a symmetric conv of ResNet-18)")
     x = torch.randn((RESNET_BATCH, 32, 32, 3), device=dev,
                     generator=torch.Generator(device=dev).manual_seed(seed + 20))
     _bit_equal("deploy artifact at batch 512", runner(x), engine(x))
@@ -5659,6 +5796,7 @@ def main() -> int:
     k2_row = {k: v for k, v in k2["path"].items()
               if k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err")}
     int8_device_times(dev, gen, report, k1_row, k2_row)
+    epi = epilogue_device_times(engines, report)
     dec_kernels = decoder_kernel_times(dev, gen, report)
     # phase 19 runs here, before --profile's traces: after them, its replay
     # traces lost kernels
@@ -5800,6 +5938,16 @@ def main() -> int:
              launches=launches["int4_matmul_grouped"],
              per="129 calls at M=8 over the five 8B shapes (one decode step's worth), group 128",
              **wo["int4_matmul_grouped"]),
+        dict(name="requant_epilogue", route="cuda", source=src + "requant_epilogue.cu",
+             replaces="micronet_tpu/infer/engine.py:165 (IntConv2d._epilogue, fused by XLA)",
+             launches=sum(v["launches_phase9"] for v in epi.values()),
+             per="every symmetric conv of one forward, summed, on phase 9's engines: "
+                 f"nin_gc_w4a4 at {NIN_BATCH} (9 convs), resnet18_w8a8 at {RESNET_BATCH} "
+                 f"(20); launches over phase 9's {ENGINE_ITERS + 1} forwards of each; "
+                 f"{EPILOGUE_ITERS} calls a layer; plain_* is the twin (the chain of PyTorch "
+                 "operations) on the card; bound_ms M x O x (4 + 1) for int8 out, x (4 + 4) "
+                 "for f32, at 3.35 TB/s; layers per conv",
+             **epi),
     ]
     report["kernels"] = rows
     report["device_ms_retries"] = TRACE_RETRIES

@@ -42,6 +42,13 @@ with exact integer accumulation:
   package does; on the card as im2col and one f32 matmul with TF32 off
   for the call.
 
+A symmetric ``IntConv2d``'s epilogue (the accumulator's cast, scale and
+bias, and the requant when chained) is one operator,
+``ops/requant_epilogue.py::requant_epilogue``: on the card one pass of a
+hand-written kernel over the GEMM's (M, O) rows, as XLA fuses the JAX
+package's, on the CPU its plain twin; both give the chain's bits, which
+every other layer runs.
+
 The JAX package's bf16-codes lowering is a TPU choice; here both integer
 routes are exact at any window size. A symmetric ``IntLinear`` runs the
 hand-written kernel K1 (``ops/int_matmul.py::int8_matmul_dequant``); an
@@ -58,9 +65,10 @@ Every module records its work by role as spans (``utils/profiling.py``,
 off by default): ``int.quantize`` (activation codes), ``int.im2col`` (the
 patch matrix and its padding), ``int.gemm`` (the integer products, the
 first layer's f32 matmul, K1), ``int.epilogue`` (the accumulator's cast,
-scale, bias, correction terms and requant; the adds' and concats' codes)
-and ``int.pool``. The models' channel shuffle, which no module holds,
-records ``fn.shuffle`` (``nn/functional.py``). They run in an eager
+scale, bias, correction terms and requant, on the card one kernel for a
+symmetric conv; the adds' and concats' codes) and ``int.pool``. The
+models' channel shuffle, which no module holds, records ``fn.shuffle``
+(``nn/functional.py``). They run in an eager
 forward and in a CUDA graph's capture, not in its replay.
 
 Not ported: the JAX package's ``pallas_pointwise`` and ``pointwise_dot``
@@ -84,6 +92,7 @@ from ..nn import qat_iao, qat_wbwtab
 from ..nn.transform import _children, _copy_model
 from ..ops.int4_matmul import pack_int4, unpack_int4
 from ..ops.int_matmul import int8_linear
+from ..ops.requant_epilogue import requant, requant_epilogue
 from ..quant.rounding import round_half_away
 from ..utils.profiling import span
 
@@ -95,13 +104,9 @@ def _scalar_buffer(v, dev) -> torch.Tensor:
     return torch.as_tensor(v, dtype=torch.float32).reshape(()).clone().to(dev)
 
 
-def _requant(out: torch.Tensor, scale: torch.Tensor, qmin: float, qmax: float) -> torch.Tensor:
-    return torch.clamp(round_half_away(out / scale), qmin, qmax).to(torch.int8)
-
-
 def _quantize_weight_int8(w: torch.Tensor, scale: torch.Tensor, qmin: float = -127.0,
                           qmax: float = 127.0) -> torch.Tensor:
-    return torch.clamp(round_half_away(w / scale), qmin, qmax).to(torch.int8)
+    return requant(w, scale, qmin, qmax)
 
 
 def _shifted_weight_codes(w: torch.Tensor, scale: torch.Tensor, zero_point: torch.Tensor,
@@ -350,7 +355,9 @@ def exact_zero_point_acc(layer: _IntConvRoutes, x_q: torch.Tensor):
 
 class IntConv2d(_IntConvRoutes):
     """Integer conv: int8 in, int8 weights, exact int32-valued
-    accumulation, f32 epilogue (or a requant to int8 when chained).
+    accumulation, f32 epilogue (or a requant to int8 when chained), on the
+    card one hand-written pass where activations and weights are
+    symmetric.
     ``w_q`` is OIHW; with symmetric W <= 4 it is stored nibble-packed
     (``w_packed``) as the (kh*kw*cg/2, O) bytes of the JAX package.
     Asymmetric weights (``w_symmetric`` False) are stored ``q0 - 128``
@@ -400,7 +407,20 @@ class IntConv2d(_IntConvRoutes):
             out = out + self.bias[:, None, None]
         if not self.chained:
             return out
-        return _requant(out, self.out_scale, self.out_qmin, self.out_qmax)
+        return requant(out, self.out_scale, self.out_qmin, self.out_qmax)
+
+    def _epilogue(self, acc: torch.Tensor, w_scale: Optional[torch.Tensor]) -> torch.Tensor:
+        """A symmetric conv's epilogue, :meth:`_finish` of ``acc * (s_x *
+        w_scale)``, through ``ops/requant_epilogue.py::requant_epilogue``:
+        on the card one pass of the hand-written kernel over the route's
+        (M, O) rows (``acc`` an NCHW view of them: the int32 GEMM's, or
+        with ``w_scale`` None the first layer's f32 one), on the CPU its
+        twin, the same chain (``acc`` the exact f64 accumulator or the f32
+        conv). The output is an NCHW view of (M, O) rows."""
+        n, co, h, w = acc.shape
+        out = requant_epilogue(_nhwc(acc).reshape(-1, co), self.act_scale, w_scale, self.bias,
+                               self.out_scale, self.out_qmin, self.out_qmax, self.chained)
+        return out.reshape(n, h, w, co).permute(0, 3, 1, 2)
 
     def dequant_conv(self, x_q: torch.Tensor) -> torch.Tensor:
         """The first layer's route: f32 conv over the dequantized codes. On
@@ -426,10 +446,13 @@ class IntConv2d(_IntConvRoutes):
         else:
             x_q = _act_codes(x, s_x, self.act_zero_point, self.a_qmin, self.a_qmax,
                              self.symmetric)
-        if self.f32_dequant and self.symmetric and self.w_symmetric:
-            out = self.dequant_conv(x_q)
+        if self.symmetric and self.w_symmetric:
+            if self.f32_dequant:
+                acc, w_scale = self.dequant_conv(x_q), None
+            else:
+                acc, w_scale = self.int_acc(x_q), self.w_scale
             with span("int.epilogue"):
-                return self._finish(out)
+                return self._epilogue(acc, w_scale)
         acc = self._zero_point_acc(x_q)
         with span("int.epilogue"):
             return self._finish(acc * (s_x * self.w_scale)[:, None, None])

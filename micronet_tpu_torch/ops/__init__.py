@@ -2,9 +2,12 @@
 
 The JAX package's ops surface, with each XLA oracle ``*_xla`` under its
 twin's name ``*_ref``: ``int8_matmul_dequant_ref`` in place of
-``int8_matmul_dequant_xla``. Importing this package registers the K1/K2
-operators (``torch.ops.micronet_tpu_torch``)."""
+``int8_matmul_dequant_xla``. Beside it, the module ``requant_epilogue``
+holds the integer engine's one-pass conv epilogue, which has no TPU kernel
+(XLA fuses it there). Importing this package registers the operators
+(``torch.ops.micronet_tpu_torch``)."""
 
+from . import requant_epilogue  # noqa: F401  (registers its operator)
 from .int_matmul import (binary_act_matmul, int8_linear, int8_matmul_dequant,
                          int8_matmul_dequant_ref, quantize_int8)
 
