@@ -272,7 +272,22 @@ Phases, each fatal on failure (non-zero exit, no final line):
    M = 136), eight requests spread over the slots teacher-forced with
    ``generate``'s tokens and their logits held to ``generate``'s position by
    position; exact launch counts; decode step ms, tok/s and peak memory;
-25. the kernels line (JSON), then the final line
+25. MobileNetV2 engine (the depthwise route): full-width
+   ``mobilenet_v2()`` (CIFAR strides, 10 classes) through phase 9's
+   engine path, W8A8 with fused BN (``EXACT``), at batch 1,024, the
+   benchmark cell's; counts zeroed just before the engine forwards and
+   read after: the depthwise kernel (``ops/dwconv.py``) 17 a forward, the
+   conv epilogue 35, K1 once (the classifier), nothing else; the card
+   equal to the CPU on 8 images (``CARD_CPU_TOL``) and to the fake-quant
+   model (``MOBILENET_FQ_TOL``); each depthwise conv on its own int8
+   input from one forward (kept by a hook) through the kernel, its twin
+   and the block-diagonal route (im2col, the int32 GEMM over the
+   block-diagonal weight, the conv epilogue): equal bit for bit (f32
+   outputs as int32); every depthwise conv and projection reads int8
+   codes. After phase 12's device readings, each layer's device time on
+   the kernel and on the block-diagonal route beside its bound (the
+   kernels line's ``dwconv_int8`` row). It runs after phase 23;
+26. the kernels line (JSON), then the final line
    ``{"ok": true, "device": {...}}``.
 
 Details of every measurement go to ``<out>/chip_smoke.json`` (``--out``,
@@ -1338,6 +1353,7 @@ def engine_path(name, build, cfg, batch, dev, seed, report, profile_dir=None, la
 
     from micronet_tpu_torch.infer import freeze_int, fuse_bn_iao
     from micronet_tpu_torch.nn import eval_mode, prepare, train_mode
+    from micronet_tpu_torch.ops.dwconv import dwconv_int8
     from micronet_tpu_torch.ops.requant_epilogue import requant_epilogue
 
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -1355,13 +1371,13 @@ def engine_path(name, build, cfg, batch, dev, seed, report, profile_dir=None, la
     chained = [n for n, m in engine.named_modules() if getattr(m, "chained", False)]
 
     kernels = _all_kernels()
-    for kern in kernels + (requant_epilogue,):
+    for kern in kernels + (requant_epilogue, dwconv_int8):
         kern.launches = 0
     # -- the main path: engine forwards --------------------------------
     out = engine(x)
     engine_ms = _forward_ms(engine, x, ENGINE_ITERS)
     launches = {kern.__name__: kern.launches for kern in kernels}
-    epilogues = requant_epilogue.launches
+    epilogues, dwconvs = requant_epilogue.launches, dwconv_int8.launches
     # ------------------------------------------------------------------
     forwards = 1 + ENGINE_ITERS
     if tuple(out.shape) != (batch, 10) or not torch.isfinite(out).all():
@@ -1389,7 +1405,8 @@ def engine_path(name, build, cfg, batch, dev, seed, report, profile_dir=None, la
         diff = _agree(f"{name}: engine on the card vs on the CPU", out[:CPU_BATCH].cpu(), ref,
                       CARD_CPU_TOL)
     res = dict(batch=batch, setup_s=setup_s, chained_layers=len(chained), launches=launches,
-               epilogue_launches=epilogues, forwards=forwards, engine_ms=engine_ms, engine_img_s=batch / engine_ms * 1e3,
+               epilogue_launches=epilogues, dwconv_launches=dwconvs, forwards=forwards,
+               engine_ms=engine_ms, engine_img_s=batch / engine_ms * 1e3,
                fp32_ms=fp32_ms, fp32_img_s=batch / fp32_ms * 1e3,
                engine_vs_fake_quant_max_abs=fq_diff, engine_vs_fake_quant_argmax_agree=fq_agree,
                card_vs_cpu_max_abs=diff, cpu_rows=CPU_BATCH, cpu_engine_s=cpu_s,
@@ -1398,7 +1415,7 @@ def engine_path(name, build, cfg, batch, dev, seed, report, profile_dir=None, la
     log(f"{name}: setup {setup_s:.1f} s, {len(chained)} chained layers; engine at batch "
         f"{batch}: {engine_ms:.2f} ms = {res['engine_img_s']:.0f} img/s, port fp32 eval "
         f"(TF32 off) {fp32_ms:.2f} ms = {res['fp32_img_s']:.0f} img/s; launches {launches}, "
-        f"conv epilogue {epilogues}, over {forwards} forwards")
+        f"conv epilogue {epilogues}, depthwise {dwconvs}, over {forwards} forwards")
     log(f"{name}: on {CPU_BATCH} images, engine vs its fake-quant model max|diff| "
         f"{fq_diff:.3e}, engine on the card vs on the CPU max|diff| {diff:.3e}; argmax "
         f"agreement with the fake-quant model over the batch {fq_agree:.4f}")
@@ -1483,14 +1500,17 @@ def _epilogue_cases(engine, x):
 @torch.no_grad()
 def _check_epilogues(name, report, convs, keep):
     """Fail unless the conv epilogue launched once per symmetric conv per
-    forward on phase 9's main path, and unless at every symmetric conv
-    the wrapper equals its twin on the card bit for bit (f32 as int32)."""
+    forward on phase 9's main path and the depthwise kernel never (no conv
+    of these nets is depthwise: NIN-GC's grouped convs keep the
+    block-diagonal GEMM), and unless at every symmetric conv the wrapper
+    equals its twin on the card bit for bit (f32 as int32)."""
     from micronet_tpu_torch.ops.requant_epilogue import requant_epilogue, requant_epilogue_ref
 
     res = report[name]
-    if res["epilogue_launches"] != convs * res["forwards"]:
+    if res["epilogue_launches"] != convs * res["forwards"] or res["dwconv_launches"]:
         fail(f"{name}: conv epilogue launches {res['epilogue_launches']}, expected {convs} x "
-             f"{res['forwards']} forwards")
+             f"{res['forwards']} forwards; depthwise kernel {res['dwconv_launches']}, "
+             f"expected 0")
     layers = []
     for lname, args in _epilogue_cases(keep["engine"], keep["x"]):
         got, want = requant_epilogue(*args), requant_epilogue_ref(*args)
@@ -5691,6 +5711,190 @@ def serve_options(model, reqs, served, dev, seed, card, report) -> dict:
             "sampled": res["sampled"]["launches"], f"slots_{SLOTS_B}": res["slots_b"]["launches"]}
 
 
+# ---------------------------------------------------------------- phase 25
+
+
+# MobileNetV2 W8A8 at the batch of its benchmark cell
+MOBILENET_BATCH = 1024
+# MobileNetV2's engine against its fake-quant model: FQ_TOL's cause over 52
+# quantized convs whose ReLU6 caps carry an edge-rounded code further. The
+# benchmark's plain reference, equal to the fake-quant model to 1e-5
+# (tests/test_torch_mobilenet_v2.py), reads the engine 0.17 to 0.23 of the
+# largest logit away at most over 8,192 rows (PERF.md, the MobileNetV2 cell)
+MOBILENET_FQ_TOL = 0.4
+# calls a device reading of one depthwise layer, each route
+DWCONV_ITERS = 20
+
+
+def _conv_kinds(convs):
+    """Each ``IntConv2d`` of MobileNetV2 in order -> its part: the stem,
+    an expansion (the conv before a depthwise one), the depthwise conv, a
+    projection (the conv after it) or the head."""
+    kinds = []
+    for i, m in enumerate(convs):
+        nxt = convs[i + 1] if i + 1 < len(convs) else None
+        kinds.append("stem" if i == 0 else "depthwise" if m.depthwise
+                     else "expansion" if nxt is not None and nxt.depthwise
+                     else "projection" if convs[i - 1].depthwise else "head")
+    return kinds
+
+
+def _dwconv_cases(engine, x, dtypes=None):
+    """For each depthwise ``IntConv2d`` of ``engine`` in order, on its own
+    input in one forward of ``x`` (kept by a hook): its name, the module
+    and the operator's arguments over its int8 codes, as
+    ``IntConv2d.dwconv`` passes them. ``dtypes``, a list, receives every
+    conv's input dtype by its part (:func:`_conv_kinds`)."""
+    from micronet_tpu_torch.infer import engine as E
+    from micronet_tpu_torch.ops.dwconv import dw_weight
+
+    convs = [(n, m) for n, m in engine.named_modules() if isinstance(m, E.IntConv2d)]
+    kinds = _conv_kinds([m for _, m in convs])
+    inputs = {}
+    hooks = [m.register_forward_pre_hook(lambda mod, args: inputs.__setitem__(mod, args[0]))
+             for _, m in convs]
+    try:
+        engine(x)
+    finally:
+        for h in hooks:
+            h.remove()
+    if dtypes is not None:
+        dtypes.extend((k, str(inputs[m].dtype)[6:]) for k, (_, m) in zip(kinds, convs))
+    for (lname, m), kind in zip(convs, kinds):
+        x_in = inputs.pop(m)
+        if kind != "depthwise":
+            continue
+        x_q = x_in if x_in.dtype == torch.int8 else E._act_codes(
+            x_in, m.act_scale, m.act_zero_point, m.a_qmin, m.a_qmax, True)
+        wt = m._cached("_dw_cache", lambda: dw_weight(m._weights()))
+        yield lname, m, (x_q, wt, m.act_scale, m.w_scale, m.bias, m.out_scale, list(m.stride),
+                         list(m.padding), m.out_qmin, m.out_qmax, m.chained)
+
+
+def _block_diagonal(m, x_q):
+    """The route every other grouped conv takes, on the depthwise conv
+    ``m``: im2col, the int32 GEMM over the block-diagonal weight, the conv
+    epilogue; (N, Ho, Wo, C), the depthwise kernel's layout."""
+    return m._epilogue(m._int_acc_im2col(x_q), m.w_scale).permute(0, 2, 3, 1)
+
+
+def _dwconv_bound_ms(args, out) -> float:
+    """The larger of the layer's operations (2 x 9 MACs an output) over the
+    int8 peak and its bytes over 3.35 TB/s: int8 codes in once, the
+    weights once and int8 codes out once, whatever the route writes."""
+    x_q = args[0]
+    n, c, h, w = x_q.shape
+    ho, wo = out.shape[1:3]
+    ops = 2 * 9 * n * c * ho * wo
+    n_bytes = n * c * (h * w + ho * wo) + 9 * c
+    return max(ops / INT8_OPS_PER_S, n_bytes / HBM_BYTES_PER_S) * 1e3
+
+
+@torch.no_grad()
+def mobilenet_engine(dev, seed, report, profile_dir=None, later=None, keep=None):
+    """Phase 25: full-width ``mobilenet_v2()`` (CIFAR strides, 10 classes),
+    W8A8 with fused BN, through phase 9's engine path at batch 1,024.
+    Counts zeroed just before the engine forwards and read just after: the
+    depthwise kernel (``ops/dwconv.py``) once a depthwise conv, 17 a
+    forward; the conv epilogue once every other conv, 35; K1 once (the
+    classifier); nothing else. Then each depthwise conv on its own int8
+    input from one forward: the kernel equal bit for bit to its twin and
+    to the block-diagonal route (f32 outputs as int32), beside the layer's
+    bound; every depthwise conv and every projection must read int8 codes
+    (the chains). ``keep`` receives the engine and its input (the device
+    times, :func:`dwconv_device_times`)."""
+    from micronet_tpu_torch.infer import engine as E
+    from micronet_tpu_torch.models.mobilenet_v2 import mobilenet_v2
+    from micronet_tpu_torch.ops.dwconv import dwconv_int8, dwconv_int8_ref
+    from micronet_tpu_torch.quant.config import QuantConfig
+
+    name = "mobilenetv2_w8a8"
+    keep = {} if keep is None else keep
+    cfg = QuantConfig(a_bits=8, w_bits=8, bn_fuse=True, **EXACT)
+    torch.cuda.reset_peak_memory_stats()
+    launches, forwards = engine_path(name, mobilenet_v2, cfg, MOBILENET_BATCH, dev, seed, report,
+                                     profile_dir, later, keep=keep, fq_tol=MOBILENET_FQ_TOL)
+    res, engine = report[name], keep["engine"]
+    convs = [m for m in engine.modules() if isinstance(m, E.IntConv2d)]
+    n_dw = sum(m.depthwise for m in convs)
+    k1 = sum(isinstance(m, E.IntLinear) and m.symmetric and m.w_symmetric
+             for m in engine.modules())
+    want = {k.__name__: 0 for k in _all_kernels()}
+    want["int8_matmul_dequant"] = k1 * forwards
+    if (launches != want or n_dw != 17 or res["dwconv_launches"] != n_dw * forwards
+            or res["epilogue_launches"] != (len(convs) - n_dw) * forwards):
+        fail(f"{name}: launch counts {launches} (expected {want}), depthwise kernel "
+             f"{res['dwconv_launches']} and conv epilogue {res['epilogue_launches']} over "
+             f"{forwards} forwards of {n_dw} depthwise convs (17 expected) and "
+             f"{len(convs) - n_dw} others")
+    dtypes, layers = [], []
+    for lname, m, args in _dwconv_cases(engine, keep["x"], dtypes):
+        got = dwconv_int8(*args)
+        same = {}
+        for route, ref in (("twin", dwconv_int8_ref(*args)),
+                           ("block_diagonal", _block_diagonal(m, args[0]))):
+            a, b = (got, ref) if got.dtype != torch.float32 else (got.view(torch.int32),
+                                                                   ref.view(torch.int32))
+            same[route] = a.dtype == b.dtype and torch.equal(a, b)
+        n, c, h, _ = args[0].shape
+        layers.append(dict(layer=lname, c=c, h=h, stride=m.stride[0], out=str(got.dtype)[6:],
+                           nhwc_input=args[0].permute(0, 2, 3, 1).is_contiguous(),
+                           bound_ms=_dwconv_bound_ms(args, got),
+                           **{f"equal_{k}": v for k, v in same.items()}))
+        del got, args
+    chains = {}
+    for kind, dtype in dtypes:
+        chains.setdefault(kind, {}).setdefault(dtype, 0)
+        chains[kind][dtype] += 1
+    if not all(r["equal_twin"] and r["equal_block_diagonal"] for r in layers):
+        fail(f"{name}: depthwise kernel against its twin and the block-diagonal route: "
+             f"{[(r['layer'], r['equal_twin'], r['equal_block_diagonal']) for r in layers]}")
+    if set(chains["depthwise"]) != {"int8"} or set(chains["projection"]) != {"int8"}:
+        fail(f"{name}: conv inputs by part {chains}: every depthwise conv and projection "
+             f"should read int8 codes")
+    res.update(dwconv_layers=layers, conv_inputs=chains)
+    log(f"{name}: depthwise kernel {res['dwconv_launches']} launches over {forwards} forwards, "
+        f"equal bit for bit to its twin and to the block-diagonal route at all {n_dw} "
+        f"depthwise convs; conv inputs by part {chains}; peak {res['peak_gb']:.2f} GB")
+    return res["dwconv_launches"]
+
+
+@torch.no_grad()
+def dwconv_device_times(keep, report):
+    """Phase 25's depthwise convs on their own int8 inputs from one forward:
+    ms by events and device ms (``torch.profiler``) of the kernel and of
+    the block-diagonal route (:func:`_block_diagonal`), beside each
+    layer's bound. Returns the kernels line's ``dwconv_int8`` row's
+    fields: the sums over the 17 layers and the layers."""
+    from micronet_tpu_torch.ops.dwconv import dwconv_int8
+
+    layers = report["mobilenetv2_w8a8"]["dwconv_layers"]
+    for row, (_, m, args) in zip(layers, _dwconv_cases(keep["engine"], keep["x"])):
+        x_q = args[0]
+
+        def block_diagonal(x_q, m=m):
+            return _block_diagonal(m, x_q)
+
+        row.update(ms=time_ms(dwconv_int8, [args], DWCONV_ITERS),
+                   device_ms=device_ms(dwconv_int8, [args], DWCONV_ITERS),
+                   plain_ms=time_ms(block_diagonal, [(x_q,)], DWCONV_ITERS),
+                   plain_device_ms=device_ms(block_diagonal, [(x_q,)], DWCONV_ITERS))
+        del x_q, args
+        torch.cuda.empty_cache()
+    out = {key: sum(r[key] for r in layers)
+           for key in ("ms", "device_ms", "plain_ms", "plain_device_ms", "bound_ms")}
+    log(f"depthwise kernel, mobilenetv2_w8a8 at {MOBILENET_BATCH}: {len(layers)} layers, device "
+        f"{out['device_ms']:.4f} ms (events {out['ms']:.4f}), block-diagonal route device "
+        f"{out['plain_device_ms']:.4f} ms, bound {out['bound_ms']:.4f} ms "
+        f"({out['bound_ms'] / out['device_ms']:.1%} of it)")
+    for r in layers:
+        log(f"  {r['layer']:<36} C {r['c']:>4} H {r['h']:>2} s {r['stride']} -> {r['out']:<7} "
+            f"device {r['device_ms']:.4f} ms, block-diagonal {r['plain_device_ms']:.4f} ms, "
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_ms'] / r['device_ms']:.1%})")
+    out["layers"] = layers
+    return out
+
+
 def card_name() -> str:
     """Card 0's name and power limit, as ``nvidia-smi`` gives them."""
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -5783,6 +5987,8 @@ def main() -> int:
                                                     engines["resnet18_w8a8"])["int8_matmul_dequant"]
     nin_engine(dev, args.seed, report, profile_dir, later, engines["nin_gc_w4a4"])
     k1_phase23 = bottleneck_lenet_engines(dev, args.seed, report, profile_dir, later)
+    mnet = {}  # phase 25's engine, for its device times
+    mobilenet_engine(dev, args.seed, report, profile_dir, later, mnet)
     long_att = check_long_attention(dev, gen, report)
     launches.update({k: v for k, v in serve_long(dev, args.seed, card, report, profile_dir,
                                                  later).items()
@@ -5797,6 +6003,9 @@ def main() -> int:
               if k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err")}
     int8_device_times(dev, gen, report, k1_row, k2_row)
     epi = epilogue_device_times(engines, report)
+    dw = dwconv_device_times(mnet, report)
+    del mnet
+    torch.cuda.empty_cache()
     dec_kernels = decoder_kernel_times(dev, gen, report)
     # phase 19 runs here, before --profile's traces: after them, its replay
     # traces lost kernels
@@ -5948,6 +6157,18 @@ def main() -> int:
                  "operations) on the card; bound_ms M x O x (4 + 1) for int8 out, x (4 + 4) "
                  "for f32, at 3.35 TB/s; layers per conv",
              **epi),
+        dict(name="dwconv_int8", route="cuda", source=src + "dwconv_int8.cu",
+             replaces="micronet_tpu/infer/engine.py:319 (a grouped conv through XLA; the "
+                      "port's other grouped convs run one GEMM over a block-diagonal weight)",
+             launches=report["mobilenetv2_w8a8"]["dwconv_launches"],
+             per=f"the 17 depthwise convs of one MobileNetV2 W8A8 forward at batch "
+                 f"{MOBILENET_BATCH}, summed, each on its own int8 input from phase 25's main "
+                 f"path; launches over its {ENGINE_ITERS + 1} forwards; {DWCONV_ITERS} calls "
+                 "a layer; plain_* is the block-diagonal route on the same input (im2col, "
+                 "torch._int_mm over the block-diagonal weight, the conv epilogue); bound_ms "
+                 "per layer the larger of 2 x MACs at 1,979 TOP/s and int8 codes in and out "
+                 "once and the weights once at 3.35 TB/s; layers per conv",
+             **dw),
     ]
     report["kernels"] = rows
     report["device_ms_retries"] = TRACE_RETRIES

@@ -49,6 +49,14 @@ hand-written kernel over the GEMM's (M, O) rows, as XLA fuses the JAX
 package's, on the CPU its plain twin; both give the chain's bits, which
 every other layer runs.
 
+A symmetric 3 x 3 depthwise ``IntConv2d`` (groups = C_in = C_out,
+dilation 1: :attr:`IntConv2d.depthwise`) takes a route of its own, the
+operator ``ops/dwconv.py::dwconv_int8``: on the card one hand-written
+kernel computes the exact accumulator and the same epilogue, on the CPU
+its twin (the f64 convolution, then the epilogue's twin). Its bits are
+the block-diagonal route's, without its C-fold work. Every other grouped
+conv keeps the block-diagonal GEMM.
+
 The JAX package's bf16-codes lowering is a TPU choice; here both integer
 routes are exact at any window size. A symmetric ``IntLinear`` runs the
 hand-written kernel K1 (``ops/int_matmul.py::int8_matmul_dequant``); an
@@ -66,7 +74,8 @@ off by default): ``int.quantize`` (activation codes), ``int.im2col`` (the
 patch matrix and its padding), ``int.gemm`` (the integer products, the
 first layer's f32 matmul, K1), ``int.epilogue`` (the accumulator's cast,
 scale, bias, correction terms and requant, on the card one kernel for a
-symmetric conv; the adds' and concats' codes) and ``int.pool``. The
+symmetric conv; the adds' and concats' codes), ``int.dwconv`` (the
+depthwise route, its epilogue included) and ``int.pool``. The
 models' channel shuffle, which no module holds, records ``fn.shuffle``
 (``nn/functional.py``). They run in an eager
 forward and in a CUDA graph's capture, not in its replay.
@@ -90,6 +99,7 @@ from ..nn import functional as F
 from ..nn import modules as M
 from ..nn import qat_iao, qat_wbwtab
 from ..nn.transform import _children, _copy_model
+from ..ops.dwconv import dw_weight, dwconv_int8
 from ..ops.int4_matmul import pack_int4, unpack_int4
 from ..ops.int_matmul import int8_linear
 from ..ops.requant_epilogue import requant, requant_epilogue
@@ -217,33 +227,38 @@ class _IntConvRoutes(nn.Module):
         """The input of the convolution the GEMM runs."""
         return x
 
+    def _cached(self, slot: str, build) -> torch.Tensor:
+        """``build()``, a weight laid out from the stored codes, kept in the
+        attribute ``slot`` until the codes move or are written in place.
+        Under ``torch.export`` (fake tensors, no data pointer) it is built
+        in the traced graph instead, from the codes the program embeds."""
+        if torch.compiler.is_compiling():
+            return build()
+        codes = self._codes()
+        key = (codes.data_ptr(), codes.device, codes._version)
+        cache = getattr(self, slot)
+        if cache is None or cache[0] != key:
+            cache = (key, build())
+            setattr(self, slot, cache)
+        return cache[1]
+
     def _gemm_weight(self) -> torch.Tensor:
         """(O, kh*kw*C) int8: row o holds output channel o's codes in im2col
-        (kh, kw, c) order over ALL input channels, zero outside its group.
-        Built once and kept until the stored codes move or are written in
-        place. Under ``torch.export`` (fake tensors, no data pointer) it is
-        built in the traced graph instead, from the codes the program
-        embeds."""
-        codes = self._codes()
-        tracing = torch.compiler.is_compiling()
-        if not tracing:
-            key = (codes.data_ptr(), codes.device, codes._version)
-            if self._gemm_cache is not None and self._gemm_cache[0] == key:
-                return self._gemm_cache[1]
+        (kh, kw, c) order over ALL input channels, zero outside its group
+        (kept, :meth:`_cached`)."""
+        return self._cached("_gemm_cache", self._build_gemm_weight)
+
+    def _build_gemm_weight(self) -> torch.Tensor:
         co, cg, kh, kw = self.w_shape
         g = self.groups
         og = co // g
         w = self._weights_hwio().permute(3, 0, 1, 2)  # (O, kh, kw, cg)
         if g == 1:
-            full = w.reshape(co, kh * kw * cg).contiguous()
-        else:
-            full = torch.zeros((g, og, kh, kw, g, cg), dtype=torch.int8, device=w.device)
-            for i in range(g):
-                full[i, :, :, :, i, :] = w[i * og:(i + 1) * og]
-            full = full.reshape(co, kh * kw * g * cg)
-        if not tracing:
-            self._gemm_cache = (key, full)
-        return full
+            return w.reshape(co, kh * kw * cg).contiguous()
+        full = torch.zeros((g, og, kh, kw, g, cg), dtype=torch.int8, device=w.device)
+        for i in range(g):
+            full[i, :, :, :, i, :] = w[i * og:(i + 1) * og]
+        return full.reshape(co, kh * kw * g * cg)
 
     def _im2col(self, x: torch.Tensor) -> Tuple[torch.Tensor, Tuple[int, int, int]]:
         """(N, C, H, W) -> the (N*Ho*Wo, kh*kw*C) patch matrix in (kh, kw, c)
@@ -391,6 +406,16 @@ class IntConv2d(_IntConvRoutes):
         # (symmetric activations and weights only)
         self.f32_dequant = groups == 1 and self.w_shape[1] < 8
         self._gemm_cache: Optional[Tuple[Tuple, torch.Tensor]] = None
+        self._dw_cache: Optional[Tuple[Tuple, torch.Tensor]] = None
+
+    @property
+    def depthwise(self) -> bool:
+        """Whether the conv takes the depthwise route (``ops/dwconv.py``):
+        symmetric activations and weights, groups = C_in = C_out > 1, a
+        3 x 3 kernel, dilation 1."""
+        co, cg, kh, kw = self.w_shape
+        return (self.symmetric and self.w_symmetric and self.groups > 1 and co == self.groups
+                and cg == 1 and (kh, kw) == (3, 3) and tuple(self.dilation) == (1, 1))
 
     def _codes(self) -> torch.Tensor:
         return self.w_q
@@ -422,6 +447,17 @@ class IntConv2d(_IntConvRoutes):
                                self.out_scale, self.out_qmin, self.out_qmax, self.chained)
         return out.reshape(n, h, w, co).permute(0, 3, 1, 2)
 
+    def dwconv(self, x_q: torch.Tensor) -> torch.Tensor:
+        """The depthwise route: the accumulator and the epilogue in one
+        operator, ``ops/dwconv.py::dwconv_int8`` (the kernel on the card,
+        the f64 convolution and the epilogue's twin on the CPU), over its
+        (C, 3, 4) weight (kept, :meth:`_cached`). The output is an NCHW
+        view of NHWC memory, as :meth:`_epilogue`'s."""
+        wt = self._cached("_dw_cache", lambda: dw_weight(self._weights()))
+        out = dwconv_int8(x_q, wt, self.act_scale, self.w_scale, self.bias, self.out_scale,
+                          self.stride, self.padding, self.out_qmin, self.out_qmax, self.chained)
+        return out.permute(0, 3, 1, 2)
+
     def dequant_conv(self, x_q: torch.Tensor) -> torch.Tensor:
         """The first layer's route: f32 conv over the dequantized codes. On
         the card it is im2col and one f32 matmul with TF32 off for the call
@@ -446,6 +482,9 @@ class IntConv2d(_IntConvRoutes):
         else:
             x_q = _act_codes(x, s_x, self.act_zero_point, self.a_qmin, self.a_qmax,
                              self.symmetric)
+        if self.depthwise:
+            with span("int.dwconv"):
+                return self.dwconv(x_q)
         if self.symmetric and self.w_symmetric:
             if self.f32_dequant:
                 acc, w_scale = self.dequant_conv(x_q), None
@@ -851,7 +890,7 @@ def freeze_int(model: nn.Module, *, inplace: bool = False, chain_int8: bool = Tr
 
     With ``chain_int8`` the planner wires each emitter's requantizing
     epilogue to the next quantized layer's activation scale wherever only
-    order-preserving modules (ReLU, MaxPool, Identity, Flatten) sit
+    order-preserving modules (ReLU, ReLU6, MaxPool, Identity, Flatten) sit
     between them. Pass ``example_input`` (NHWC, batch may be 1) to trace
     the real dataflow, which branching graphs need: residual adds and
     concats then chain through :class:`IntAdd` and :class:`IntConcat`.
@@ -880,8 +919,9 @@ def freeze_int(model: nn.Module, *, inplace: bool = False, chain_int8: bool = Tr
 
 # passthrough modules between chain links, exact on symmetric int8 codes:
 # ReLU keeps zero at code 0, max-pool is order-preserving, Identity and
-# Flatten move memory only
-_PASSTHROUGH = (M.ReLU, M.MaxPool2d, M.Identity, M.Flatten)
+# Flatten move memory only; ReLU6's clamp folds into the emitter's
+# (:func:`_link`)
+_PASSTHROUGH = (M.ReLU, M.ReLU6, M.MaxPool2d, M.Identity, M.Flatten)
 
 
 def _is_emitter(m) -> bool:
@@ -897,11 +937,25 @@ def _is_receiver(m) -> bool:
 
 
 @torch.no_grad()
-def _link(emitter, receiver) -> None:
+def _link(emitter, receiver, between=()) -> None:
+    """Chain ``emitter`` to ``receiver`` through the passthrough modules
+    ``between``. A ReLU6 among them folds into the emitter's clamp: codes
+    at the receiver's scale ``s`` clamp to ``[0, min(qmax, code(6))]``,
+    ``code(6) = round_half_away(6 / s)`` as the requant computes it, which
+    is the receiver's code of the clamped value (rounding and a positive
+    scale keep the order), so the ReLU6 passes the codes on as they
+    are."""
     emitter.chained = True
     emitter.out_scale.copy_(receiver.act_scale)
     emitter.out_qmin = receiver.a_qmin
     emitter.out_qmax = receiver.a_qmax
+    relu6 = [m for m in between if isinstance(m, M.ReLU6)]
+    if relu6:
+        six = torch.full((), 6.0, device=receiver.act_scale.device)
+        top = int(requant(six, receiver.act_scale, 0.0, receiver.a_qmax))
+        emitter.out_qmin, emitter.out_qmax = max(receiver.a_qmin, 0.0), float(top)
+        for m in relu6:
+            m.code_max = top
 
 
 def _plan_chains_leaf_order(model: nn.Module) -> None:
@@ -929,7 +983,7 @@ def _plan_chains_leaf_order(model: nn.Module) -> None:
             while j < len(ordered) and isinstance(ordered[j], _PASSTHROUGH):
                 j += 1
             if j < len(ordered) and _is_receiver(ordered[j]):
-                _link(cur, ordered[j])
+                _link(cur, ordered[j], ordered[i + 1:j])
 
 
 def _plan_chains_dataflow(model: nn.Module, example_input: torch.Tensor) -> None:
@@ -937,7 +991,8 @@ def _plan_chains_dataflow(model: nn.Module, example_input: torch.Tensor) -> None
     feeds exactly one receiver (directly or through passthrough modules).
     Each producer into an IntAdd or IntConcat requantizes to its shared
     scale independently; an output that fans out to several consumers
-    stays f32."""
+    stays f32, and so does one that reaches its receiver through a ReLU6
+    on other than a single path (the clamp folds into the emitter)."""
     from .dataflow import trace_dataflow
 
     node_types = [
@@ -955,12 +1010,15 @@ def _plan_chains_dataflow(model: nn.Module, example_input: torch.Tensor) -> None
     counts = trace.call_counts()
 
     def effective_receivers(m):
-        """Non-passthrough consumers reached through passthrough modules;
-        None when an output escapes the traced graph (then no chain)."""
+        """Non-passthrough consumers reached through passthrough modules,
+        the passthrough modules passed, and whether the way is a single
+        path; None when an output escapes the traced graph (then no
+        chain)."""
         direct = consumers.get(id(m), [])
         if not direct:
             return None
-        seen, out, stack = set(), [], list(direct)
+        seen, out, between, stack = set(), [], [], list(direct)
+        single = len(direct) == 1
         while stack:
             v = stack.pop()
             if id(v) in seen:
@@ -970,10 +1028,12 @@ def _plan_chains_dataflow(model: nn.Module, example_input: torch.Tensor) -> None
                 nxt = consumers.get(id(v), [])
                 if not nxt:
                     return None
+                between.append(v)
+                single = single and len(nxt) == 1
                 stack.extend(nxt)
             else:
                 out.append(v)
-        return out
+        return out, between, single
 
     uniq = {}
     for mod, _ in trace.calls:
@@ -982,11 +1042,16 @@ def _plan_chains_dataflow(model: nn.Module, example_input: torch.Tensor) -> None
         # a module called more than once would need one scale per call
         if not _is_emitter(m) or counts[id(m)] != 1:
             continue
-        recv = effective_receivers(m)
-        if recv is None or len(recv) != 1 or recv[0] is m:
+        found = effective_receivers(m)
+        if found is None:
+            continue
+        recv, between, single = found
+        if len(recv) != 1 or recv[0] is m:
+            continue
+        if any(isinstance(v, M.ReLU6) for v in between) and not single:
             continue
         if _is_receiver(recv[0]):
-            _link(m, recv[0])
+            _link(m, recv[0], between)
 
 
 # --------------------------------------------------------------------------

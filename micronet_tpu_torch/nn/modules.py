@@ -35,6 +35,7 @@ __all__ = [
     "Linear",
     "BatchNorm2d",
     "ReLU",
+    "ReLU6",
     "LeakyReLU",
     "Sigmoid",
     "MaxPool2d",
@@ -186,6 +187,26 @@ class ReLU(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return torch.relu(x)
+
+
+class ReLU6(nn.Module):
+    """``min(max(x, 0), 6)`` (MobileNetV2's activation). ``prepare`` leaves
+    it alone, as it leaves ``ReLU``. In the integer engine an int8 chain
+    may run through it: the chain planner (``infer/engine.py::_link``)
+    folds the clamp into the emitter's, whose codes at the receiver's scale
+    then lie in ``[0, code_max]``, ``code_max`` the code of 6 there, and
+    sets ``code_max``; the codes pass through as they are."""
+
+    def __init__(self):
+        super().__init__()
+        self.code_max: Optional[int] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dtype != torch.int8:
+            return torch.clamp(x, 0.0, 6.0)
+        if self.code_max is None:
+            raise RuntimeError("ReLU6 got int8 codes, but no chain planner folded its clamp")
+        return x
 
 
 class LeakyReLU(nn.Module):

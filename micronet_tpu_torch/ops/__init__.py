@@ -4,10 +4,11 @@ The JAX package's ops surface, with each XLA oracle ``*_xla`` under its
 twin's name ``*_ref``: ``int8_matmul_dequant_ref`` in place of
 ``int8_matmul_dequant_xla``. Beside it, the module ``requant_epilogue``
 holds the integer engine's one-pass conv epilogue, which has no TPU kernel
-(XLA fuses it there). Importing this package registers the operators
-(``torch.ops.micronet_tpu_torch``)."""
+(XLA fuses it there), and the module ``dwconv`` its 3 x 3 depthwise conv
+(the JAX package runs it as a block-diagonal GEMM). Importing this package
+registers the operators (``torch.ops.micronet_tpu_torch``)."""
 
-from . import requant_epilogue  # noqa: F401  (registers its operator)
+from . import dwconv, requant_epilogue  # noqa: F401  (register their operators)
 from .int_matmul import (binary_act_matmul, int8_linear, int8_matmul_dequant,
                          int8_matmul_dequant_ref, quantize_int8)
 

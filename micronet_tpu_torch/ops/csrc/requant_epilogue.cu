@@ -18,10 +18,9 @@
 //   q = sign(t) * floor(|t| + 0.5)     round half away,
 //   out = int8(clamp(q, qmin, qmax))   int8 (M, O)
 //
-// Every multiply, add and divide is written __fmul_rn, __fadd_rn or __fdiv_rn: the build leaves
-// --fmad on, and a contracted FMA (or a reciprocal multiply) would move codes at .5 edges, so
-// the kernel gives the twin's bits. The three variants (int32 or f32 in, with or without bias,
-// int8 or f32 out) are template flags of one body.
+// Every multiply, add and divide is written __fmul_rn, __fadd_rn or __fdiv_rn (csrc/requant.cuh,
+// shared with the depthwise kernel), so the kernel gives the twin's bits. The three variants
+// (int32 or f32 in, with or without bias, int8 or f32 out) are template flags of one body.
 //
 // Bytes bound it: 4 bytes in and 1 (or 4) out an element, no reuse (NIN-GC W4A4 at batch 1,024
 // moves 6.7 GB a forward: 2.0 ms at 3.35 TB/s). So no tensor cores, TMA or shared memory:
@@ -38,7 +37,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "requant.cuh"
+
 namespace {
+
+using mn_requant::channel_scale;
+using mn_requant::requant;
+using mn_requant::value;
 
 constexpr int kThreads = 256;
 constexpr int kUnroll = 4;
@@ -55,31 +60,6 @@ struct Params {
   int o;
   float qmin, qmax;
 };
-
-// f32(acc), times the channel's scale s_x * w_scale[o] for an int32 acc; an f32 acc (the
-// first layer's f32 GEMM, already scaled) is taken as it is
-__device__ __forceinline__ float scaled(int a, float sc) {
-  return __fmul_rn(__int2float_rn(a), sc);
-}
-__device__ __forceinline__ float scaled(float a, float) { return a; }
-
-template <typename In, bool kBias>
-__device__ __forceinline__ float value(In a, float sc, float b) {
-  const float v = scaled(a, sc);
-  return kBias ? __fadd_rn(v, b) : v;
-}
-
-// clamp(sign(t) * floor(|t| + 0.5), qmin, qmax) as int8, t = v / out_scale
-__device__ __forceinline__ int requant(float v, float s, float qmin, float qmax) {
-  const float t = __fdiv_rn(v, s);
-  const float r = floorf(__fadd_rn(fabsf(t), 0.5f));
-  const float q = t > 0.f ? r : (t < 0.f ? -r : 0.f);
-  return __float2int_rz(fminf(fmaxf(q, qmin), qmax));
-}
-
-__device__ __forceinline__ float channel_scale(const Params& p, float s_x, int c) {
-  return p.w_scale == nullptr ? 0.f : __fmul_rn(s_x, __ldg(p.w_scale + c));
-}
 
 template <typename In>
 struct Vec4;
@@ -106,7 +86,7 @@ __global__ void __launch_bounds__(kThreads) requant_epilogue_kernel(Params p) {
   float sc[4], b[4];
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
-    sc[j] = channel_scale(p, s_x, c + j);
+    sc[j] = channel_scale(s_x, p.w_scale, c + j);
     b[j] = kBias ? __ldg(p.bias + c + j) : 0.f;
   }
   const In* acc = static_cast<const In*>(p.acc);
@@ -149,7 +129,7 @@ __global__ void __launch_bounds__(kThreads) requant_epilogue_scalar_kernel(Param
        i += (long long)gridDim.x * kThreads) {
     const long long r = i / p.o;
     const int c = (int)(i - r * p.o);
-    const float v = value<In, kBias>(__ldg(acc + r * p.ld + c), channel_scale(p, s_x, c),
+    const float v = value<In, kBias>(__ldg(acc + r * p.ld + c), channel_scale(s_x, p.w_scale, c),
                                      kBias ? __ldg(p.bias + c) : 0.f);
     if (kChained) {
       static_cast<int8_t*>(p.out)[i] = (int8_t)requant(v, s_out, p.qmin, p.qmax);

@@ -94,6 +94,29 @@ def test_compiled_engine_matches_eager_and_jax(engines, n):
     assert np.array_equal(got.numpy().argmax(-1)[decided], ref.argmax(-1)[decided])
 
 
+def test_results_are_copies_cut_from_shared_blocks():
+    """A replay's result (``ResultBlocks.take``): a copy, unchanged when
+    the source is written again; results of one dtype share a block,
+    aligned, until it is full; another dtype, or a result larger than a
+    block, gets a block of its own."""
+    blocks = deploy.ResultBlocks()
+    src = torch.randn(1024, 10)
+    per_block = deploy.RESULT_BLOCK_BYTES // src.nbytes
+    outs = []
+    for _ in range(per_block + 1):
+        outs.append((src.clone(), blocks.take(src)))
+        src.normal_()
+    assert all(torch.equal(want, got) for want, got in outs)
+    assert all(got.shape == src.shape and got.is_contiguous() for _, got in outs)
+    storages = [got.untyped_storage().data_ptr() for _, got in outs]
+    assert len(set(storages[:per_block])) == 1 and storages[-1] != storages[0]
+    assert all(got.storage_offset() * 4 % deploy.RESULT_ALIGN_BYTES == 0 for _, got in outs)
+    codes = blocks.take(torch.ones(3, 5, dtype=torch.int8))
+    assert codes.dtype == torch.int8 and codes.untyped_storage().data_ptr() != storages[-1]
+    big = torch.randn(deploy.RESULT_BLOCK_BYTES // 4 + 7)
+    assert torch.equal(blocks.take(big), big)
+
+
 def test_buckets_and_opt_bucket(engines):
     assert engines["tcompiled"].buckets == engines["jcompiled"].buckets == (1, 2, 4, 8)
     assert 3 in build_engine(engines["teng"], profile=(1, 3, 8), device="cpu").buckets
