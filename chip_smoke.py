@@ -63,7 +63,12 @@ Phases, each fatal on failure (non-zero exit, no final line):
    accumulator rows from one forward (its input kept by a hook) through
    the conv epilogue's wrapper and its twin on the card: equal bit for
    bit (f32 outputs as int32), the strided 10-of-16 slice of NIN-GC's
-   last conv too;
+   last conv too. The patch gathers (``ops/patch_gather.py``) launch 20
+   and 9 times a forward (ResNet-18: the stem's f32 patches, 16 3 x 3
+   convs, 3 strided shortcuts; NIN-GC: the stem, two 3 x 3 convs, six
+   int8 shuffles), and each call of one forward, on its own input (kept
+   by wrapping the engine's calls), equals its twin bit for bit and reads
+   NHWC-backed codes (no NHWC copy);
 10. long-context kernels: K4b and K5b (the blocked wrappers; the cluster
    regime at S = 8192) against their twins at G = 64, R = 4, D = 128,
    S = 8192 with bounds 0..8192; K4b at bound b equal to K5b at b + 1 bit
@@ -96,7 +101,10 @@ Phases, each fatal on failure (non-zero exit, no final line):
    forced) beside ``torch._int_mm``'s on codes, and the conv epilogue's
    at every symmetric conv of phase 9's engines beside its twin's and
    the bytes bound, M x O x (4 + 1) for int8 out and x (4 + 4) for f32
-   (the kernels line's ``requant_epilogue`` row; after the serving
+   (the kernels line's ``requant_epilogue`` row), and the patch gathers'
+   at every call of phase 9's and 25's engines beside their twins' and
+   the bytes bound, the input read once and the output written once (the
+   ``patch_gather`` row; after the serving
    phases, so that no profiler session runs before those; a trace that
    lost kernels is taken again with longer quiet pads around the calls,
    and is fatal after five);
@@ -172,7 +180,8 @@ Phases, each fatal on failure (non-zero exit, no final line):
    requests (K1 one launch per capture, none per replay), and by
    ``torch.profiler`` one K1 kernel in each ResNet-18 replay, none in
    NIN-GC's, and in each replay one conv epilogue kernel a symmetric conv
-   (20 and 9) and no other hand-written kernel; per bucket the eager
+   (20 and 9), phase 9's patch gathers of a forward (20 and 9) and no
+   other hand-written kernel; per bucket the eager
    forward's ms, the replay's, a call's img/s and the capture's seconds.
    The ResNet-18
    engine through ``serialize_engine`` at batch 512 and
@@ -284,7 +293,8 @@ Phases, each fatal on failure (non-zero exit, no final line):
    and the block-diagonal route (im2col, the int32 GEMM over the
    block-diagonal weight, the conv epilogue): equal bit for bit (f32
    outputs as int32); every depthwise conv and projection reads int8
-   codes. After phase 12's device readings, each layer's device time on
+   codes; the patch gathers once a forward (the stem), equal to the twin.
+   After phase 12's device readings, each layer's device time on
    the kernel and on the block-diagonal route beside its bound (the
    kernels line's ``dwconv_int8`` row). It runs after phase 23;
 26. the kernels line (JSON), then the final line
@@ -1353,6 +1363,7 @@ def engine_path(name, build, cfg, batch, dev, seed, report, profile_dir=None, la
 
     from micronet_tpu_torch.infer import freeze_int, fuse_bn_iao
     from micronet_tpu_torch.nn import eval_mode, prepare, train_mode
+    from micronet_tpu_torch.ops import patch_gather
     from micronet_tpu_torch.ops.dwconv import dwconv_int8
     from micronet_tpu_torch.ops.requant_epilogue import requant_epilogue
 
@@ -1371,13 +1382,14 @@ def engine_path(name, build, cfg, batch, dev, seed, report, profile_dir=None, la
     chained = [n for n, m in engine.named_modules() if getattr(m, "chained", False)]
 
     kernels = _all_kernels()
-    for kern in kernels + (requant_epilogue, dwconv_int8):
+    for kern in kernels + (requant_epilogue, dwconv_int8, patch_gather):
         kern.launches = 0
     # -- the main path: engine forwards --------------------------------
     out = engine(x)
     engine_ms = _forward_ms(engine, x, ENGINE_ITERS)
     launches = {kern.__name__: kern.launches for kern in kernels}
     epilogues, dwconvs = requant_epilogue.launches, dwconv_int8.launches
+    patches = patch_gather.launches
     # ------------------------------------------------------------------
     forwards = 1 + ENGINE_ITERS
     if tuple(out.shape) != (batch, 10) or not torch.isfinite(out).all():
@@ -1405,7 +1417,8 @@ def engine_path(name, build, cfg, batch, dev, seed, report, profile_dir=None, la
         diff = _agree(f"{name}: engine on the card vs on the CPU", out[:CPU_BATCH].cpu(), ref,
                       CARD_CPU_TOL)
     res = dict(batch=batch, setup_s=setup_s, chained_layers=len(chained), launches=launches,
-               epilogue_launches=epilogues, dwconv_launches=dwconvs, forwards=forwards,
+               epilogue_launches=epilogues, dwconv_launches=dwconvs, patch_launches=patches,
+               forwards=forwards,
                engine_ms=engine_ms, engine_img_s=batch / engine_ms * 1e3,
                fp32_ms=fp32_ms, fp32_img_s=batch / fp32_ms * 1e3,
                engine_vs_fake_quant_max_abs=fq_diff, engine_vs_fake_quant_argmax_agree=fq_agree,
@@ -1415,7 +1428,8 @@ def engine_path(name, build, cfg, batch, dev, seed, report, profile_dir=None, la
     log(f"{name}: setup {setup_s:.1f} s, {len(chained)} chained layers; engine at batch "
         f"{batch}: {engine_ms:.2f} ms = {res['engine_img_s']:.0f} img/s, port fp32 eval "
         f"(TF32 off) {fp32_ms:.2f} ms = {res['fp32_img_s']:.0f} img/s; launches {launches}, "
-        f"conv epilogue {epilogues}, depthwise {dwconvs}, over {forwards} forwards")
+        f"conv epilogue {epilogues}, depthwise {dwconvs}, patch gathers {patches}, over "
+        f"{forwards} forwards")
     log(f"{name}: on {CPU_BATCH} images, engine vs its fake-quant model max|diff| "
         f"{fq_diff:.3e}, engine on the card vs on the CPU max|diff| {diff:.3e}; argmax "
         f"agreement with the fake-quant model over the batch {fq_agree:.4f}")
@@ -1465,6 +1479,7 @@ def resnet_engine(dev, seed, report, profile_dir=None, later=None, keep=None):
     if launches != want:
         fail(f"resnet18_w8a8: launch counts {launches}, expected {want}")
     _check_epilogues("resnet18_w8a8", report, 20, keep)
+    _check_patches("resnet18_w8a8", report, 20, keep)
     return launches
 
 
@@ -1536,6 +1551,121 @@ def nin_engine(dev, seed, report, profile_dir=None, later=None, keep=None):
     engine_path("nin_gc_w4a4", Net, QuantConfig(a_bits=4, w_bits=4, bn_fuse=True, **EXACT),
                 NIN_BATCH, dev, seed, report, profile_dir, later, keep=keep)
     _check_epilogues("nin_gc_w4a4", report, 9, keep)
+    _check_patches("nin_gc_w4a4", report, 9, keep)
+
+
+PATCH_ITERS = 20
+
+
+@torch.no_grad()
+def _patch_cases(engine, x):
+    """Every patch-gather call of one forward of ``engine`` on ``x``, in
+    order, on its own input (kept by wrapping the engine's
+    ``patch_matrix`` and the models' ``patch_shuffle``): ``(name,
+    args)``, ``name`` the wrapper's in ``ops/patch_gather.py``."""
+    from micronet_tpu_torch.infer import engine as E
+    from micronet_tpu_torch.nn import functional as F
+    from micronet_tpu_torch.ops import patch_gather as PG
+
+    calls = []
+
+    def matrix(x, kernel, stride, padding, dilation, scale=None):
+        calls.append(("patch_matrix", (x, tuple(kernel), tuple(stride), tuple(padding),
+                                       tuple(dilation), scale)))
+        return PG.patch_matrix(x, kernel, stride, padding, dilation, scale)
+
+    def shuffle(x, groups):
+        calls.append(("patch_shuffle", (x, groups)))
+        return PG.patch_shuffle(x, groups)
+
+    E.patch_matrix, F.patch_shuffle = matrix, shuffle
+    try:
+        engine(x)
+    finally:
+        E.patch_matrix, F.patch_shuffle = PG.patch_matrix, PG.patch_shuffle
+    return calls
+
+
+def _patch_layer(kind, args, out):
+    """A patch-gather call's shape, output type and bytes bound: its input
+    read once (the codes its patches touch: a strided 1 x 1 conv's quarter
+    of them) and its output written once at 3.35 TB/s."""
+    x = args[0]
+    n, c, h, w = x.shape
+    what = (f"{args[1][0]}x{args[1][1]} s{args[2][0]} p{args[3][0]} d{args[4][0]}"
+            if kind == "patch_matrix" else f"g{args[1]}")
+    nbytes = min(x.numel(), out.numel()) * x.element_size() + out.numel() * out.element_size()
+    return dict(kind=kind, n=n, c=c, h=h, w=w, what=what, out=str(out.dtype)[6:],
+                nhwc_input=x.permute(0, 2, 3, 1).is_contiguous(),
+                bound_ms=nbytes / HBM_BYTES_PER_S * 1e3)
+
+
+@torch.no_grad()
+def _check_patches(name, report, calls, keep):
+    """Fail unless the patch gathers launched ``calls`` times a forward on
+    the main path, and unless each call of one forward, on its own input,
+    equals its twin on the card bit for bit (f32 as int32) and read
+    NHWC-backed codes (the wrapper made no NHWC copy)."""
+    from micronet_tpu_torch.ops import patch_gather as PG
+
+    res = report[name]
+    if res["patch_launches"] != calls * res["forwards"]:
+        fail(f"{name}: patch gathers launched {res['patch_launches']} times, expected "
+             f"{calls} x {res['forwards']} forwards")
+    layers = []
+    for kind, args in _patch_cases(keep["engine"], keep["x"]):
+        got, want = getattr(PG, kind)(*args), getattr(PG, f"{kind}_ref")(*args)
+        row = _patch_layer(kind, args, got)
+        if got.dtype == torch.float32:
+            got, want = got.view(torch.int32), want.view(torch.int32)
+        row["equal"] = bool(got.shape == want.shape and torch.equal(got, want))
+        layers.append(row)
+        del got, want, args
+    if (len(layers) != calls or not all(r["equal"] for r in layers)
+            or not all(r["nhwc_input"] for r in layers)):
+        fail(f"{name}: patch gathers against their twins: "
+             f"{[(r['kind'], r['what'], r['equal'], r['nhwc_input']) for r in layers]}, "
+             f"expected {calls} calls, all equal, all on NHWC-backed codes")
+    res["patch_layers"] = layers
+    log(f"{name}: patch gathers equal to their twins bit for bit at all {calls} calls of a "
+        f"forward, every one on NHWC-backed codes")
+
+
+@torch.no_grad()
+def patch_device_times(nets, report):
+    """The patch gathers (``ops/patch_gather.py``) at every call of one
+    forward of phase 9's and 25's engines, on its own input: ms by events
+    and device ms (``torch.profiler``) of the wrapper and of its twin on
+    the card (PyTorch's pad and unfold copies, or the shuffle's reshape
+    and transpose), beside the bytes bound. Returns the kernels line's
+    ``patch_gather`` row's fields: each net's sums and its layers."""
+    from micronet_tpu_torch.ops import patch_gather as PG
+
+    out = {}
+    for name, keep in nets.items():
+        layers = report[name]["patch_layers"]
+        for row, (kind, args) in zip(layers, _patch_cases(keep["engine"], keep["x"])):
+            fn, twin = getattr(PG, kind), getattr(PG, f"{kind}_ref")
+            row.update(ms=time_ms(fn, [args], PATCH_ITERS),
+                       device_ms=device_ms(fn, [args], PATCH_ITERS),
+                       plain_ms=time_ms(twin, [args], PATCH_ITERS),
+                       plain_device_ms=device_ms(twin, [args], PATCH_ITERS))
+            del args
+        net = {key: sum(r[key] for r in layers)
+               for key in ("ms", "device_ms", "plain_ms", "plain_device_ms", "bound_ms")}
+        net.update(launches_main_path=report[name]["patch_launches"], layers=layers)
+        out[name] = net
+        log(f"patch gathers, {name}: {len(layers)} calls a forward, device "
+            f"{net['device_ms']:.4f} ms (events {net['ms']:.4f}), twin device "
+            f"{net['plain_device_ms']:.4f} ms, bound {net['bound_ms']:.4f} ms "
+            f"({net['bound_ms'] / net['device_ms']:.1%} of it)")
+        for r in layers:
+            log(f"  {r['kind']:<13} {r['what']:<14} N {r['n']:>5} C {r['c']:>5} H {r['h']:>3} "
+                f"-> {r['out']:<7} device {r['device_ms']:.4f} ms, twin "
+                f"{r['plain_device_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+                f"({r['bound_ms'] / r['device_ms']:.1%})")
+        torch.cuda.empty_cache()
+    return out
 
 
 # ---------------------------------------------------------------- phase 10
@@ -3261,6 +3391,8 @@ DEPLOY_PROFILES = {"resnet18_w8a8": (1, 64, RESNET_BATCH), "nin_gc_w4a4": (1, 25
 DEPLOY_REQUESTS = (1, 5, 64, 300)
 K1_KERNEL = "int8_small_kernel"  # K1's regime at the fc (N = 10)
 EPILOGUE_KERNEL = "requant_epilogue"  # ops/csrc/requant_epilogue.cu, one a symmetric conv
+# ops/csrc/patch_gather.cu: one a conv whose operand is no view, one an int8 shuffle
+PATCH_KERNELS = ("patch_matrix_kernel", "patch_shuffle_kernel")
 # the JAX package's bf16 bound (tests/test_infer.py::test_bf16_eval_mode): relative L2
 BF16_REL_TOL = 0.05
 # cli deploy: cli train's two steps (the synthetic set's 2,048 images at batch 1,024)
@@ -3413,17 +3545,26 @@ def deploy_buckets(name, engine, dev, seed, card, report):
             f"(copy in, replay, copy out) {call_ms:8.3f} ms = {b / call_ms * 1e3:9.0f} img/s; "
             f"capture {compiled.capture_s[b]:.3f} s; {sum(counts.values()) // 3} kernels a "
             f"replay, hand-written {ours}")
-    # one conv epilogue kernel a symmetric conv in every replay, and besides it only K1
+    # one conv epilogue kernel a symmetric conv in every replay, the patch gathers of phase 9's
+    # eager forward, and besides them only K1
     convs = sum(isinstance(m, IntConv2d) and m.symmetric and m.w_symmetric
                 for m in engine.modules())
-    epilogues = {b: sum(c for k, c in v["hand_kernels_per_replay"].items()
-                        if EPILOGUE_KERNEL in k) for b, v in per_bucket.items()}
+    gathers = report[name]["patch_launches"] // report[name]["forwards"]
+
+    def replay_count(v, names):
+        return sum(c for k, c in v["hand_kernels_per_replay"].items()
+                   if any(n in k for n in names))
+
+    epilogues = {b: replay_count(v, (EPILOGUE_KERNEL,)) for b, v in per_bucket.items()}
+    patches = {b: replay_count(v, PATCH_KERNELS) for b, v in per_bucket.items()}
     other = {b: [k for k in v["hand_kernels_per_replay"]
-                 if EPILOGUE_KERNEL not in k and K1_KERNEL not in k]
+                 if not any(n in k for n in (EPILOGUE_KERNEL, K1_KERNEL) + PATCH_KERNELS)]
              for b, v in per_bucket.items()}
-    if any(n != convs for n in epilogues.values()) or any(other.values()):
+    if (any(n != convs for n in epilogues.values()) or any(n != gathers for n in patches.values())
+            or any(other.values())):
         fail(f"{name} deploy: conv epilogue kernels per replay {epilogues}, expected {convs} "
-             f"(one a symmetric conv); other hand-written kernels {other}")
+             f"(one a symmetric conv); patch gathers {patches}, expected {gathers} (phase 9's "
+             f"a forward); other hand-written kernels {other}")
     if name == "resnet18_w8a8":
         want = {"int8_matmul_dequant": 1}
         if any(v["capture_launches"] != want for v in per_bucket.values()):
@@ -3441,7 +3582,7 @@ def deploy_buckets(name, engine, dev, seed, card, report):
              f"({launches}, K1 per replay {k1_per_replay})")
     res = dict(card=card, buckets=list(compiled.buckets), requests=list(requests),
                build_s=build_s, launches=launches, k1_kernels_per_replay=k1_per_replay,
-               epilogue_kernels_per_replay=epilogues,
+               epilogue_kernels_per_replay=epilogues, patch_kernels_per_replay=patches,
                card_vs_cpu_max_abs=card_cpu, per_bucket=per_bucket,
                flops=compiled.flops)
     report[f"{name}_deploy"] = res
@@ -5853,6 +5994,7 @@ def mobilenet_engine(dev, seed, report, profile_dir=None, later=None, keep=None)
         fail(f"{name}: conv inputs by part {chains}: every depthwise conv and projection "
              f"should read int8 codes")
     res.update(dwconv_layers=layers, conv_inputs=chains)
+    _check_patches(name, report, 1, keep)
     log(f"{name}: depthwise kernel {res['dwconv_launches']} launches over {forwards} forwards, "
         f"equal bit for bit to its twin and to the block-diagonal route at all {n_dw} "
         f"depthwise convs; conv inputs by part {chains}; peak {res['peak_gb']:.2f} GB")
@@ -6004,6 +6146,9 @@ def main() -> int:
     int8_device_times(dev, gen, report, k1_row, k2_row)
     epi = epilogue_device_times(engines, report)
     dw = dwconv_device_times(mnet, report)
+    patches = patch_device_times({"nin_gc_w4a4": engines["nin_gc_w4a4"],
+                                  "resnet18_w8a8": engines["resnet18_w8a8"],
+                                  "mobilenetv2_w8a8": mnet}, report)
     del mnet
     torch.cuda.empty_cache()
     dec_kernels = decoder_kernel_times(dev, gen, report)
@@ -6169,6 +6314,20 @@ def main() -> int:
                  "per layer the larger of 2 x MACs at 1,979 TOP/s and int8 codes in and out "
                  "once and the weights once at 3.35 TB/s; layers per conv",
              **dw),
+        dict(name="patch_gather", route="cuda", source=src + "patch_gather.cu",
+             replaces="none: micronet_tpu/infer/engine.py leaves its convolutions to XLA "
+                      "(lax.conv_general_dilated) and its shuffle is an XLA gather",
+             launches=sum(v["launches_main_path"] for v in patches.values()),
+             per=f"every patch-gather call of one forward, summed, each on its own input: "
+                 f"nin_gc_w4a4 at {NIN_BATCH} (9: the stem's f32 patches, two 3 x 3 convs, "
+                 f"six int8 shuffles), resnet18_w8a8 at {RESNET_BATCH} (20: the stem, 16 "
+                 f"3 x 3 convs, 3 strided shortcuts), mobilenetv2_w8a8 at {MOBILENET_BATCH} "
+                 f"(1: the stem); launches over each engine's {ENGINE_ITERS + 1} main-path "
+                 f"forwards; {PATCH_ITERS} calls a layer; plain_* is the twin on the card "
+                 "(PyTorch's pad and unfold copies, the shuffle's reshape and transpose); "
+                 "bound_ms the input read once and the output written once at 3.35 TB/s; "
+                 "layers per call",
+             **patches),
     ]
     report["kernels"] = rows
     report["device_ms_retries"] = TRACE_RETRIES

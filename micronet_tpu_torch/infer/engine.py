@@ -26,7 +26,10 @@ with exact integer accumulation:
 
 - on the card, im2col over the int8 codes and ``torch._int_mm`` (cuBLAS
   int8 with int32 accumulators), one GEMM for every layer; a grouped
-  conv runs as one GEMM over a block-diagonal weight. The correction
+  conv runs as one GEMM over a block-diagonal weight. The patch matrix
+  is a view of the NHWC codes for a stride-1 1 x 1 conv, else one pass
+  of a hand-written kernel (``ops/patch_gather.py::patch_matrix``) that
+  reads the codes once and writes the GEMM's operand once. The correction
   terms are no GEMMs: ``conv(1, w)`` and ``count`` depend only on the
   input's spatial shape and come from one image of ones through the same
   route; ``sum_x`` is a row sum of the patch matrix the GEMM reads;
@@ -40,7 +43,7 @@ with exact integer accumulation:
 - the first layer (``groups == 1`` and fewer than 8 input channels per
   group, symmetric) convolves the dequantized values in f32, as the JAX
   package does; on the card as im2col and one f32 matmul with TF32 off
-  for the call.
+  for the call, the patch kernel writing the dequantized patches.
 
 A symmetric ``IntConv2d``'s epilogue (the accumulator's cast, scale and
 bias, and the requant when chained) is one operator,
@@ -71,13 +74,14 @@ rounds), then ``f32(acc) * alpha + bias``.
 
 Every module records its work by role as spans (``utils/profiling.py``,
 off by default): ``int.quantize`` (activation codes), ``int.im2col`` (the
-patch matrix and its padding), ``int.gemm`` (the integer products, the
-first layer's f32 matmul, K1), ``int.epilogue`` (the accumulator's cast,
-scale, bias, correction terms and requant, on the card one kernel for a
-symmetric conv; the adds' and concats' codes), ``int.dwconv`` (the
-depthwise route, its epilogue included) and ``int.pool``. The
-models' channel shuffle, which no module holds, records ``fn.shuffle``
-(``nn/functional.py``). They run in an eager
+patch matrix, the first layer's dequantized patches too), ``int.gemm``
+(the integer products, the first layer's f32 matmul, K1),
+``int.epilogue`` (the accumulator's cast, scale, bias, correction terms
+and requant, on the card one kernel for a symmetric conv; the adds' and
+concats' codes), ``int.dwconv`` (the depthwise route, its epilogue
+included) and ``int.pool``. The models' channel shuffle, which no module
+holds, records ``fn.shuffle`` (``nn/functional.py``; int8 codes on the
+card take the patch gathers' shuffle kernel). They run in an eager
 forward and in a CUDA graph's capture, not in its replay.
 
 Not ported: the JAX package's ``pallas_pointwise`` and ``pointwise_dot``
@@ -102,6 +106,7 @@ from ..nn.transform import _children, _copy_model
 from ..ops.dwconv import dw_weight, dwconv_int8
 from ..ops.int4_matmul import pack_int4, unpack_int4
 from ..ops.int_matmul import int8_linear
+from ..ops.patch_gather import out_hw, patch_matrix
 from ..ops.requant_epilogue import requant, requant_epilogue
 from ..quant.rounding import round_half_away
 from ..utils.profiling import span
@@ -260,23 +265,24 @@ class _IntConvRoutes(nn.Module):
             full[i, :, :, :, i, :] = w[i * og:(i + 1) * og]
         return full.reshape(co, kh * kw * g * cg)
 
-    def _im2col(self, x: torch.Tensor) -> Tuple[torch.Tensor, Tuple[int, int, int]]:
-        """(N, C, H, W) -> the (N*Ho*Wo, kh*kw*C) patch matrix in (kh, kw, c)
-        column order, and (N, Ho, Wo). Padding is zero codes."""
+    def _im2col(self, x: torch.Tensor, scale: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, Tuple[int, int, int]]:
+        """(N, C, H, W) codes -> the (N*Ho*Wo, kh*kw*C) patch matrix in (kh,
+        kw, c) column order, and (N, Ho, Wo). Padding is zero codes; with
+        ``scale`` the patches are ``float(code) * scale`` in f32. A stride-1
+        1 x 1 conv's is a view of the NHWC codes; every other is one pass of
+        ``ops/patch_gather.py::patch_matrix`` (the kernel on the card, its
+        twin on the CPU)."""
         n, c, h, w = x.shape
-        _, _, kh, kw = self.w_shape
-        (sh, sw), (ph, pw), (dh, dw) = self._gemm_geometry()
-        ho = (h + 2 * ph - dh * (kh - 1) - 1) // sh + 1
-        wo = (w + 2 * pw - dw * (kw - 1) - 1) // sw + 1
+        kernel = self.w_shape[2:]
+        stride, padding, dilation = self._gemm_geometry()
+        ho, wo = out_hw(h, w, kernel, stride, padding, dilation)
+        view = scale is None and (tuple(kernel), tuple(stride), tuple(padding)) == (
+            (1, 1), (1, 1), (0, 0))
         with span("int.im2col"):
-            xh = x.permute(0, 2, 3, 1)  # NHWC
-            if ph or pw:
-                xh = TF.pad(xh, (0, 0, pw, pw, ph, ph))
-            if (kh, kw) == (1, 1):
-                return xh[:, ::sh, ::sw][:, :ho, :wo].reshape(n * ho * wo, c), (n, ho, wo)
-            p = xh.unfold(1, dh * (kh - 1) + 1, sh).unfold(2, dw * (kw - 1) + 1, sw)
-            p = p[..., ::dh, ::dw]  # (N, Ho, Wo, C, kh, kw)
-            return p.permute(0, 1, 2, 4, 5, 3).reshape(n * ho * wo, kh * kw * c), (n, ho, wo)
+            if view:
+                return x.permute(0, 2, 3, 1).reshape(n * ho * wo, c), (n, ho, wo)
+            return patch_matrix(x, kernel, stride, padding, dilation, scale), (n, ho, wo)
 
     def _int_acc_im2col(self, x_q: torch.Tensor, group_sums: bool = False):
         """The card's route (it runs on CPU tensors too): the accumulator
@@ -463,12 +469,12 @@ class IntConv2d(_IntConvRoutes):
         the card it is im2col and one f32 matmul with TF32 off for the call
         (FMA sums in a fixed order; no cuDNN algorithm choice)."""
         with span("int.gemm"):
-            x_dq = x_q.to(torch.float32) * self.act_scale
             w_dq = self._weights().to(torch.float32) * self.w_scale[:, None, None, None]
-            if x_dq.device.type != "cuda":
+            if x_q.device.type != "cuda":
+                x_dq = x_q.to(torch.float32) * self.act_scale
                 return TF.conv2d(x_dq, w_dq, None, self.stride, self.padding, self.dilation,
                                  self.groups)
-            cols, (n, ho, wo) = self._im2col(x_dq)
+            cols, (n, ho, wo) = self._im2col(x_q, self.act_scale)  # the dequantized patches
             w_mat = w_dq.permute(0, 2, 3, 1).reshape(self.w_shape[0], -1)  # (O, kh*kw*C)
             with _no_tf32():
                 out = cols @ w_mat.t()

@@ -17,6 +17,7 @@ from typing import Optional, Sequence, Tuple, Union
 import torch
 import torch.nn.functional as TF
 
+from ..ops.patch_gather import patch_shuffle, patch_shuffle_ref
 from ..utils.profiling import span
 
 __all__ = [
@@ -120,12 +121,19 @@ def adaptive_avg_pool2d(x: torch.Tensor, output_size: IntPair) -> torch.Tensor:
 
 def channel_shuffle(x: torch.Tensor, groups: int) -> torch.Tensor:
     """Channel shuffle for grouped convolutions over NCHW: output channel
-    ``k * groups + r`` is input channel ``r * (C / groups) + k``. A reshape
-    and a transpose (one copy on the device), where the JAX package
-    gathers by a permutation for the TPU's layouts: no index tensor moves
-    from the host, so the shuffle runs inside a CUDA graph capture."""
+    ``k * groups + r`` is input channel ``r * (C / groups) + k``, where the
+    JAX package gathers by a permutation for the TPU's layouts. The integer
+    engine's int8 codes on the card take one pass of the hand-written
+    kernel (``ops/patch_gather.py::patch_shuffle``), which reads their NHWC
+    memory and returns an NCHW view of NHWC memory, as the next conv reads
+    it; every other tensor (the float shuffles of training, any CPU
+    tensor) a reshape and a transpose, one copy on the device, the
+    kernel's twin. Neither moves an index tensor from the host, so the
+    shuffle runs inside a CUDA graph capture."""
     n, c = x.shape[:2]
     if c % groups:
         raise ValueError(f"channels {c} not divisible by groups {groups}")
     with span("fn.shuffle"):
-        return x.reshape(n, groups, c // groups, *x.shape[2:]).transpose(1, 2).reshape(x.shape)
+        if x.dtype == torch.int8 and x.dim() == 4 and x.device.type == "cuda":
+            return patch_shuffle(x, groups)
+        return patch_shuffle_ref(x, groups)
