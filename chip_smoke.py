@@ -1382,14 +1382,15 @@ def engine_path(name, build, cfg, batch, dev, seed, report, profile_dir=None, la
     chained = [n for n, m in engine.named_modules() if getattr(m, "chained", False)]
 
     kernels = _all_kernels()
-    for kern in kernels + (requant_epilogue, dwconv_int8, patch_gather):
+    for kern in kernels + (requant_epilogue, dwconv_int8, patch_gather.patch_matrix,
+                           patch_gather.patch_shuffle):
         kern.launches = 0
     # -- the main path: engine forwards --------------------------------
     out = engine(x)
     engine_ms = _forward_ms(engine, x, ENGINE_ITERS)
     launches = {kern.__name__: kern.launches for kern in kernels}
     epilogues, dwconvs = requant_epilogue.launches, dwconv_int8.launches
-    patches = patch_gather.launches
+    patches = patch_gather.patch_matrix.launches + patch_gather.patch_shuffle.launches
     # ------------------------------------------------------------------
     forwards = 1 + ENGINE_ITERS
     if tuple(out.shape) != (batch, 10) or not torch.isfinite(out).all():

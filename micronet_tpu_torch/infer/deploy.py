@@ -21,8 +21,10 @@ utilities, ``deploy/tensorrt/util_trt.py``).
   ``engine.copy_out``.
 - engine serialization -> :func:`serialize_engine` /
   :func:`deserialize_engine` on ``torch.export`` programs (``.pt2``) with
-  the weights embedded. The hand-written kernels are registered operators
-  (``ops/int_matmul.py``), so the exported graph calls them. An artifact
+  the weights embedded. The engine's hand-written kernels are registered
+  operators (each defined by ``ops/_build.py::operator`` in its module
+  under ``ops/``; importing ``ops`` registers them all), so the exported
+  graph calls them. An artifact
   records the device type it was exported on and, for CUDA, the card's
   name and compute capability, and refuses to load elsewhere, as a JAX
   artifact refuses another platform.
@@ -54,7 +56,7 @@ from torch import nn
 
 from .._device import resolve_device
 from ..nn.modules import eval_mode
-from ..ops import int_matmul  # noqa: F401  (registers the K1/K2 operators)
+from .. import ops  # noqa: F401  (registers the engine's operators)
 from ..parallel.distributed import _gather_parts
 from ..parallel.sharding import axis_size, check_mesh, shard_batch, shard_state
 from ..utils.profiling import span
@@ -375,9 +377,9 @@ def _check_record(rec: dict) -> None:
 
 def deserialize_engine(data_or_path) -> Callable[[torch.Tensor], torch.Tensor]:
     """Load a serialized engine back into a callable
-    (``runtime.deserialize_cuda_engine``, util_trt.py:99-116). The K1/K2
-    operators are registered by this module's imports before the program
-    loads. The program runs under ``torch.no_grad`` with TF32 off for
+    (``runtime.deserialize_cuda_engine``, util_trt.py:99-116). The
+    engine's operators are registered by this module's imports before the
+    program loads. The program runs under ``torch.no_grad`` with TF32 off for
     matmuls and cuDNN (the flags the engine's first layer sets, which an
     exported graph does not carry). The callable's ``program`` is the
     loaded ``ExportedProgram``."""

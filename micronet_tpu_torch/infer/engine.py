@@ -119,11 +119,6 @@ def _scalar_buffer(v, dev) -> torch.Tensor:
     return torch.as_tensor(v, dtype=torch.float32).reshape(()).clone().to(dev)
 
 
-def _quantize_weight_int8(w: torch.Tensor, scale: torch.Tensor, qmin: float = -127.0,
-                          qmax: float = 127.0) -> torch.Tensor:
-    return requant(w, scale, qmin, qmax)
-
-
 def _shifted_weight_codes(w: torch.Tensor, scale: torch.Tensor, zero_point: torch.Tensor,
                           qmin: float, qmax: float) -> torch.Tensor:
     """Asymmetric weight codes ``clamp(round(w / s - zp_w), qmin, qmax)``
@@ -132,16 +127,68 @@ def _shifted_weight_codes(w: torch.Tensor, scale: torch.Tensor, zero_point: torc
     return (q0 - 128.0).to(torch.int8)
 
 
-def _act_codes(x: torch.Tensor, scale: torch.Tensor, zero_point: torch.Tensor, qmin: float,
-               qmax: float, symmetric: bool) -> torch.Tensor:
+def _act_codes(x: torch.Tensor, scale: torch.Tensor, zero_point: Optional[torch.Tensor],
+               qmin: float, qmax: float, symmetric: bool) -> torch.Tensor:
     """int8 activation codes: ``clamp(round(x / s), qmin, qmax)``, or for
     an asymmetric quantizer ``q0 - 128`` with ``q0 = clamp(round(x / s) -
-    zp, qmin, qmax)`` (the value is ``x_int = q0 + zp``)."""
+    zp, qmin, qmax)`` (the value is ``x_int = q0 + zp``). The engine's one
+    quantize of f32 activations (:meth:`_Int8Link._codes_in`)."""
     with span("int.quantize"):
         q = round_half_away(x.to(torch.float32) / scale)
         if symmetric:
             return torch.clamp(q, qmin, qmax).to(torch.int8)
         return (torch.clamp(q - zero_point, qmin, qmax) - 128.0).to(torch.int8)
+
+
+class _Int8Link(nn.Module):
+    """The int8 chain protocol, both sides of a link between two layers.
+
+    Receiving (:class:`IntConv2d`, :class:`IntConvTranspose2d`,
+    :class:`IntLinear`, the pools and the unions): an int8 input is codes
+    at the layer's own ``act_scale`` already, requantized by its emitter;
+    an f32 one is quantized here at that scale and the clip range
+    ``[a_qmin, a_qmax]`` (:meth:`_codes_in`).
+
+    Emitting (:class:`IntConv2d`, :class:`IntMaxPool2d`, :class:`IntAdd`
+    and :class:`IntConcat`, which declare the state with :meth:`_emits`):
+    once the planner has called :meth:`chain`, the output is requantized
+    to the receiver's scale ``out_scale`` and clip range ``[out_qmin,
+    out_qmax]``. A conv does it in its epilogue, ``requant(v /
+    out_scale)``; a pool or a union rescales its codes,
+    ``round(codes * (s / out_scale))`` (:meth:`_codes_out`). The JAX
+    package computes each form so, and both keep its bits."""
+
+    # pools, adds and concats freeze only with a symmetric quantizer
+    symmetric = True
+
+    def _emits(self, dev: torch.device) -> None:
+        """Declare the emitter state, unchained: the output leaves in f32."""
+        self.register_buffer("out_scale", torch.ones((), device=dev))
+        self.chained = False
+        self.out_qmin, self.out_qmax = -128.0, 127.0
+
+    def chain(self, scale: torch.Tensor, qmin: float, qmax: float) -> None:
+        """Requantize the output to a receiver's ``scale``, clamped to
+        ``[qmin, qmax]``."""
+        self.chained = True
+        self.out_scale.copy_(scale)
+        self.out_qmin, self.out_qmax = qmin, qmax
+
+    def _codes_in(self, x: torch.Tensor) -> torch.Tensor:
+        """The input as int8 codes at this layer's scale: chained codes as
+        they are, an f32 input through :func:`_act_codes`."""
+        if x.dtype == torch.int8:
+            return x
+        return _act_codes(x, self.act_scale, None if self.symmetric else self.act_zero_point,
+                          self.a_qmin, self.a_qmax, self.symmetric)
+
+    def _codes_out(self, codes: torch.Tensor) -> torch.Tensor:
+        """Codes at ``act_scale`` (of any integer type) out at the
+        receiver's scale when chained, else dequantized to f32."""
+        if self.chained:
+            q = round_half_away(codes.to(torch.float32) * (self.act_scale / self.out_scale))
+            return torch.clamp(q, self.out_qmin, self.out_qmax).to(torch.int8)
+        return codes.to(torch.float32) * self.act_scale
 
 
 @contextlib.contextmanager
@@ -374,7 +421,7 @@ def exact_zero_point_acc(layer: _IntConvRoutes, x_q: torch.Tensor):
     return exact, 7 * 2.0 ** -24 * sum(t.abs() for t in terms)
 
 
-class IntConv2d(_IntConvRoutes):
+class IntConv2d(_IntConvRoutes, _Int8Link):
     """Integer conv: int8 in, int8 weights, exact int32-valued
     accumulation, f32 epilogue (or a requant to int8 when chained), on the
     card one hand-written pass where activations and weights are
@@ -396,16 +443,12 @@ class IntConv2d(_IntConvRoutes):
         self.register_buffer("act_zero_point", _scalar_buffer(act_zero_point, dev))
         self.register_buffer("w_zp", torch.zeros(w_q.shape[0], device=dev))
         self.register_buffer("bias", None if bias is None else bias.clone())
-        self.register_buffer("out_scale", torch.ones((), device=dev))
         self.stride, self.padding, self.dilation = stride, padding, dilation
         self.groups = groups
         self.a_qmin, self.a_qmax = a_qmin, a_qmax
         self.symmetric = a_qmin < 0
         self.w_symmetric = True
-        # set by the chain planner: requantize the output to the next
-        # layer's activation scale
-        self.chained = False
-        self.out_qmin, self.out_qmax = -128.0, 127.0
+        self._emits(dev)
         self.w_shape = tuple(w_q.shape)  # (O, cg, kh, kw)
         self.w_packed = False
         # the image-input layer: f32 conv over the dequantized codes
@@ -481,13 +524,7 @@ class IntConv2d(_IntConvRoutes):
             return out.reshape(n, ho, wo, -1).permute(0, 3, 1, 2)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        s_x = self.act_scale
-        if x.dtype == torch.int8:
-            # chained: already quantized with this layer's scale upstream
-            x_q = x
-        else:
-            x_q = _act_codes(x, s_x, self.act_zero_point, self.a_qmin, self.a_qmax,
-                             self.symmetric)
+        x_q = self._codes_in(x)
         if self.depthwise:
             with span("int.dwconv"):
                 return self.dwconv(x_q)
@@ -500,10 +537,10 @@ class IntConv2d(_IntConvRoutes):
                 return self._epilogue(acc, w_scale)
         acc = self._zero_point_acc(x_q)
         with span("int.epilogue"):
-            return self._finish(acc * (s_x * self.w_scale)[:, None, None])
+            return self._finish(acc * (self.act_scale * self.w_scale)[:, None, None])
 
 
-class IntConvTranspose2d(_IntConvRoutes):
+class IntConvTranspose2d(_IntConvRoutes, _Int8Link):
     """Integer transposed conv (``QuantConvTranspose2d`` frozen): int8 in,
     int8 weights with one layer-level scale (``w_scale`` and ``w_zp`` are
     scalars), exact accumulation, f32 epilogue; the zero points fold into
@@ -580,9 +617,7 @@ class IntConvTranspose2d(_IntConvRoutes):
             return TF.pad(x, (lo_w, lo_w + opw, lo_h, lo_h + oph))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x_q = x if x.dtype == torch.int8 else _act_codes(
-            x, self.act_scale, self.act_zero_point, self.a_qmin, self.a_qmax, self.symmetric)
-        acc = self._zero_point_acc(x_q)
+        acc = self._zero_point_acc(self._codes_in(x))
         with span("int.epilogue"):
             out = acc * (self.act_scale * self.w_scale)
             if self.bias is not None:
@@ -590,7 +625,7 @@ class IntConvTranspose2d(_IntConvRoutes):
             return out
 
 
-class IntLinear(nn.Module):
+class IntLinear(_Int8Link):
     """Integer linear: w_q (in, out) int8, or nibble-packed (in/2, out)
     with symmetric W <= 4. Symmetric activations and weights run kernel
     K1 (``int8_linear``); otherwise, as the JAX package does, codes are
@@ -623,8 +658,7 @@ class IntLinear(nn.Module):
                                    self.act_zero_point, self.bias, qmin=self.a_qmin,
                                    qmax=self.a_qmax)
         lead, k = x.shape[:-1], x.shape[-1]
-        x_q = _act_codes(x.reshape(-1, k), self.act_scale, self.act_zero_point, self.a_qmin,
-                         self.a_qmax, self.symmetric)
+        x_q = self._codes_in(x.reshape(-1, k))
         sh_x = 0.0 if self.symmetric else 128.0 + self.act_zero_point
         w_q = self._weights()
         with span("int.gemm"):
@@ -648,99 +682,68 @@ class IntLinear(nn.Module):
             return out.reshape(*lead, w_q.shape[1])
 
 
-class IntMaxPool2d(nn.Module):
-    """Frozen ``QuantMaxPool2d``: quantize (or take chained int8), max-pool
-    the codes (order-preserving under a positive scale), then requantize
-    to the next layer's scale or dequantize."""
+class IntMaxPool2d(_Int8Link):
+    """Frozen ``QuantMaxPool2d``: take codes in (:meth:`_codes_in`),
+    max-pool them (order-preserving under a positive scale), then
+    requantize to the next layer's scale or dequantize."""
 
-    def __init__(self, kernel_size, stride, padding, act_scale):
+    def __init__(self, kernel_size, stride, padding, act_scale, a_qmin: float, a_qmax: float):
         super().__init__()
-        dev = act_scale.device
         self.kernel_size, self.stride, self.padding = kernel_size, stride, padding
-        self.register_buffer("act_scale", _scalar_buffer(act_scale, dev))
-        self.register_buffer("out_scale", torch.ones((), device=dev))
-        self.chained = False
-        self.a_qmin, self.a_qmax = -128.0, 127.0
-        self.out_qmin, self.out_qmax = -128.0, 127.0
+        self.register_buffer("act_scale", _scalar_buffer(act_scale, act_scale.device))
+        self.a_qmin, self.a_qmax = a_qmin, a_qmax
+        self._emits(act_scale.device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        s = self.act_scale
-        if x.dtype != torch.int8:
-            with span("int.quantize"):
-                x = torch.clamp(round_half_away(x.to(torch.float32) / s), self.a_qmin,
-                                self.a_qmax).to(torch.int8)
+        x = self._codes_in(x)
         with span("int.pool"):
             y = F.max_pool2d(x, self.kernel_size, self.stride, self.padding)
         with span("int.epilogue"):
-            if self.chained:
-                q = round_half_away(y.to(torch.float32) * (s / self.out_scale))
-                return torch.clamp(q, self.out_qmin, self.out_qmax).to(torch.int8)
-            return y.to(torch.float32) * s
+            return self._codes_out(y)
 
 
-class IntAvgPool2d(nn.Module):
-    """Frozen ``QuantAvgPool2d`` / ``QuantAdaptiveAvgPool2d``: quantize (or
-    take chained int8) at its own scale, then average the dequantized
+class IntAvgPool2d(_Int8Link):
+    """Frozen ``QuantAvgPool2d`` / ``QuantAdaptiveAvgPool2d``: take codes in
+    at its own scale (:meth:`_codes_in`), then average the dequantized
     values in f32. Receives chains, never emits one."""
 
-    def __init__(self, kernel_size, stride, padding, act_scale, adaptive_size=None):
+    def __init__(self, kernel_size, stride, padding, act_scale, a_qmin: float, a_qmax: float,
+                 adaptive_size=None):
         super().__init__()
         self.kernel_size, self.stride, self.padding = kernel_size, stride, padding
         self.adaptive_size = adaptive_size
         self.register_buffer("act_scale", _scalar_buffer(act_scale, act_scale.device))
-        self.a_qmin, self.a_qmax = -128.0, 127.0
+        self.a_qmin, self.a_qmax = a_qmin, a_qmax
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        s = self.act_scale
-        if x.dtype != torch.int8:
-            with span("int.quantize"):
-                x = torch.clamp(round_half_away(x.to(torch.float32) / s), self.a_qmin,
-                                self.a_qmax).to(torch.int8)
+        x = self._codes_in(x)
         with span("int.pool"):
-            xf = x.to(torch.float32) * s
+            xf = x.to(torch.float32) * self.act_scale
             if self.adaptive_size is not None:
                 return F.adaptive_avg_pool2d(xf, self.adaptive_size)
             return F.avg_pool2d(xf, self.kernel_size, self.stride, self.padding)
 
 
-class _IntUnion(nn.Module):
+class _IntUnion(_Int8Link):
     """Two inputs at one shared scale (``QuantAdd`` / ``QuantConcat``
-    frozen): each arrives chained int8 (already at that scale) or f32
-    (quantized here); the result dequantizes or requantizes to the
-    consumer's scale."""
+    frozen): each taken in as codes at that scale (:meth:`_codes_in`); the
+    result dequantizes or requantizes to the consumer's scale
+    (:meth:`_codes_out`, an epilogue span of the caller's)."""
 
     def __init__(self, act_scale, a_qmin: float, a_qmax: float):
         super().__init__()
-        dev = act_scale.device
-        self.register_buffer("act_scale", _scalar_buffer(act_scale, dev))
-        self.register_buffer("out_scale", torch.ones((), device=dev))
+        self.register_buffer("act_scale", _scalar_buffer(act_scale, act_scale.device))
         self.a_qmin, self.a_qmax = a_qmin, a_qmax
-        self.chained = False
-        self.out_qmin, self.out_qmax = -128.0, 127.0
-
-    def _inq(self, x: torch.Tensor) -> torch.Tensor:
-        if x.dtype == torch.int8:
-            return x
-        with span("int.quantize"):
-            return torch.clamp(round_half_away(x.to(torch.float32) / self.act_scale),
-                               self.a_qmin, self.a_qmax).to(torch.int8)
-
-    def _out(self, codes: torch.Tensor) -> torch.Tensor:
-        """The union's codes (an epilogue span of the caller's) out at the
-        consumer's scale, or dequantized."""
-        if self.chained:
-            q = round_half_away(codes.to(torch.float32) * (self.act_scale / self.out_scale))
-            return torch.clamp(q, self.out_qmin, self.out_qmax).to(torch.int8)
-        return codes.to(torch.float32) * self.act_scale
+        self._emits(act_scale.device)
 
 
 class IntAdd(_IntUnion):
     """Frozen ``QuantAdd``: the codes add in int32 with no rescale."""
 
     def forward(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-        a, b = self._inq(a), self._inq(b)
+        a, b = self._codes_in(a), self._codes_in(b)
         with span("int.epilogue"):
-            return self._out(a.to(torch.int32) + b.to(torch.int32))
+            return self._codes_out(a.to(torch.int32) + b.to(torch.int32))
 
 
 class IntConcat(_IntUnion):
@@ -753,9 +756,9 @@ class IntConcat(_IntUnion):
 
     def forward(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         dim = M.nchw_axis(self.axis, a.dim())
-        a, b = self._inq(a), self._inq(b)
+        a, b = self._codes_in(a), self._codes_in(b)
         with span("int.epilogue"):
-            return self._out(torch.cat([a, b], dim=dim))
+            return self._codes_out(torch.cat([a, b], dim=dim))
 
 
 def _check_bits(wq: qat_iao.FakeQuantizer, aq: qat_iao.FakeQuantizer) -> None:
@@ -779,7 +782,7 @@ def _freeze_conv(m: qat_iao.QuantConv2d) -> IntConv2d:
     w_scale = torch.broadcast_to(wq.scale.reshape(-1), (co,))
     per_out = w_scale[:, None, None, None]
     if wq.symmetric:
-        w_q = _quantize_weight_int8(m.weight, per_out, wq.qmin, wq.qmax)
+        w_q = requant(m.weight, per_out, wq.qmin, wq.qmax)
     else:
         w_zp = torch.broadcast_to(wq.zero_point.reshape(-1), (co,))
         w_q = _shifted_weight_codes(m.weight, per_out, w_zp[:, None, None, None], wq.qmin,
@@ -801,7 +804,7 @@ def _freeze_convt(m: qat_iao.QuantConvTranspose2d) -> IntConvTranspose2d:
     _check_bits(wq, aq)
     w_scale = wq.scale.reshape(())  # layer-level
     if wq.symmetric:
-        w_q = _quantize_weight_int8(m.weight, w_scale, wq.qmin, wq.qmax)
+        w_q = requant(m.weight, w_scale, wq.qmin, wq.qmax)
     else:
         w_q = _shifted_weight_codes(m.weight, w_scale, wq.zero_point.reshape(()), wq.qmin,
                                     wq.qmax)
@@ -820,7 +823,7 @@ def _freeze_linear(m: qat_iao.QuantLinear) -> IntLinear:
     _check_bits(wq, aq)
     w_scale = torch.broadcast_to(wq.scale.reshape(-1), (m.weight.shape[1],))
     if wq.symmetric:
-        w_q = _quantize_weight_int8(m.weight, w_scale, wq.qmin, wq.qmax)
+        w_q = requant(m.weight, w_scale, wq.qmin, wq.qmax)
     else:
         w_zp = torch.broadcast_to(wq.zero_point.reshape(-1), (m.weight.shape[1],))
         w_q = _shifted_weight_codes(m.weight, w_scale, w_zp, wq.qmin, wq.qmax)
@@ -845,22 +848,17 @@ def _freeze_maxpool(m: qat_iao.QuantMaxPool2d):
     aq = m.activation_quantizer
     if not _int8_activation(aq):
         return m
-    pool = IntMaxPool2d(m.kernel_size, m.stride, m.padding, aq.scale)
-    pool.a_qmin, pool.a_qmax = aq.qmin, aq.qmax
-    return pool
+    return IntMaxPool2d(m.kernel_size, m.stride, m.padding, aq.scale, aq.qmin, aq.qmax)
 
 
 def _freeze_avgpool(m):
     aq = m.activation_quantizer
     if not _int8_activation(aq):
         return m
+    # the clip range is the a_bits range, not the int8 storage range
     if isinstance(m, qat_iao.QuantAdaptiveAvgPool2d):
-        pool = IntAvgPool2d(None, None, None, aq.scale, m.output_size)
-    else:
-        pool = IntAvgPool2d(m.kernel_size, m.stride, m.padding, aq.scale)
-    # clip at the a_bits range, not the int8 storage range
-    pool.a_qmin, pool.a_qmax = aq.qmin, aq.qmax
-    return pool
+        return IntAvgPool2d(None, None, None, aq.scale, aq.qmin, aq.qmax, m.output_size)
+    return IntAvgPool2d(m.kernel_size, m.stride, m.padding, aq.scale, aq.qmin, aq.qmax)
 
 
 def _freeze_add(m: qat_iao.QuantAdd):
@@ -951,17 +949,15 @@ def _link(emitter, receiver, between=()) -> None:
     is the receiver's code of the clamped value (rounding and a positive
     scale keep the order), so the ReLU6 passes the codes on as they
     are."""
-    emitter.chained = True
-    emitter.out_scale.copy_(receiver.act_scale)
-    emitter.out_qmin = receiver.a_qmin
-    emitter.out_qmax = receiver.a_qmax
+    qmin, qmax = receiver.a_qmin, receiver.a_qmax
     relu6 = [m for m in between if isinstance(m, M.ReLU6)]
     if relu6:
         six = torch.full((), 6.0, device=receiver.act_scale.device)
         top = int(requant(six, receiver.act_scale, 0.0, receiver.a_qmax))
-        emitter.out_qmin, emitter.out_qmax = max(receiver.a_qmin, 0.0), float(top)
+        qmin, qmax = max(receiver.a_qmin, 0.0), float(top)
         for m in relu6:
             m.code_max = top
+    emitter.chain(receiver.act_scale, qmin, qmax)
 
 
 def _plan_chains_leaf_order(model: nn.Module) -> None:

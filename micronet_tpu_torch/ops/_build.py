@@ -11,7 +11,13 @@ so an edited source never loads a stale library.
 Every C entry point returns ``cudaGetLastError()`` after its launch; the
 wrappers pass that code to :func:`check`, which raises on anything but 0.
 A C entry point launches on the current card, so each wrapper makes its
-tensors' card current around the call (:func:`on_card`).
+tensors' card current around the call (:func:`on_card`); :func:`launch`
+does both around one call on the current stream.
+
+The integer engine's kernels are registered PyTorch operators, each
+defined once through :func:`operator` on the namespace
+``torch.ops.micronet_tpu_torch``, so that eager code, a captured CUDA
+graph and a ``torch.export`` program reach the same kernel.
 """
 
 from __future__ import annotations
@@ -25,17 +31,18 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from .._device import on_cuda
+
 __all__ = ["SOURCES", "CSRC", "BUILD_DIR", "load", "build_all", "check", "check_operand",
-           "sm_count", "on_card"]
+           "sm_count", "on_card", "launch", "operator"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("int4_matmul", "decode_attention", "paged_attention", "int_matmul",
-           "requant_epilogue", "dwconv_int8", "patch_gather")
+SOURCES = tuple(sorted(p.stem for p in CSRC.glob("*.cu")))
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -156,6 +163,49 @@ def check(rc: int, what: str) -> None:
     """Raise if a C entry point reported a CUDA error."""
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA error {rc} at launch")
+
+
+def launch(entry, device: torch.device, what: str, *args) -> None:
+    """Call the C entry point ``entry(*args, stream)`` on ``device``'s
+    current stream with ``device`` the current card, and raise if it
+    reports a CUDA error."""
+    stream = torch._C._cuda_getCurrentRawStream(device.index)
+    with on_card(device):
+        rc = entry(*args, stream)
+    check(rc, what)
+
+
+# torch.ops.micronet_tpu_torch. A plain library definition: torch.library.custom_op checks its
+# inputs' aliasing on every call, 0.014 to 0.031 ms more host time a call than the launch alone on
+# an H100 (chip_smoke.py phase 19), against K1's 0.007 ms of device time
+_LIB = torch.library.Library("micronet_tpu_torch", "DEF")
+
+
+def operator(schema: str, card: Callable, twin: Callable, fake: Callable, counted: Callable):
+    """Define the operator ``torch.ops.micronet_tpu_torch.<name>`` of
+    ``schema`` (``"name(arguments) -> Tensor"``) and return its
+    ``.default`` overload. Its one implementation, for every device, runs
+    ``twin`` on a CPU tensor and ``card`` (the hand-written kernel) on a
+    CUDA tensor, the device that of the first argument; ``fake`` gives the
+    output's shape and dtype for tracing. All three take the schema's
+    arguments in order. ``counted``, the public wrapper, gets a
+    ``launches`` that counts the operator's runs on a CUDA tensor (a
+    Python call each): a CUDA graph's replay makes no Python call and
+    counts nothing."""
+    name = schema[:schema.index("(")]
+
+    def impl(*args):
+        if not on_cuda(args[0]):
+            return twin(*args)
+        out = card(*args)
+        counted.launches += 1
+        return out
+
+    _LIB.define(schema)
+    _LIB.impl(name, impl, "CompositeExplicitAutograd")
+    torch.library.register_fake(f"micronet_tpu_torch::{name}", fake, lib=_LIB)
+    counted.launches = 0
+    return getattr(torch.ops.micronet_tpu_torch, name).default
 
 
 def check_operand(name: str, t: torch.Tensor, dtype: torch.dtype, device: torch.device,

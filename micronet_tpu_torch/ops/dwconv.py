@@ -24,23 +24,23 @@ NHWC-strided NCHW view (the epilogue's output) costs no copy. On a CPU
 tensor it runs the plain twin :func:`dwconv_int8_ref`: the CPU route's f64
 convolution, exact, then :func:`.requant_epilogue.requant_epilogue_ref`.
 The wrapper calls through the registered operator
-``torch.ops.micronet_tpu_torch.dwconv_int8`` (with a fake implementation
-that gives the output's shape), so that eager code, a captured CUDA graph
-and a ``torch.export`` program reach the same kernel. ``dwconv_int8.launches``
-counts the operator's runs on a CUDA tensor.
+``torch.ops.micronet_tpu_torch.dwconv_int8``, defined by
+``_build.operator`` (with a fake implementation that gives the output's
+shape). ``dwconv_int8.launches`` counts the operator's runs on a CUDA
+tensor.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import List, Optional, Tuple
+from typing import List, Optional
 
 import torch
 import torch.nn.functional as TF
 
-from .._device import on_cuda
 from . import _build
-from .requant_epilogue import requant_epilogue_ref
+from .patch_gather import out_hw
+from .requant_epilogue import check_operands, requant_epilogue_ref
 
 __all__ = ["dw_weight", "dwconv_int8_ref", "dwconv_int8"]
 
@@ -57,10 +57,6 @@ def dw_weight(w_q: torch.Tensor) -> torch.Tensor:
     """(C, 1, 3, 3) int8 codes -> (C, 3, 4) int8: each kernel row's three
     taps and a zero byte, the word the kernel multiplies a row by."""
     return TF.pad(w_q.reshape(w_q.shape[0], 3, 3), (0, 1)).contiguous()
-
-
-def _out_hw(h: int, w: int, stride, padding) -> Tuple[int, int]:
-    return ((h + 2 * padding[0] - 3) // stride[0] + 1, (w + 2 * padding[1] - 3) // stride[1] + 1)
 
 
 def dwconv_int8_ref(x: torch.Tensor, w: torch.Tensor, s_x: torch.Tensor,
@@ -81,33 +77,26 @@ def _check(xh: torch.Tensor, w: torch.Tensor, s_x, w_scale, bias, out_scale) -> 
     """Raise on what the kernel does not take: codes not int8 (N, H, W, C)
     contiguous, a weight not (C, 3, 4) int8, or a scale or bias not f32
     and contiguous on the codes' card."""
-    dev = xh.device
     if xh.dtype != torch.int8 or xh.dim() != 4 or not xh.is_contiguous():
         raise ValueError(f"x: need int8 (N, H, W, C) codes, got {xh.dtype} {tuple(xh.shape)}")
     c = xh.shape[3]
-    _build.check_operand("w", w, torch.int8, dev, shape=(c, 3, 4), align=1)
-    _build.check_operand("w_scale", w_scale, torch.float32, dev, shape=(c,))
-    if bias is not None:
-        _build.check_operand("bias", bias, torch.float32, dev, shape=(c,))
-    for name, t in (("s_x", s_x), ("out_scale", out_scale)):
-        _build.check_operand(name, t, torch.float32, dev, shape=())
+    _build.check_operand("w", w, torch.int8, xh.device, shape=(c, 3, 4), align=1)
+    check_operands(xh.device, c, s_x, w_scale, bias, out_scale)
 
 
 def _card_call(x: torch.Tensor, w: torch.Tensor, s_x: torch.Tensor, w_scale: torch.Tensor,
                bias: Optional[torch.Tensor], out_scale: torch.Tensor, stride: List[int],
-               padding: List[int], qmin: float, qmax: float, chained: bool,
-               lib=None) -> torch.Tensor:
-    """Launch the kernel on the card (``lib`` defaults to this checkout's
-    build); raises on what it does not take. Counts no launch: the
-    operator does."""
+               padding: List[int], qmin: float, qmax: float, chained: bool) -> torch.Tensor:
+    """Launch the kernel on the card; raises on what it does not take.
+    Counts no launch: the operator does."""
     n, c, h, wd = x.shape
     xh = x.permute(0, 2, 3, 1)
     if not xh.is_contiguous():
         xh = xh.contiguous()
     _check(xh, w, s_x, w_scale, bias, out_scale)
-    lib = lib or _build.load("dwconv_int8", _LIB_SIGNATURES)
+    lib = _build.load("dwconv_int8", _LIB_SIGNATURES)
     (sh, sw), (ph, pw) = stride, padding
-    ho, wo = _out_hw(h, wd, stride, padding)
+    ho, wo = out_hw(h, wd, (3, 3), stride, padding, (1, 1))
     out = x.new_empty((n, ho, wo, c), dtype=torch.int8 if chained else torch.float32)
     if out.numel() == 0:
         return out
@@ -119,25 +108,11 @@ def _card_call(x: torch.Tensor, w: torch.Tensor, s_x: torch.Tensor, w_scale: tor
     blocks = -(-units // _THREADS)
     if not vector:
         blocks = min(blocks, _BLOCKS_PER_SM * _build.sm_count(x.device))
-    stream = torch._C._cuda_getCurrentRawStream(x.device.index)
-    with _build.on_card(x.device):
-        rc = lib.mn_dwconv_int8(
-            xh.data_ptr(), w.data_ptr(), s_x.data_ptr(), w_scale.data_ptr(),
-            None if bias is None else bias.data_ptr(), out_scale.data_ptr(), out.data_ptr(), n,
-            h, wd, c, ho, wo, sh, sw, ph, pw, int(chained), qmin, qmax, int(vector), blocks,
-            stream)
-    _build.check(rc, "dwconv_int8")
-    return out
-
-
-def _op(x, w, s_x, w_scale, bias, out_scale, stride, padding, qmin, qmax, chained):
-    """The operator's implementation: the kernel on a CUDA tensor (counted
-    on :func:`dwconv_int8`), the twin on a CPU tensor."""
-    if not on_cuda(x):
-        return dwconv_int8_ref(x, w, s_x, w_scale, bias, out_scale, stride, padding, qmin, qmax,
-                               chained)
-    out = _card_call(x, w, s_x, w_scale, bias, out_scale, stride, padding, qmin, qmax, chained)
-    dwconv_int8.launches += 1
+    _build.launch(lib.mn_dwconv_int8, x.device, "dwconv_int8",
+                  xh.data_ptr(), w.data_ptr(), s_x.data_ptr(), w_scale.data_ptr(),
+                  None if bias is None else bias.data_ptr(), out_scale.data_ptr(), out.data_ptr(),
+                  n, h, wd, c, ho, wo, sh, sw, ph, pw, int(chained), qmin, qmax, int(vector),
+                  blocks)
     return out
 
 
@@ -145,18 +120,8 @@ def _out_like(x, w, s_x, w_scale, bias, out_scale, stride, padding, qmin, qmax, 
     """The fake implementation: the (N, Ho, Wo, C) output, int8 when
     chained."""
     n, c, h, wd = x.shape
-    ho, wo = _out_hw(h, wd, stride, padding)
+    ho, wo = out_hw(h, wd, (3, 3), stride, padding, (1, 1))
     return x.new_empty((n, ho, wo, c), dtype=torch.int8 if chained else torch.float32)
-
-
-# a fragment of ops/int_matmul.py's namespace, defined as the requant epilogue's is
-_LIB = torch.library.Library("micronet_tpu_torch", "FRAGMENT")
-_LIB.define("dwconv_int8(Tensor x, Tensor w, Tensor s_x, Tensor w_scale, Tensor? bias, "
-            "Tensor out_scale, int[] stride, int[] padding, float qmin, float qmax, "
-            "bool chained) -> Tensor")
-_LIB.impl("dwconv_int8", _op, "CompositeExplicitAutograd")
-torch.library.register_fake("micronet_tpu_torch::dwconv_int8", _out_like, lib=_LIB)
-_OP = torch.ops.micronet_tpu_torch.dwconv_int8.default
 
 
 def dwconv_int8(x: torch.Tensor, w: torch.Tensor, s_x: torch.Tensor, w_scale: torch.Tensor,
@@ -174,4 +139,8 @@ def dwconv_int8(x: torch.Tensor, w: torch.Tensor, s_x: torch.Tensor, w_scale: to
                [int(v) for v in padding], float(qmin), float(qmax), bool(chained))
 
 
-dwconv_int8.launches = 0
+_OP = _build.operator(
+    "dwconv_int8(Tensor x, Tensor w, Tensor s_x, Tensor w_scale, Tensor? bias, "
+    "Tensor out_scale, int[] stride, int[] padding, float qmin, float qmax, "
+    "bool chained) -> Tensor",
+    _card_call, dwconv_int8_ref, _out_like, dwconv_int8)

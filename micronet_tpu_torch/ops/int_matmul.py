@@ -29,11 +29,9 @@ the matrix) holds code 0: padding x with zeros would binarize them to +1.
 
 Both wrappers call through registered PyTorch operators,
 ``torch.ops.micronet_tpu_torch.int8_matmul_dequant`` and
-``...binary_act_matmul`` (each with a fake implementation that gives the
-(M, N) f32 output's shape), so that eager code, a captured CUDA graph and a
-``torch.export`` program reach the same kernel. A wrapper's ``launches``
-counts the operator's runs on a CUDA tensor (a Python call each): a CUDA
-graph's replay makes no Python call and counts nothing.
+``...binary_act_matmul``, defined by ``_build.operator`` (with a fake
+implementation that gives the (M, N) f32 output's shape). A wrapper's
+``launches`` counts the operator's runs on a CUDA tensor.
 """
 
 from __future__ import annotations
@@ -43,7 +41,6 @@ from typing import Optional, Union
 
 import torch
 
-from .._device import on_cuda
 from ..quant.rounding import round_half_away
 from . import _build
 
@@ -180,17 +177,14 @@ def _small_call(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor, quant
     m, k, n, ws = _operands(x, w_q, w_scale)
     lib = lib or _build.load("int_matmul", _LIB_SIGNATURES)
     out = x.new_empty((m, n))
-    stream = torch._C._cuda_getCurrentRawStream(x.device.index)
-    with _build.on_card(x.device):
-        if quant is None:
-            rc = lib.mn_binary_act_matmul_small(x.data_ptr(), w_q.data_ptr(), ws.data_ptr(),
-                                                out.data_ptr(), m, k, n, stream)
-        else:
-            s_x, zp, qmin, qmax = quant
-            rc = lib.mn_int8_matmul_dequant_small(x.data_ptr(), w_q.data_ptr(), ws.data_ptr(),
-                                                  s_x.data_ptr(), zp.data_ptr(),
-                                                  out.data_ptr(), m, k, n, qmin, qmax, stream)
-    _build.check(rc, "int_matmul small regime")
+    if quant is None:
+        _build.launch(lib.mn_binary_act_matmul_small, x.device, "int_matmul small regime",
+                      x.data_ptr(), w_q.data_ptr(), ws.data_ptr(), out.data_ptr(), m, k, n)
+    else:
+        s_x, zp, qmin, qmax = quant
+        _build.launch(lib.mn_int8_matmul_dequant_small, x.device, "int_matmul small regime",
+                      x.data_ptr(), w_q.data_ptr(), ws.data_ptr(), s_x.data_ptr(),
+                      zp.data_ptr(), out.data_ptr(), m, k, n, qmin, qmax)
     return out
 
 
@@ -205,26 +199,24 @@ def _gemm_call(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor, quant=
     codes = x.new_empty(plan["codes"], dtype=torch.int8)
     wt = x.new_empty(plan["wt"], dtype=torch.int8)
     out = x.new_empty((m, n))
-    stream = torch._C._cuda_getCurrentRawStream(x.device.index)
-    colsum = None if quant is None else x.new_empty((n,), dtype=torch.int32)
-    with _build.on_card(x.device):
-        if quant is None:
-            rc = lib.mn_binary_act_matmul_gemm(x.data_ptr(), w_q.data_ptr(), ws.data_ptr(),
-                                               out.data_ptr(), codes.data_ptr(), wt.data_ptr(),
-                                               m, k, n, stream)
-        else:
-            s_x, zp, qmin, qmax = quant
-            rc = lib.mn_int8_matmul_dequant_gemm(x.data_ptr(), w_q.data_ptr(), ws.data_ptr(),
-                                                 s_x.data_ptr(), zp.data_ptr(), out.data_ptr(),
-                                                 codes.data_ptr(), wt.data_ptr(),
-                                                 colsum.data_ptr(), m, k, n, qmin, qmax, stream)
-    _build.check(rc, "int_matmul GEMM regime")
+    if quant is None:
+        _build.launch(lib.mn_binary_act_matmul_gemm, x.device, "int_matmul GEMM regime",
+                      x.data_ptr(), w_q.data_ptr(), ws.data_ptr(), out.data_ptr(),
+                      codes.data_ptr(), wt.data_ptr(), m, k, n)
+    else:
+        s_x, zp, qmin, qmax = quant
+        colsum = x.new_empty((n,), dtype=torch.int32)
+        _build.launch(lib.mn_int8_matmul_dequant_gemm, x.device, "int_matmul GEMM regime",
+                      x.data_ptr(), w_q.data_ptr(), ws.data_ptr(), s_x.data_ptr(),
+                      zp.data_ptr(), out.data_ptr(), codes.data_ptr(), wt.data_ptr(),
+                      colsum.data_ptr(), m, k, n, qmin, qmax)
     return out
 
 
-def _card_call(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor, quant):
+def _card_call(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor, quant=None):
     """The regime :func:`_k1_regime` picks, on the card (the library built
-    first, before anything asks the card)."""
+    first, before anything asks the card); with ``quant`` None, K2's card
+    call in the operator's arguments."""
     lib = _build.load("int_matmul", _LIB_SIGNATURES)
     regime = _k1_regime(x.shape[0], x.shape[1], w_q.shape[1], _build.sm_count(x.device))
     call = _gemm_call if regime == "gemm" else _small_call
@@ -233,46 +225,13 @@ def _card_call(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor, quant)
 
 def _k1_op(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor, x_scale: torch.Tensor,
            x_zero_point: torch.Tensor, qmin: float, qmax: float) -> torch.Tensor:
-    """The operator's implementation: the kernel on a CUDA tensor (counted
-    on :func:`int8_matmul_dequant`), the twin on a CPU tensor."""
-    if not on_cuda(x):
-        return int8_matmul_dequant_ref(x, w_q, w_scale, x_scale, x_zero_point, qmin, qmax)
-    out = _card_call(x, w_q, w_scale, (x_scale, x_zero_point, qmin, qmax))
-    int8_matmul_dequant.launches += 1
-    return out
-
-
-def _k2_op(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor) -> torch.Tensor:
-    """The operator's implementation: the kernel on a CUDA tensor (counted
-    on :func:`binary_act_matmul`), the twin on a CPU tensor."""
-    if not on_cuda(x):
-        return binary_act_matmul_ref(x, w_q, w_scale)
-    out = _card_call(x, w_q, w_scale, None)
-    binary_act_matmul.launches += 1
-    return out
+    """K1's card call in the operator's arguments."""
+    return _card_call(x, w_q, w_scale, (x_scale, x_zero_point, qmin, qmax))
 
 
 def _out_like(x: torch.Tensor, w_q: torch.Tensor, *_) -> torch.Tensor:
     """Both operators' fake implementation: the (M, N) f32 output."""
     return x.new_empty((x.shape[0], w_q.shape[1]), dtype=torch.float32)
-
-
-# torch.ops.micronet_tpu_torch: one implementation for every device (the
-# kernel or the twin, by the tensor's device) and a fake one for tracing.
-# A plain library definition: torch.library.custom_op checks its inputs'
-# aliasing on every call, 0.014 to 0.031 ms more host time a call than the
-# launch alone on an H100 (chip_smoke.py phase 19), against the kernel's
-# 0.007 ms of device time
-_LIB = torch.library.Library("micronet_tpu_torch", "DEF")
-_LIB.define("int8_matmul_dequant(Tensor x, Tensor w_q, Tensor w_scale, Tensor x_scale, "
-            "Tensor x_zero_point, float qmin, float qmax) -> Tensor")
-_LIB.define("binary_act_matmul(Tensor x, Tensor w_q, Tensor w_scale) -> Tensor")
-_LIB.impl("int8_matmul_dequant", _k1_op, "CompositeExplicitAutograd")
-_LIB.impl("binary_act_matmul", _k2_op, "CompositeExplicitAutograd")
-torch.library.register_fake("micronet_tpu_torch::int8_matmul_dequant", _out_like, lib=_LIB)
-torch.library.register_fake("micronet_tpu_torch::binary_act_matmul", _out_like, lib=_LIB)
-_K1_OP = torch.ops.micronet_tpu_torch.int8_matmul_dequant.default
-_K2_OP = torch.ops.micronet_tpu_torch.binary_act_matmul.default
 
 
 def _check_inner(x: torch.Tensor, w_q: torch.Tensor) -> None:
@@ -296,7 +255,10 @@ def int8_matmul_dequant(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tenso
                   float(qmin), float(qmax))
 
 
-int8_matmul_dequant.launches = 0
+_K1_OP = _build.operator(
+    "int8_matmul_dequant(Tensor x, Tensor w_q, Tensor w_scale, Tensor x_scale, "
+    "Tensor x_zero_point, float qmin, float qmax) -> Tensor",
+    _k1_op, int8_matmul_dequant_ref, _out_like, int8_matmul_dequant)
 
 
 def int8_linear(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
@@ -334,4 +296,5 @@ def binary_act_matmul(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor)
     return _K2_OP(x, w_q, w_scale)
 
 
-binary_act_matmul.launches = 0
+_K2_OP = _build.operator("binary_act_matmul(Tensor x, Tensor w_q, Tensor w_scale) -> Tensor",
+                         _card_call, binary_act_matmul_ref, _out_like, binary_act_matmul)

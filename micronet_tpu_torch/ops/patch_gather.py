@@ -21,12 +21,10 @@ benchmark's engines needs it). On a CPU tensor each runs its plain twin,
 :func:`patch_shuffle_ref` (the reshape and transpose of
 ``nn/functional.py::channel_shuffle``), which give the same bytes. The
 wrappers call through the registered operators
-``torch.ops.micronet_tpu_torch.patch_matrix`` and ``patch_shuffle`` (each
-with a fake implementation that gives the output's shape), so that eager
-code, a captured CUDA graph and a ``torch.export`` program reach the same
-kernels. ``launches``, a module attribute, counts both operators' runs on
-a CUDA tensor (a Python call each): a CUDA graph's replay makes no Python
-call and counts nothing.
+``torch.ops.micronet_tpu_torch.patch_matrix`` and ``patch_shuffle``,
+defined by ``_build.operator`` (each with a fake implementation that gives
+the output's shape). Each wrapper's ``launches`` counts its operator's
+runs on a CUDA tensor.
 """
 
 from __future__ import annotations
@@ -39,7 +37,6 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as TF
 
-from .._device import on_cuda
 from . import _build
 
 __all__ = ["out_hw", "patch_matrix_ref", "patch_matrix", "patch_shuffle_ref", "patch_shuffle"]
@@ -58,8 +55,6 @@ _F32_COLUMNS = 4
 _TILE_BYTES = 16384
 _F32, _SHUFFLE_BYTES, _SHUFFLE_TILED = 0, 2, 3
 _INT32_MAX = 2**31 - 1
-
-launches = 0
 
 
 def out_hw(h: int, w: int, kernel: Sequence[int], stride: Sequence[int],
@@ -145,10 +140,9 @@ def _slots(device: torch.device, variant: int) -> int:
 
 def _matrix_call(x: torch.Tensor, kernel: Sequence[int], stride: Sequence[int],
                  padding: Sequence[int], dilation: Sequence[int],
-                 scale: Optional[torch.Tensor], lib=None) -> torch.Tensor:
-    """Launch the patch-matrix kernel on the card (``lib`` defaults to this
-    checkout's build); raises on what it does not take. Counts no launch:
-    the operator does."""
+                 scale: Optional[torch.Tensor]) -> torch.Tensor:
+    """Launch the patch-matrix kernel on the card; raises on what it does
+    not take. Counts no launch: the operator does."""
     xh = _nhwc_codes(x)
     if scale is not None:
         _build.check_operand("scale", scale, torch.float32, xh.device, shape=())
@@ -166,17 +160,14 @@ def _matrix_call(x: torch.Tensor, kernel: Sequence[int], stride: Sequence[int],
     blocks = _plan(m * cpr, cpr, _slots(xh.device, _F32 if scale is not None else vec))
     if blocks * _THREADS > _INT32_MAX:
         raise ValueError(f"patch matrix: a row of {cpr} chunks needs too large a grid")
-    lib = lib or _build.load("patch_gather", _LIB_SIGNATURES)
-    stream = torch._C._cuda_getCurrentRawStream(xh.device.index)
-    with _build.on_card(xh.device):
-        rc = lib.mn_patch_matrix(xh.data_ptr(), out.data_ptr(),
-                                 None if scale is None else scale.data_ptr(), n, h, w, c, ho,
-                                 wo, kh, kw, sh, sw, ph, pw, dh, dw, vec, blocks, stream)
-    _build.check(rc, "patch_matrix")
+    lib = _build.load("patch_gather", _LIB_SIGNATURES)
+    _build.launch(lib.mn_patch_matrix, xh.device, "patch_matrix", xh.data_ptr(), out.data_ptr(),
+                  None if scale is None else scale.data_ptr(), n, h, w, c, ho, wo, kh, kw, sh,
+                  sw, ph, pw, dh, dw, vec, blocks)
     return out
 
 
-def _shuffle_call(x: torch.Tensor, groups: int, lib=None) -> torch.Tensor:
+def _shuffle_call(x: torch.Tensor, groups: int) -> torch.Tensor:
     """Launch the shuffle kernel on the card; raises on what it does not
     take. Returns (N, H, W, C) contiguous codes. Counts no launch."""
     xh = _nhwc_codes(x)
@@ -195,28 +186,9 @@ def _shuffle_call(x: torch.Tensor, groups: int, lib=None) -> torch.Tensor:
         blocks = _plan(pixels * c, c, _slots(xh.device, _SHUFFLE_BYTES))
     if blocks * _THREADS > _INT32_MAX:
         raise ValueError(f"patch shuffle: {c} channels need too large a grid")
-    lib = lib or _build.load("patch_gather", _LIB_SIGNATURES)
-    stream = torch._C._cuda_getCurrentRawStream(xh.device.index)
-    with _build.on_card(xh.device):
-        rc = lib.mn_patch_shuffle(xh.data_ptr(), out.data_ptr(), pixels, c, groups, int(tiled),
-                                  blocks, stream)
-    _build.check(rc, "patch_shuffle")
-    return out
-
-
-def _count() -> None:
-    global launches
-    launches += 1
-
-
-def _matrix_op(x, kernel, stride, padding, dilation, scale):
-    """The operator's implementation: the kernel on a CUDA tensor (counted
-    in :data:`launches`), the twin on a CPU tensor (contiguous, as the
-    kernel's output)."""
-    if not on_cuda(x):
-        return patch_matrix_ref(x, kernel, stride, padding, dilation, scale).contiguous()
-    out = _matrix_call(x, kernel, stride, padding, dilation, scale)
-    _count()
+    lib = _build.load("patch_gather", _LIB_SIGNATURES)
+    _build.launch(lib.mn_patch_shuffle, xh.device, "patch_shuffle", xh.data_ptr(),
+                  out.data_ptr(), pixels, c, groups, int(tiled), blocks)
     return out
 
 
@@ -229,34 +201,10 @@ def _matrix_like(x, kernel, stride, padding, dilation, scale):
                        dtype=torch.int8 if scale is None else torch.float32)
 
 
-def _shuffle_op(x, groups):
-    """The operator's implementation: (N, H, W, C) codes, from the kernel on
-    a CUDA tensor (counted in :data:`launches`), from the twin on a CPU
-    tensor."""
-    if not on_cuda(x):
-        return patch_shuffle_ref(x, groups).permute(0, 2, 3, 1).contiguous()
-    out = _shuffle_call(x, groups)
-    _count()
-    return out
-
-
 def _shuffle_like(x, groups):
     """The fake implementation: the (N, H, W, C) output."""
     n, c, h, w = x.shape
     return x.new_empty((n, h, w, c))
-
-
-# a fragment of ops/int_matmul.py's namespace, defined as the requant epilogue's is
-_LIB = torch.library.Library("micronet_tpu_torch", "FRAGMENT")
-_LIB.define("patch_matrix(Tensor x, int[] kernel, int[] stride, int[] padding, int[] dilation, "
-            "Tensor? scale) -> Tensor")
-_LIB.impl("patch_matrix", _matrix_op, "CompositeExplicitAutograd")
-torch.library.register_fake("micronet_tpu_torch::patch_matrix", _matrix_like, lib=_LIB)
-_LIB.define("patch_shuffle(Tensor x, int groups) -> Tensor")
-_LIB.impl("patch_shuffle", _shuffle_op, "CompositeExplicitAutograd")
-torch.library.register_fake("micronet_tpu_torch::patch_shuffle", _shuffle_like, lib=_LIB)
-_MATRIX = torch.ops.micronet_tpu_torch.patch_matrix.default
-_SHUFFLE = torch.ops.micronet_tpu_torch.patch_shuffle.default
 
 
 def _ints(v: Sequence[int]) -> List[int]:
@@ -282,3 +230,15 @@ def patch_shuffle(x: torch.Tensor, groups: int) -> torch.Tensor:
     kernel or a raise, on a CPU tensor the twin :func:`patch_shuffle_ref`
     laid out as NHWC."""
     return _SHUFFLE(x, int(groups)).permute(0, 3, 1, 2)
+
+
+# the operators' CPU results are laid out as the kernels': the patch matrix contiguous, the
+# shuffle (N, H, W, C)
+_MATRIX = _build.operator(
+    "patch_matrix(Tensor x, int[] kernel, int[] stride, int[] padding, int[] dilation, "
+    "Tensor? scale) -> Tensor",
+    _matrix_call, lambda *a: patch_matrix_ref(*a).contiguous(), _matrix_like, patch_matrix)
+_SHUFFLE = _build.operator(
+    "patch_shuffle(Tensor x, int groups) -> Tensor", _shuffle_call,
+    lambda x, groups: patch_shuffle_ref(x, groups).permute(0, 2, 3, 1).contiguous(),
+    _shuffle_like, patch_shuffle)

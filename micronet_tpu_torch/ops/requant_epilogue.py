@@ -21,12 +21,10 @@ On a CUDA tensor the wrapper launches the hand-written kernel
 plain twin :func:`requant_epilogue_ref`, the engine's chain of PyTorch
 operations, which does the same f32 operations in the same order, so the
 two agree bit for bit. The wrapper calls through the registered operator
-``torch.ops.micronet_tpu_torch.requant_epilogue`` (with a fake
-implementation that gives the output's shape), so that eager code, a
-captured CUDA graph and a ``torch.export`` program reach the same kernel.
-``requant_epilogue.launches`` counts the operator's runs on a CUDA tensor
-(a Python call each): a CUDA graph's replay makes no Python call and
-counts nothing.
+``torch.ops.micronet_tpu_torch.requant_epilogue``, defined by
+``_build.operator`` (with a fake implementation that gives the output's
+shape). ``requant_epilogue.launches`` counts the operator's runs on a CUDA
+tensor.
 """
 
 from __future__ import annotations
@@ -37,7 +35,6 @@ from typing import Optional
 
 import torch
 
-from .._device import on_cuda
 from ..quant.rounding import round_half_away
 from . import _build
 
@@ -87,19 +84,11 @@ def _plan(m: int, o: int, vector: bool, sms: int) -> int:
     return -(-blocks // step) * step
 
 
-def _check(acc: torch.Tensor, s_x: torch.Tensor, w_scale: Optional[torch.Tensor],
-           bias: Optional[torch.Tensor], out_scale: torch.Tensor) -> None:
-    """Raise on what the kernel does not take: ``acc`` not (M, O) int32
-    (with ``w_scale``) or f32 (without) with unit column stride, or a
-    scale or bias not f32 and contiguous on ``acc``'s card."""
-    dev = acc.device
-    m, o = acc.shape if acc.dim() == 2 else (0, 0)
-    if acc.dim() != 2 or (o > 1 and acc.stride(1) != 1) or (m > 1 and acc.stride(0) < o):
-        raise ValueError(f"acc: need (M, O) rows with unit column stride, got shape "
-                         f"{tuple(acc.shape)}, strides {acc.stride()}")
-    if (acc.dtype, w_scale is None) not in ((torch.int32, False), (torch.float32, True)):
-        raise ValueError(f"acc: need int32 with w_scale or float32 without, got {acc.dtype} "
-                         f"{'without' if w_scale is None else 'with'} w_scale")
+def check_operands(dev: torch.device, o: int, s_x: torch.Tensor, w_scale: Optional[torch.Tensor],
+                   bias: Optional[torch.Tensor], out_scale: torch.Tensor) -> None:
+    """Raise unless the epilogue's operands are f32 and contiguous on
+    ``dev``: ``w_scale`` and ``bias`` (O,) or None, ``s_x`` and
+    ``out_scale`` 0-dim."""
     for name, t in (("w_scale", w_scale), ("bias", bias)):
         if t is not None:
             _build.check_operand(name, t, torch.float32, dev, shape=(o,))
@@ -107,14 +96,28 @@ def _check(acc: torch.Tensor, s_x: torch.Tensor, w_scale: Optional[torch.Tensor]
         _build.check_operand(name, t, torch.float32, dev, shape=())
 
 
+def _check(acc: torch.Tensor, s_x: torch.Tensor, w_scale: Optional[torch.Tensor],
+           bias: Optional[torch.Tensor], out_scale: torch.Tensor) -> None:
+    """Raise on what the kernel does not take: ``acc`` not (M, O) int32
+    (with ``w_scale``) or f32 (without) with unit column stride, or a
+    scale or bias not f32 and contiguous on ``acc``'s card."""
+    m, o = acc.shape if acc.dim() == 2 else (0, 0)
+    if acc.dim() != 2 or (o > 1 and acc.stride(1) != 1) or (m > 1 and acc.stride(0) < o):
+        raise ValueError(f"acc: need (M, O) rows with unit column stride, got shape "
+                         f"{tuple(acc.shape)}, strides {acc.stride()}")
+    if (acc.dtype, w_scale is None) not in ((torch.int32, False), (torch.float32, True)):
+        raise ValueError(f"acc: need int32 with w_scale or float32 without, got {acc.dtype} "
+                         f"{'without' if w_scale is None else 'with'} w_scale")
+    check_operands(acc.device, o, s_x, w_scale, bias, out_scale)
+
+
 def _card_call(acc: torch.Tensor, s_x: torch.Tensor, w_scale: Optional[torch.Tensor],
                bias: Optional[torch.Tensor], out_scale: torch.Tensor, qmin: float, qmax: float,
-               chained: bool, lib=None) -> torch.Tensor:
-    """Launch the kernel on the card (``lib`` defaults to this checkout's
-    build); raises on what it does not take. Counts no launch: the
-    operator does."""
+               chained: bool) -> torch.Tensor:
+    """Launch the kernel on the card; raises on what it does not take.
+    Counts no launch: the operator does."""
     _check(acc, s_x, w_scale, bias, out_scale)
-    lib = lib or _build.load("requant_epilogue", _LIB_SIGNATURES)
+    lib = _build.load("requant_epilogue", _LIB_SIGNATURES)
     m, o = acc.shape
     out = acc.new_empty((m, o), dtype=torch.int8 if chained else torch.float32)
     if m == 0 or o == 0:
@@ -122,26 +125,11 @@ def _card_call(acc: torch.Tensor, s_x: torch.Tensor, w_scale: Optional[torch.Ten
     ld = acc.stride(0)
     vector = o % 4 == 0 and ld % 4 == 0 and acc.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
     blocks = _plan(m, o, vector, _build.sm_count(acc.device))
-    stream = torch._C._cuda_getCurrentRawStream(acc.device.index)
-    with _build.on_card(acc.device):
-        rc = lib.mn_requant_epilogue(
-            acc.data_ptr(), int(acc.dtype == torch.int32), ld, s_x.data_ptr(),
-            None if w_scale is None else w_scale.data_ptr(),
-            None if bias is None else bias.data_ptr(), out_scale.data_ptr(), out.data_ptr(), m, o,
-            int(chained), qmin, qmax, int(vector), blocks, stream)
-    _build.check(rc, "requant_epilogue")
-    return out
-
-
-def _op(acc: torch.Tensor, s_x: torch.Tensor, w_scale: Optional[torch.Tensor],
-        bias: Optional[torch.Tensor], out_scale: torch.Tensor, qmin: float, qmax: float,
-        chained: bool) -> torch.Tensor:
-    """The operator's implementation: the kernel on a CUDA tensor (counted
-    on :func:`requant_epilogue`), the twin on a CPU tensor."""
-    if not on_cuda(acc):
-        return requant_epilogue_ref(acc, s_x, w_scale, bias, out_scale, qmin, qmax, chained)
-    out = _card_call(acc, s_x, w_scale, bias, out_scale, qmin, qmax, chained)
-    requant_epilogue.launches += 1
+    _build.launch(lib.mn_requant_epilogue, acc.device, "requant_epilogue",
+                  acc.data_ptr(), int(acc.dtype == torch.int32), ld, s_x.data_ptr(),
+                  None if w_scale is None else w_scale.data_ptr(),
+                  None if bias is None else bias.data_ptr(), out_scale.data_ptr(),
+                  out.data_ptr(), m, o, int(chained), qmin, qmax, int(vector), blocks)
     return out
 
 
@@ -149,16 +137,6 @@ def _out_like(acc: torch.Tensor, s_x, w_scale, bias, out_scale, qmin, qmax,
               chained: bool) -> torch.Tensor:
     """The fake implementation: the (M, O) output, int8 when chained."""
     return acc.new_empty(tuple(acc.shape), dtype=torch.int8 if chained else torch.float32)
-
-
-# a fragment of ops/int_matmul.py's namespace (one plain definition, as K1's: no per-call
-# aliasing checks)
-_LIB = torch.library.Library("micronet_tpu_torch", "FRAGMENT")
-_LIB.define("requant_epilogue(Tensor acc, Tensor s_x, Tensor? w_scale, Tensor? bias, "
-            "Tensor out_scale, float qmin, float qmax, bool chained) -> Tensor")
-_LIB.impl("requant_epilogue", _op, "CompositeExplicitAutograd")
-torch.library.register_fake("micronet_tpu_torch::requant_epilogue", _out_like, lib=_LIB)
-_OP = torch.ops.micronet_tpu_torch.requant_epilogue.default
 
 
 def requant_epilogue(acc: torch.Tensor, s_x: torch.Tensor, w_scale: Optional[torch.Tensor],
@@ -174,4 +152,7 @@ def requant_epilogue(acc: torch.Tensor, s_x: torch.Tensor, w_scale: Optional[tor
     return _OP(acc, s_x, w_scale, bias, out_scale, float(qmin), float(qmax), bool(chained))
 
 
-requant_epilogue.launches = 0
+_OP = _build.operator(
+    "requant_epilogue(Tensor acc, Tensor s_x, Tensor? w_scale, Tensor? bias, "
+    "Tensor out_scale, float qmin, float qmax, bool chained) -> Tensor",
+    _card_call, requant_epilogue_ref, _out_like, requant_epilogue)

@@ -162,7 +162,7 @@ def test_wrapper_calls_the_regime_entry_once(monkeypatch, m, k, n, binary):
     planned shapes, and counts one launch; the forced calls count none;
     nothing falls back to the twin."""
     lib = _Lib()
-    monkeypatch.setattr(ti8, "on_cuda", lambda t: True)
+    monkeypatch.setattr(_build, "on_cuda", lambda t: True)
     monkeypatch.setattr(_build, "load", lambda name, sig, defines=(): lib)
     monkeypatch.setattr(_build, "sm_count", lambda dev: 132)
     monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream", lambda index: 7, raising=False)
@@ -195,7 +195,7 @@ def test_a_card_tensor_launches_or_raises(monkeypatch, m, k, n):
     """Both regimes of both wrappers take the kernel path on a card tensor,
     never the twin: without a built kernel the call raises and counts no
     launch."""
-    monkeypatch.setattr(ti8, "on_cuda", lambda t: True)
+    monkeypatch.setattr(_build, "on_cuda", lambda t: True)
     monkeypatch.setattr(_build, "_nvcc", lambda: (_ for _ in ()).throw(
         RuntimeError("nvcc not found")))
     _build._cdll.cache_clear()

@@ -137,7 +137,7 @@ def test_engine_chains_int8_through_the_blocks(calibrated):
 
 
 def _receiver(scale: float) -> E.IntAvgPool2d:
-    return E.IntAvgPool2d(2, 2, 0, torch.tensor(scale))
+    return E.IntAvgPool2d(2, 2, 0, torch.tensor(scale), -128.0, 127.0)
 
 
 @pytest.mark.parametrize("observed", [True, False])
@@ -150,7 +150,7 @@ def test_relu6_passthrough_equals_quantize_after_clamp(observed):
     scales = ([6.0 / 127.5, 5.9 / 127.5, 1e-3] if observed
               else [0.0713, 0.1, 6.0 / 7.5, 2.0 / 3.0])
     for s in scales:
-        recv, emitter, relu6 = _receiver(s), E.IntMaxPool2d(2, 2, 0, torch.tensor(1.0)), M.ReLU6()
+        recv, emitter, relu6 = _receiver(s), E.IntMaxPool2d(2, 2, 0, torch.tensor(1.0), -128.0, 127.0), M.ReLU6()
         E._link(emitter, recv, [M.Identity(), relu6])
         s32 = torch.tensor(s)
         assert relu6.code_max == min(127, int(torch.floor(6.0 / s32 + 0.5)))

@@ -329,7 +329,7 @@ def test_int8_linear_on_a_card_tensor_launches_or_raises(monkeypatch):
     from micronet_tpu_torch.ops import _build
     from micronet_tpu_torch.ops import int_matmul as tim8
 
-    monkeypatch.setattr(tim8, "on_cuda", lambda t: True)
+    monkeypatch.setattr(_build, "on_cuda", lambda t: True)
     monkeypatch.setattr(_build, "_nvcc", lambda: (_ for _ in ()).throw(
         RuntimeError("nvcc not found")))
     _build._cdll.cache_clear()

@@ -396,11 +396,15 @@ def card():
     return torch.device("cuda")
 
 
+def _launches() -> int:
+    return PG.patch_matrix.launches + PG.patch_shuffle.launches
+
+
 def _launched(fn, *args, **kw):
-    before = PG.launches
+    before = _launches()
     out = fn(*args, **kw)
     torch.cuda.synchronize()
-    assert PG.launches == before + 1
+    assert _launches() == before + 1
     return out
 
 
@@ -477,10 +481,10 @@ def test_captured_kernels_replay_equal_the_twins(card):
         step(static)
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    before = PG.launches
+    before = _launches()
     with torch.cuda.graph(graph):
         shuffled, cols = step(static)
-    assert PG.launches == before + 2
+    assert _launches() == before + 2
     for seed in (2, 3):
         static.copy_(_codes(64, 256, 16, seed=seed, dev=card))
         graph.replay()
@@ -488,7 +492,7 @@ def test_captured_kernels_replay_equal_the_twins(card):
         want = PG.patch_shuffle_ref(static, 2)
         assert torch.equal(shuffled, want)
         _same_bits(cols, PG.patch_matrix_ref(want, *geo))
-    assert PG.launches == before + 2
+    assert _launches() == before + 2
 
 
 # the three engine cells at full width: (net factory, bits, patch kernels an eager forward)
@@ -550,16 +554,16 @@ def test_engine_equals_the_parent_route_and_launches_per_forward(card, net, monk
 
     with torch.no_grad(), monkeypatch.context() as mp:
         mp.setattr(PG, "_nhwc_codes", recorded)
-        before = PG.launches
+        before = _launches()
         logits = eng(x)
         torch.cuda.synchronize()
-        assert PG.launches - before == want
+        assert _launches() - before == want
     assert backed == [True] * want
     with torch.no_grad(), monkeypatch.context() as mp:
         mp.setattr(E._IntConvRoutes, "_im2col", _parent_im2col)
         mp.setattr(F, "channel_shuffle", PG.patch_shuffle_ref)
-        before = PG.launches
+        before = _launches()
         parent = eng(x)
         torch.cuda.synchronize()
-        assert PG.launches == before
+        assert _launches() == before
     _same_bits(logits, parent)

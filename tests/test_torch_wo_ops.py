@@ -167,7 +167,8 @@ def test_wrappers_on_a_card_tensor_launch_or_raise(monkeypatch, name):
     from micronet_tpu_torch.ops import _build
 
     mod = tim8 if name == "binary_act_matmul" else tim
-    monkeypatch.setattr(mod, "on_cuda", lambda t: True)
+    # K2's device dispatch is the registered operator's (``_build.operator``)
+    monkeypatch.setattr(_build if mod is tim8 else tim, "on_cuda", lambda t: True)
     monkeypatch.setattr(_build, "_nvcc", lambda: (_ for _ in ()).throw(
         RuntimeError("nvcc not found")))
     _build._cdll.cache_clear()
